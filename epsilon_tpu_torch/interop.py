@@ -1,0 +1,69 @@
+"""Carry compiled problems and solver state across from the JAX package.
+
+The port is held against ``epsilon_tpu`` on the identical compiled problem
+and state.  These helpers take the reference's objects apart through their
+host (numpy) interfaces only, so this module imports neither JAX nor the
+JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import scipy.sparse as sp
+
+from .ir import (AffineOperator, Cone, ConeConstraint, ProxFunctionSpec,
+                 ProxKind, ProxProblem, ProxTerm)
+from .ops import linop
+from .ops.block import BlockMatrix, BlockVector
+
+
+def linop_from_numpy(op) -> linop.LinOp:
+    """The port's operator for a reference operator, through its host
+    interface: ``scalar_value()``, ``diag_value()``, then ``as_sparse()``
+    for operators backed by a scipy matrix and ``as_dense()`` otherwise."""
+    n = op.shape[1]
+    if op.shape[0] == n:
+        sv = op.scalar_value()
+        if sv is not None:
+            return linop.ScalarOp(sv, n)
+        dv = op.diag_value()
+        if dv is not None:
+            return linop.DiagonalOp(np.asarray(dv))
+    if sp.issparse(getattr(op, "A", None)):
+        return linop.SparseOp(op.as_sparse())
+    return linop.DenseOp(np.asarray(op.as_dense()))
+
+
+def _affine(aff) -> AffineOperator:
+    A = BlockMatrix({key: linop_from_numpy(op) for key, op in aff.A.blocks.items()})
+    b = BlockVector({k: np.asarray(v, dtype=np.float64) for k, v in aff.b.items()})
+    return AffineOperator(A, b)
+
+
+def _spec(s) -> ProxFunctionSpec:
+    return ProxFunctionSpec(
+        kind=ProxKind(s.kind.value), epigraph=s.epigraph, alpha=s.alpha,
+        arg_sizes=[tuple(a) for a in s.arg_sizes], k=s.k,
+        scaled_zone_params=s.scaled_zone_params, axis=s.axis)
+
+
+def prox_problem_from_numpy(p) -> ProxProblem:
+    """The port's ``ProxProblem`` for a JAX-package ``ProxProblem``."""
+    return ProxProblem(
+        terms=[ProxTerm(_spec(t.spec), _affine(t.H)) for t in p.terms],
+        constraints=[ConeConstraint(Cone(c.cone.value), _affine(c.op))
+                     for c in p.constraints],
+        var_dims=dict(p.var_dims),
+        var_shapes={k: tuple(v) for k, v in p.var_shapes.items()})
+
+
+def state_from_numpy(z: Dict[str, np.ndarray], u: Dict[str, np.ndarray]):
+    """The two-block solver's warm state ``(z, u)`` from per-variable numpy
+    arrays (e.g. a JAX solver's state, converted with ``np.asarray``), as
+    tensors on the configured device."""
+    def bv(d):
+        return BlockVector({k: linop.to_tensor(np.array(v, dtype=np.float64))
+                            for k, v in d.items()})
+    return bv(z), bv(u)

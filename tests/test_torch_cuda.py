@@ -1,0 +1,120 @@
+"""CUDA-only tests of the port: the sym_packed kernel against its plain
+PyTorch version, the factor apply and a small lasso on the card.  They skip
+without a CUDA device.  This file imports neither JAX nor the JAX package,
+so it also runs where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import epsilon_tpu_torch as et
+from epsilon_tpu_torch import config
+from epsilon_tpu_torch.ops import linop
+from epsilon_tpu_torch.ops.kernels import sym_packed as sp
+from epsilon_tpu_torch.ops.prox import operator as prox_operator
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    config.set_device("cuda")
+    yield torch.device("cuda")
+    config.set_device("cpu")
+
+
+@pytest.fixture
+def rs():
+    return np.random.RandomState(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R", [1, 3, 9, 300])
+def test_kernel_matches_reference(cuda, rs, dtype, R):
+    n = 700                                    # pads to 768: a ragged last block
+    A = rs.randn(n, n)
+    tiles, ii, jj, n_pad = sp.pack_sym_tiles(A + A.T)
+    t = torch.as_tensor(tiles, dtype=dtype, device=cuda)
+    i = torch.as_tensor(ii, device=cuda)
+    j = torch.as_tensor(jj, device=cuda)
+    X = rs.randn(n_pad, R)
+    X[n:] = 0.0
+    x = torch.as_tensor(X, dtype=dtype, device=cuda)
+    plan = tuple(torch.as_tensor(a, device=cuda)
+                 for a in sp.sym_packed_plan(ii, jj, n_pad // sp.SYM_TILE))
+    before = sp.launches
+    y = sp.sym_packed_matmul(t, i, j, x, plan)
+    assert sp.launches == before + 1
+    ref = sp.sym_packed_matmul_reference(t, i, j, x)
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    assert (y - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert torch.equal(y, sp.sym_packed_matmul(t, i, j, x, plan))
+    assert torch.all(y[n:] == 0)
+
+
+def test_kernel_rejects_mixed_devices(cuda):
+    T = sp.SYM_TILE
+    tiles = torch.zeros(1, T, T, device=cuda)
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda)
+    plan = (torch.tensor([0, 1], dtype=torch.int32, device=cuda), idx)
+    with pytest.raises(ValueError):
+        sp.sym_packed_matmul(tiles.cpu(), idx, idx, torch.zeros(T, 1, device=cuda), plan)
+    with pytest.raises(TypeError):
+        sp.sym_packed_matmul(tiles, idx, idx,
+                             torch.zeros(T, 1, dtype=torch.float64, device=cuda), plan)
+
+
+def test_cuda_defaults(cuda):
+    assert config.default_dtype() == torch.float32
+    assert config.use_explicit_inverse()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("n", [300, 2 * sp.SYM_TILE])   # padded, and not
+def test_symmetric_factor_applies_through_kernel(cuda, rs, monkeypatch, n):
+    monkeypatch.setattr(config, "SYM_PACKED_MIN_DIM", 64)
+    A = rs.randn(n, n)
+    M = A @ A.T + n * np.eye(n)
+    op = linop.LuFactorOp.symmetric(M)
+    X = rs.randn(n, 4)
+    before = sp.launches
+    got_v = op.matvec(linop.to_tensor(X[:, 0])).cpu().numpy()
+    got_m = op.matmat(linop.to_tensor(X)).cpu().numpy()
+    assert sp.launches == before + 2
+    np.testing.assert_allclose(got_v, np.linalg.solve(M, X[:, 0]), rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(got_m, np.linalg.solve(M, X), rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("path", ["default", "sym_packed"])
+def test_lasso_on_card_matches_cpu_port(cuda, rs, monkeypatch, path):
+    if path == "sym_packed":
+        monkeypatch.setattr(config, "SYM_PACKED_MIN_DIM", 64)
+        monkeypatch.setattr(prox_operator, "_COLLAPSE_MAX_ENTRIES", 0.0)
+    m, n = 300, 150
+    A = rs.randn(m, n) / np.sqrt(m)
+    b = A @ (rs.randn(n) * (rs.rand(n) < 0.1)) + 0.01 * rs.randn(m)
+    lam = 0.1 * np.abs(A.T @ b).max()
+
+    def solve():
+        x = et.Variable(n)
+        prob = et.Problem(et.Minimize(
+            0.5 * et.sum_squares(et._wrap(A) * x - b) + lam * et.norm1(x)))
+        obj = prob.solve(rel_tol=1e-3, abs_tol=1e-6)
+        return obj, np.asarray(x.value), prob
+
+    before = sp.launches
+    obj_gpu, x_gpu, prob = solve()
+    launches = sp.launches - before
+    assert prob.status == "optimal"
+    if path == "sym_packed":
+        assert launches >= prob.solver_status.num_iterations
+    config.set_device("cpu")
+    obj_cpu, x_cpu, _ = solve()
+    np.testing.assert_allclose(obj_gpu, obj_cpu, rtol=1e-4)
+    np.testing.assert_allclose(x_gpu, x_cpu, rtol=0, atol=1e-3)
