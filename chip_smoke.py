@@ -4,8 +4,9 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Card and build: the card's name and power limit, then the sym_packed
-   CUDA kernel is compiled from ``epsilon_tpu_torch/csrc``.
+1. Card and build: the card's name and power limit, then both CUDA kernels
+   (sym_packed, local_update) are compiled from ``epsilon_tpu_torch/csrc``,
+   one ``nvcc`` each, started together.
 2. Kernel against its plain PyTorch version on the card, at the shape the
    main path gives it (n = 8192, R = 1) and at R = 8, in f32 and f64:
    maximum error, bitwise repeatability, and CUDA-event times of the
@@ -17,6 +18,19 @@ Phases, in order; any failure exits non-zero:
    the default CUDA mode (explicit inverse, so the 8192-dimensional pivot
    applies through the sym_packed kernel every iteration), with the launch
    count and the same f64 check.
+5. Kernel K1 (fused consensus local update) against its plain PyTorch
+   version at (S, n) = (200, 200) in f32 and f64 (the consensus row's
+   shape), (40, 5000) in f32 (4 GB of inverses, generated on the card) and
+   the ragged (8, 130) in f32 and f64: error, bitwise repeatability, two rho
+   values through one loaded library, and device times of the kernel, the
+   plain version and a ``Finv.sum()`` read of the same bytes.
+6. Consensus lasso at full width (bench.py's consensus row: 200 blocks of
+   2500 x 200, 1e8 nonzeros, seed 0, lambda 0.1, rho 1, f32) through
+   ``consensus_lasso_solver`` in the default CUDA mode (explicit inverse, so
+   K1 runs every iteration): a solve to rel_tol 1e-5 checked in f64 numpy
+   on the stacked problem and against a numpy f64 consensus iteration, the
+   set-up timed in pieces, bench.py's steady re-solves of 500 iterations,
+   and the K1 launch count.
 
 Prints a ``{"kernels": [...]}`` line, then a last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -28,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy.linalg
@@ -44,6 +59,17 @@ KKT_TOL = 1e-2
 OBJ_RTOL = 1e-4
 # Iterations of the timed warm re-solve of the 16384 x 8192 lasso.
 STEADY_ITERS = 200
+# Phase 5 tolerance, relative to max |plain result|: the kernel sums in
+# another order than torch.bmm.
+LOCAL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# Phase 6: consensus z (f32 on the card) against a numpy f64 consensus
+# iteration run for the same count of iterations.  The port in f32 on the
+# CPU drifted 1.4e-7 to 3.4e-7 from it at 20 and 40 blocks of 2500 x 200
+# (max |z| about 2).
+CONSENSUS_Z_ATOL = 1e-5
+# bench.py's consensus row: re-solves of 500 iterations, epochs of 50.
+CONSENSUS_STEADY_ITERS = 500
+CONSENSUS_REPS = 3
 # Spin before each device-timed call (about 1 ms): longer than any host
 # enqueue time of the calls timed.
 HEAD_START_CYCLES = 2_000_000
@@ -212,11 +238,181 @@ def run_lasso(ep, tag, A, b, lam, steady_iters):
     return xv, first_iters
 
 
+def phase_local_update(lu):
+    """K1 against its plain version; returns the JSON record for the
+    consensus row's shape ((200, 200), f32)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    record = None
+    for S, n, dtypes in ((200, 200, (torch.float32, torch.float64)),
+                         (40, 5000, (torch.float32,)),
+                         (8, 130, (torch.float32, torch.float64))):
+        for dtype in dtypes:
+            gen.manual_seed(2)
+            Finv, Atb, u, z = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                               for shape in ((S, n, n), (S, n), (S, n), (n,)))
+            lib = lu._library()
+            errs = []
+            for rho in (1.0, 0.37):
+                x, xu = lu.fused_local_update(Finv, Atb, u, z, rho)
+                x2, xu2 = lu.fused_local_update(Finv, Atb, u, z, rho)
+                x_ref, xu_ref = lu.local_update_reference(Finv, Atb, u, z, rho)
+                torch.cuda.synchronize()
+                for name, got, again, ref in (("x", x, x2, x_ref), ("xu_sum", xu, xu2, xu_ref)):
+                    scale = ref.abs().max().item()
+                    err = (got - ref).abs().max().item()
+                    if not err <= LOCAL_RTOL[dtype] * scale:
+                        raise AssertionError(f"local_update ({S}, {n}) {dtype} rho={rho} {name}: "
+                                             f"max error {err} > {LOCAL_RTOL[dtype]} * {scale}")
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"local_update ({S}, {n}) {dtype} {name}: two runs differ")
+                    errs.append((err, scale))
+                if rho == 1.0:
+                    x_first = x
+            if lu._library() is not lib or lu.build()[1] != 0.0 or torch.equal(x_first, x):
+                raise AssertionError("local_update: a new rho rebuilt the library or was ignored")
+            kernel = lambda: lu.fused_local_update(Finv, Atb, u, z, 0.37)
+            plain = lambda: lu.local_update_reference(Finv, Atb, u, z, 0.37)
+            ms, plain_ms = device_ms(kernel), device_ms(plain)
+            read_ms = device_ms(lambda: Finv.sum())
+            gbps = Finv.numel() * Finv.element_size() / (ms * 1e6)
+            err, scale = max(errs)
+            log(f"[5] local_update S={S} n={n} {str(dtype)[6:]}: max_abs_err={err:.3e} "
+                f"(max|ref|={scale:.3e}, rtol {LOCAL_RTOL[dtype]:g}), bitwise repeatable, "
+                f"rho 1.0 and 0.37 through one library; device time: kernel {ms:.4f} ms "
+                f"({gbps:.0f} GB/s on Finv), plain {plain_ms:.4f} ms, Finv.sum() {read_ms:.4f} ms; "
+                f"back-to-back per call: kernel {call_ms(kernel):.4f} ms")
+            if (S, n, dtype) == (200, 200, torch.float32):
+                record = {"name": "fused_local_update", "route": "cuda",
+                          "source": "epsilon_tpu_torch/csrc/local_update.cu",
+                          "replaces": "epsilon_tpu/ops/pallas_kernels.py:72",
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            del Finv, Atb, u, z
+    return record
+
+
+def numpy_consensus(A, b, lam, rho, iters):
+    """The consensus lasso iteration in f64 numpy (explicit inverses, fixed
+    rho), run for a fixed count of iterations; returns z."""
+    S, m, n = A.shape
+    A = A.astype(np.float64)
+    b = b.astype(np.float64)
+    At = A.transpose(0, 2, 1)
+    Finv = np.linalg.inv(At @ A + rho * np.eye(n))
+    Atb = (At @ b[:, :, None])[:, :, 0]
+    thresh = lam / (S * rho)
+    u = np.zeros((S, n))
+    z = np.zeros(n)
+    for _ in range(iters):
+        x = (Finv @ (Atb + rho * (z[None, :] - u))[:, :, None])[:, :, 0]
+        v = (x + u).mean(axis=0)
+        z = np.sign(v) * np.maximum(np.abs(v) - thresh, 0.0)
+        u = u + x - z[None, :]
+    return z
+
+
+def setup_pieces(A, b, rho):
+    """The consensus lasso's explicit-inverse set-up, piece by piece, as
+    ``consensus_lasso_solver`` runs it: upload, products on the card, host
+    f64 inverses, upload of the inverses.  Returns seconds per piece."""
+    t = [time.perf_counter()]
+    A_d, b_d = torch.as_tensor(A, device="cuda"), torch.as_tensor(b, device="cuda")
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    AtA = torch.bmm(A_d.transpose(1, 2), A_d)
+    torch.bmm(A_d.transpose(1, 2), b_d.unsqueeze(-1))
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    Finv = np.linalg.inv(AtA.cpu().to(torch.float64).numpy() + rho * np.eye(A.shape[2]))
+    t.append(time.perf_counter())
+    torch.as_tensor(Finv.astype(np.float32), device="cuda")
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    return dict(zip(("upload", "products", "host f64 inverses", "inverse upload"),
+                    np.diff(t)))
+
+
+def phase_consensus(lu):
+    """bench.py's consensus row on the card; returns K1's launch count."""
+    from epsilon_tpu_torch.parallel import consensus_lasso_solver
+    from epsilon_tpu_torch.problems.scaling_bench import make_blocks
+    S, m, n, lam, rho = 200, 2500, 200, 0.1, 1.0
+    t0 = time.time()
+    A, b = make_blocks(S, m, n)
+    log(f"[6] generated {S} blocks of {m}x{n} ({A.size:.2e} nonzeros) in {time.time() - t0:.2f} s")
+    lu.launches = 0
+
+    # (a) a solve to convergence.  At rel_tol 1e-4 the f32 solve stopped
+    # after 20 iterations with KKT/lambda 1.26e-2 on an H100; 1e-5 takes
+    # about 30 (4.5e-5 in f64 on the CPU).
+    t0 = time.perf_counter()
+    solver = consensus_lasso_solver(A, b, lam, rho=rho, rel_tol=1e-5, abs_tol=1e-8,
+                                    max_iterations=2000)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if solver.local_update is None:
+        raise AssertionError("consensus: the K1 path was not taken")
+    t0 = time.perf_counter()
+    res = solver.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    iters_run = res.iterations
+    z = res.z.cpu().numpy().astype(np.float64)
+    if not res.converged or z.shape != (n,) or not np.all(np.isfinite(z)):
+        raise AssertionError(f"consensus: converged={res.converged} after {res.iterations} "
+                             "iterations, or a non-finite or misshapen z")
+    X = A.astype(np.float64).reshape(S * m, n)
+    g = X.T @ (X @ z) - X.T @ b.astype(np.float64).ravel()
+    kkt = float(np.where(z != 0, np.abs(g + lam * np.sign(z)),
+                         np.maximum(np.abs(g) - lam, 0.0)).max() / lam)
+    z_ref = numpy_consensus(A, b, lam, rho, res.iterations)
+    dz = float(np.abs(z - z_ref).max())
+    log(f"[6] consensus {S}x{m}x{n}: converged in {res.iterations} iterations "
+        f"(rel_tol 1e-5), kkt {kkt:.2e} (tol {KKT_TOL:g}), {int((z != 0).sum())} nonzeros, "
+        f"max|z - z_f64 iteration| {dz:.2e} (tol {CONSENSUS_Z_ATOL:g}); "
+        f"set-up {setup_s:.3f} s, solve {solve_s:.3f} s")
+    if not kkt <= KKT_TOL:
+        raise AssertionError(f"consensus: optimality violation {kkt} > {KKT_TOL}")
+    if not dz <= CONSENSUS_Z_ATOL:
+        raise AssertionError(f"consensus: z differs from the f64 iteration by {dz} "
+                             f"> {CONSENSUS_Z_ATOL}")
+    pieces = setup_pieces(A, b, rho)
+    log("[6] set-up pieces, timed apart: " + ", ".join(f"{k} {v:.3f} s" for k, v in pieces.items()))
+
+    # (b) bench.py's steady row
+    t0 = time.perf_counter()
+    solver = consensus_lasso_solver(A, b, lam, rho=rho, rel_tol=0.0, abs_tol=0.0,
+                                    max_iterations=CONSENSUS_STEADY_ITERS, epoch_iterations=50)
+    torch.cuda.synchronize()
+    setup2_s = time.perf_counter() - t0
+    iters_run += solver.solve().iterations
+    ips = []
+    for _ in range(CONSENSUS_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.solve()
+        torch.cuda.synchronize()
+        ips.append(res.iterations / (time.perf_counter() - t0))
+        iters_run += res.iterations
+    log(f"[6] steady: {CONSENSUS_REPS} re-solves of {CONSENSUS_STEADY_ITERS} iterations: "
+        f"median {statistics.median(ips):.1f} iter/s (min {min(ips):.1f}, max {max(ips):.1f}; "
+        f"{1e3 / statistics.median(ips):.4f} ms/iter); set-up {setup2_s:.3f} s")
+
+    # (c) K1 ran every iteration
+    launches = lu.launches
+    if launches < iters_run:
+        raise AssertionError(f"consensus: local_update launched {launches} times "
+                             f"in {iters_run} iterations")
+    log(f"[6] local_update launches in the main path: {launches} ({iters_run} iterations)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import epsilon_tpu_torch as ep
+    from epsilon_tpu_torch.ops.kernels import local_update as lu
     from epsilon_tpu_torch.ops.kernels import sym_packed as sp
 
     # -- 1. card and build ---------------------------------------------------
@@ -225,11 +421,15 @@ def main():
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     log(f"[1] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    path, build_s, build_log = sp.build()
-    log(f"[1] built {path.name} in {build_s:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[1]   {line.strip()}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(lambda mod: mod.build(), (sp, lu)))
+    log(f"[1] both kernels built in {time.perf_counter() - t0:.2f} s")
+    for path, build_s, build_log in builds:
+        log(f"[1] built {path.name} in {build_s:.2f} s")
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[1]   {line.strip()}")
 
     # -- 2. kernel against the plain version -----------------------------------
     record = phase_kernel(sp)
@@ -260,7 +460,14 @@ def main():
         f"({iters} + {STEADY_ITERS} iterations)")
 
     record["launches"] = launches
-    log(json.dumps({"kernels": [record]}))
+
+    # -- 5. K1 against its plain version ------------------------------------------
+    record_k1 = phase_local_update(lu)
+
+    # -- 6. consensus lasso at full width -------------------------------------------
+    record_k1["launches"] = phase_consensus(lu)
+
+    log(json.dumps({"kernels": [record, record_k1]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -67,3 +67,12 @@ def state_from_numpy(z: Dict[str, np.ndarray], u: Dict[str, np.ndarray]):
         return BlockVector({k: linop.to_tensor(np.array(v, dtype=np.float64))
                             for k, v in d.items()})
     return bv(z), bv(u)
+
+
+def consensus_state_from_numpy(x, u, z, rho):
+    """The consensus solver's state ``(x, u, z, rho)`` from numpy arrays
+    (e.g. a JAX ``ConsensusADMM._last_state``, converted with
+    ``np.asarray``): x and u (S, n), z (n,) as tensors on the configured
+    device, rho a float."""
+    x, u, z = (linop.to_tensor(np.array(a, dtype=np.float64)) for a in (x, u, z))
+    return x, u, z, float(np.asarray(rho))

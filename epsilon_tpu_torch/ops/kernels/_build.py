@@ -1,0 +1,54 @@
+"""Build a kernel source of ``csrc/`` into a shared library for ctypes.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  It is
+compiled with ``nvcc`` for ``sm_90a`` at first use into
+``build/kernels/lib<name>_<sha>.so``, named by the source's hash so that an
+edit rebuilds.  Separate sources build independently, so callers may start
+several builds at once.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["build"]
+
+_CSRC = Path(__file__).resolve().parents[2] / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def build(name: str):
+    """Compile ``csrc/<name>.cu`` for sm_90a into a shared library under
+    ``build/kernels/``.  Returns ``(path, seconds, compiler_log)``; seconds
+    is 0 when the library was already built."""
+    src = _CSRC / f"{name}.cu"
+    out = _BUILD_DIR / f"lib{name}_{hashlib.sha1(src.read_bytes()).hexdigest()[:12]}.so"
+    if out.exists():
+        return out, 0.0, ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0, proc.stdout + proc.stderr

@@ -24,15 +24,11 @@ package's own source into ``build/kernels/`` and loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from . import _build
 
 __all__ = ["SYM_TILE", "pack_sym_tiles", "sym_packed_plan", "sym_packed_matmul",
            "sym_packed_matmul_reference", "build", "launches"]
@@ -46,8 +42,6 @@ SYM_TILE = 128
 # Kernel launches made by sym_packed_matmul (CUDA tensors only).
 launches = 0
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "sym_packed.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _LIB = None
 
 
@@ -110,36 +104,10 @@ def sym_packed_matmul_reference(tiles, ii, jj, x):
     return y.reshape(n_pad, R).to(x.dtype)
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the sym_packed kernel needs the CUDA toolkit")
-    return found
-
-
 def build():
-    """Compile ``csrc/sym_packed.cu`` for sm_90a into a shared library under
-    ``build/kernels/`` (named by the source's hash, so an edit rebuilds).
-    Returns ``(path, seconds, compiler_log)``; seconds is 0 when the library
-    was already built."""
-    out = _BUILD_DIR / f"libsym_packed_{hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]}.so"
-    if out.exists():
-        return out, 0.0, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    """Compile ``csrc/sym_packed.cu`` (see :func:`._build.build`).  Returns
+    ``(path, seconds, compiler_log)``."""
+    return _build.build("sym_packed")
 
 
 def _library():

@@ -1,5 +1,6 @@
-"""CUDA-only tests of the port: the sym_packed kernel against its plain
-PyTorch version, the factor apply and a small lasso on the card.  They skip
+"""CUDA-only tests of the port: the sym_packed (K2) and local_update (K1)
+kernels against their plain PyTorch versions, the factor apply, a small
+lasso and a small consensus lasso on the card.  They skip
 without a CUDA device.  This file imports neither JAX nor the JAX package,
 so it also runs where JAX is absent:
 
@@ -13,7 +14,9 @@ import torch
 import epsilon_tpu_torch as et
 from epsilon_tpu_torch import config
 from epsilon_tpu_torch.ops import linop
+from epsilon_tpu_torch.ops.kernels import local_update as lu
 from epsilon_tpu_torch.ops.kernels import sym_packed as sp
+from epsilon_tpu_torch.parallel import consensus_lasso_solver
 from epsilon_tpu_torch.ops.prox import operator as prox_operator
 
 pytestmark = pytest.mark.cuda
@@ -118,3 +121,63 @@ def test_lasso_on_card_matches_cpu_port(cuda, rs, monkeypatch, path):
     obj_cpu, x_cpu, _ = solve()
     np.testing.assert_allclose(obj_gpu, obj_cpu, rtol=1e-4)
     np.testing.assert_allclose(x_gpu, x_cpu, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,n,offset", [
+    (8, 130, 0),      # f32 rows not 16-byte aligned: scalar loads
+    (3, 131, 0),      # ragged in both types
+    (5, 200, 0),      # the consensus row's n: vector loads
+    (5, 200, 1),      # Finv pointer off 16-byte alignment: scalar loads
+    (2, 4100, 0),     # several shared-memory chunks and a ragged tail
+])
+def test_local_update_matches_reference(cuda, dtype, S, n, offset):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    buf = torch.randn(S * n * n + offset, generator=gen, device=cuda, dtype=dtype)
+    Finv = buf[offset:].view(S, n, n)
+    Atb, u = (torch.randn(S, n, generator=gen, device=cuda, dtype=dtype) for _ in range(2))
+    z = torch.randn(n, generator=gen, device=cuda, dtype=dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for rho in (1.0, 0.3):
+        before = lu.launches
+        x, xu = lu.fused_local_update(Finv, Atb, u, z, rho)
+        assert lu.launches == before + 1
+        x_ref, xu_ref = lu.local_update_reference(Finv, Atb, u, z, rho)
+        for got, ref in ((x, x_ref), (xu, xu_ref)):
+            assert got.dtype == dtype and got.shape == ref.shape
+            assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+        x2, xu2 = lu.fused_local_update(Finv, Atb, u, z, rho)
+        assert torch.equal(x, x2) and torch.equal(xu, xu2)
+
+
+def test_local_update_rejects_bad_arguments(cuda):
+    S, n = 2, 130
+    Finv = torch.zeros(S, n, n, device=cuda)
+    v = torch.zeros(S, n, device=cuda)
+    z = torch.zeros(n, device=cuda)
+    with pytest.raises(TypeError):
+        lu.fused_local_update(Finv, v, v, z.double(), 1.0)
+    with pytest.raises(TypeError):
+        lu.fused_local_update(Finv.half(), v.half(), v.half(), z.half(), 1.0)
+    with pytest.raises(ValueError):
+        lu.fused_local_update(Finv, v, v, z.cpu(), 1.0)
+    with pytest.raises(ValueError):
+        lu.fused_local_update(Finv, torch.zeros(n, S, device=cuda).T, v, z, 1.0)
+
+
+def test_consensus_lasso_on_card_through_kernel(cuda):
+    S, m, n = 4, 200, 130
+    rng = np.random.RandomState(0)
+    A = (rng.randn(S, m, n) / np.sqrt(m)).astype(np.float32)
+    x0 = rng.randn(n) * (rng.rand(n) < 0.2)
+    b = (np.einsum("smn,n->sm", A, x0) + 0.01 * rng.randn(S, m)).astype(np.float32)
+    lam = 0.1 * float(np.abs(np.einsum("smn,sm->n", A, b)).max())
+    kw = dict(rel_tol=1e-4, abs_tol=1e-7, max_iterations=2000)
+    before = lu.launches
+    res = consensus_lasso_solver(A, b, lam, **kw).solve()
+    assert res.converged
+    assert res.z.device.type == "cuda" and res.z.dtype == torch.float32
+    assert lu.launches - before == res.iterations
+    config.set_device("cpu")
+    ref = consensus_lasso_solver(A, b, lam, **kw).solve()
+    np.testing.assert_allclose(res.z.cpu().numpy(), ref.z.numpy(), rtol=0, atol=1e-4)
