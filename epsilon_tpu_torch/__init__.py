@@ -20,5 +20,8 @@ from . import config  # noqa: F401
 from .frontend import *  # noqa: F401,F403
 from .frontend import api, solve  # noqa: F401
 from .frontend.api import Parameter, _wrap, scalar_constant  # noqa: F401
+from .frontend.functions import (hinge_loss, infinite_push, logistic_loss,  # noqa: F401
+                                 multiclass_hinge_loss, one_hot, poisson_loss,
+                                 quantile_loss, softmax_loss)
 from .ir import ProxKind  # noqa: F401
 from .solvers import SolverKind, SolverParams, SolverStatus  # noqa: F401

@@ -595,7 +595,8 @@ def epigraph(e):
             term.args.append(t_fold)
             return MatchResult(True, term, result.raw_exprs + constrs)
     # no epigraph kernel: conic fallback on f
-    obj, constrs = _conic_transform(f_expr)
+    from . import conic
+    obj, constrs = conic.transform_expr(f_expr)
     return MatchResult(True, None,
                        [ex.leq_constraint(obj, t_expr)] + constrs)
 
@@ -638,14 +639,9 @@ def epigraph_exp_terminal(e):
     return epigraph(e)
 
 
-def _conic_transform(e):
-    raise NotImplementedError(
-        f"conic fallback for {e.expr_type.value} is not yet ported "
-        "(epsilon_tpu/compiler/conic.py)")
-
-
 def transform_cone(e):
-    obj, constrs = _conic_transform(e)
+    from . import conic
+    obj, constrs = conic.transform_expr(e)
     return MatchResult(True, None, [obj] + constrs)
 
 

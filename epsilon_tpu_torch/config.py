@@ -41,6 +41,31 @@ SYM_PACKED_MIN_DIM = int(os.environ.get("EPSILON_TPU_SYM_PACKED_MIN", "8192"))
 
 _DEVICE = "cuda"
 
+# Inner tolerance for iteratively certified prox kernels (TV-1D PDAS):
+# None -> the dtype's default (ops/prox/tv1d.pdas_default_tol).  The solver
+# sets it from its own rel_tol (prox_inner_tol_for), as the JAX package does,
+# so both packages run the same PDAS rounds.
+_PROX_INNER_TOL = None
+
+
+def prox_inner_tol():
+    return _PROX_INNER_TOL
+
+
+def set_prox_inner_tol(tol):
+    global _PROX_INNER_TOL
+    _PROX_INNER_TOL = tol
+
+
+def prox_inner_tol_for(rel_tol: float):
+    """Inner certificate tolerance tied to an outer solver tolerance: one
+    decade tighter than rel_tol, floored at the dtype's certifiable
+    sqrt-precision (1e-7 f64 / 3e-4 f32)."""
+    if rel_tol is None or rel_tol <= 0:
+        return None
+    from .ops.prox.tv1d import default_tv_tol  # local: avoids an import cycle
+    return max(0.1 * rel_tol, default_tv_tol(default_dtype()))
+
 
 def set_device(device) -> None:
     """Select the device every tensor of the port is created on."""

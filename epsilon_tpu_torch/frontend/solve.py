@@ -122,6 +122,7 @@ def _solve_single_prox(problem: api.Problem,
     dtype-aware — 1e12 in f64; in f32 1/sqrt(lam) underflows precision, so
     1e6."""
     term = prox_problem.terms[0]
+    config.set_prox_inner_tol(None)
     dtype = config.default_dtype()
     lam = 1e12 if dtype == torch.float64 else 1e6
     inv_sqrt_lam = 1.0 / np.sqrt(lam)

@@ -21,8 +21,9 @@ from .ops.block import BlockMatrix, BlockVector
 
 def linop_from_numpy(op) -> linop.LinOp:
     """The port's operator for a reference operator, through its host
-    interface: ``scalar_value()``, ``diag_value()``, then ``as_sparse()``
-    for operators backed by a scipy matrix and ``as_dense()`` otherwise."""
+    interface: ``scalar_value()``, ``diag_value()``, a Kronecker product as
+    the product of its two converted factors, then ``as_sparse()`` for
+    operators backed by a scipy matrix and ``as_dense()`` otherwise."""
     n = op.shape[1]
     if op.shape[0] == n:
         sv = op.scalar_value()
@@ -31,6 +32,8 @@ def linop_from_numpy(op) -> linop.LinOp:
         dv = op.diag_value()
         if dv is not None:
             return linop.DiagonalOp(np.asarray(dv))
+    if type(op).__name__ == "KronOp":
+        return linop.KronOp(linop_from_numpy(op.A), linop_from_numpy(op.B))
     if sp.issparse(getattr(op, "A", None)):
         return linop.SparseOp(op.as_sparse())
     return linop.DenseOp(np.asarray(op.as_dense()))
@@ -59,14 +62,21 @@ def prox_problem_from_numpy(p) -> ProxProblem:
         var_shapes={k: tuple(v) for k, v in p.var_shapes.items()})
 
 
-def state_from_numpy(z: Dict[str, np.ndarray], u: Dict[str, np.ndarray]):
-    """The two-block solver's warm state ``(z, u)`` from per-variable numpy
-    arrays (e.g. a JAX solver's state, converted with ``np.asarray``), as
-    tensors on the configured device."""
+def state_from_numpy(z: Dict[str, np.ndarray], u: Dict[str, np.ndarray],
+                     kstates=None):
+    """The two-block solver's warm state from per-variable numpy arrays
+    (e.g. a JAX solver's state, converted with ``np.asarray``), as tensors
+    on the configured device: ``(z, u)``, or ``(z, u, kstates)`` when the
+    solver threads warm kernel state (one entry per term, None for the
+    terms without)."""
+    def t(a):
+        return linop.to_tensor(np.array(a, dtype=np.float64))
+
     def bv(d):
-        return BlockVector({k: linop.to_tensor(np.array(v, dtype=np.float64))
-                            for k, v in d.items()})
-    return bv(z), bv(u)
+        return BlockVector({k: t(v) for k, v in d.items()})
+    if kstates is None:
+        return bv(z), bv(u)
+    return bv(z), bv(u), tuple(None if k is None else t(k) for k in kstates)
 
 
 def consensus_state_from_numpy(x, u, z, rho):

@@ -22,6 +22,12 @@ from .linop import LinOp
 __all__ = ["BlockVector", "BlockMatrix"]
 
 
+def _zeros_like(v):
+    if isinstance(v, np.ndarray):
+        return np.zeros_like(v)
+    return torch.zeros_like(v)
+
+
 class BlockVector:
     """map<key, vector> with vector-space ops."""
 
@@ -75,7 +81,7 @@ class BlockVector:
     def _binary(self, other: "BlockVector", f):
         out = dict(self.data)
         for k, v in other.data.items():
-            out[k] = f(out[k], v) if k in out else f(torch.zeros_like(v), v)
+            out[k] = f(out[k], v) if k in out else f(_zeros_like(v), v)
         return BlockVector(out)
 
     def __add__(self, other):

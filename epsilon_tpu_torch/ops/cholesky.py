@@ -6,19 +6,19 @@ and the numeric elimination (Schur complement ``A <- A - V D^{-1} V^T``)
 run eagerly on the host at solver-init time; ``solve`` and ``solve_mat``
 run the substitution chain on tensors.
 
-The JAX package orders systems of three or more keys with its native
-min-fill library (``epsilon_tpu/native``); the port uses the Python
-heuristic for every system, so the elimination order, and with it the
-rounding, can differ on such systems.  The maths is the same.
+Systems of three or more keys are ordered in one whole-system pass
+(:func:`epsilon_tpu_torch.native.min_fill_order`, the same order as the JAX
+package's native library), so both packages eliminate in the same order.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from .. import config
+from .. import config, native
 from .block import BlockMatrix, BlockVector
 from .linop import LinOp
 
@@ -43,8 +43,19 @@ class BlockCholesky:
             self._dims[k] = _dim_of(blocks, k)
 
         remaining = set(keys)
+        order = self._native_order(blocks, keys)
         while remaining:
-            pivot = self._min_fill_pivot(blocks, remaining)
+            pivot = None
+            if order is not None:
+                while order and order[0] not in remaining:
+                    order.pop(0)
+                # the whole-system order predicts fill structurally; if its
+                # next pivot has no concrete diagonal block yet, the
+                # per-step heuristic picks this step (as in the JAX package)
+                if order and (order[0], order[0]) in blocks:
+                    pivot = order.pop(0)
+            if pivot is None:
+                pivot = self._min_fill_pivot(blocks, remaining)
             D = blocks.get((pivot, pivot))
             if D is None:
                 raise ValueError(
@@ -78,6 +89,19 @@ class BlockCholesky:
 
         self._factorized = True
         return self
+
+    def _native_order(self, blocks, keys) -> Optional[List[str]]:
+        """The whole elimination order for systems of three or more keys;
+        None for smaller ones, which the per-step heuristic orders."""
+        if len(keys) < 3:
+            return None
+        idx = {k: i for i, k in enumerate(keys)}
+        n = len(keys)
+        nnz = np.zeros((n, n), dtype=np.int64)
+        for (r, c), op in blocks.items():
+            nnz[idx[r], idx[c]] = max(1, op.nnz())
+        dims = np.asarray([self._dims[k] for k in keys], dtype=np.int64)
+        return [keys[i] for i in native.min_fill_order(nnz, dims)]
 
     def _min_fill_pivot(self, blocks, remaining) -> str:
         """Greedy min-fill: pick the pivot whose elimination creates the

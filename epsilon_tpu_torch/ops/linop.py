@@ -56,6 +56,17 @@ def mat(x: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
     return np.asarray(x).reshape((n, m)).T
 
 
+def jvec(X: torch.Tensor) -> torch.Tensor:
+    """Column-major vectorization of the last two axes of a tensor."""
+    return X.transpose(-1, -2).reshape(X.shape[:-2] + (-1,))
+
+
+def jmat(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """Inverse of :func:`jvec`."""
+    m, n = shape
+    return x.reshape(x.shape[:-1] + (n, m)).transpose(-1, -2)
+
+
 def _dtype():
     return config.default_np_dtype()
 
@@ -76,10 +87,6 @@ def _cached(obj, attr, make):
     val = make()
     setattr(obj, attr, (key, val))
     return val
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} device apply is not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -353,18 +360,42 @@ class DenseOp(LinOp):
 
 
 class SparseOp(LinOp):
-    """Sparse CSR matrix.  Host algebra only in this port so far; its
-    device apply is not yet ported."""
+    """Sparse CSR matrix.  On the device it is densified when small or
+    dense enough (``config.SPARSE_DENSIFY_*``, the JAX package's rule, so
+    both packages take the same branch) and otherwise applied as a torch
+    sparse CSR product (cuSPARSE on the card)."""
 
     def __init__(self, A: sp.spmatrix):
         self.A = sp.csr_matrix(A).astype(_dtype())
         self.shape = self.A.shape
 
+    def densified(self) -> bool:
+        m, n = self.shape
+        density = self.A.nnz / max(1, m * n)
+        return ((m * n <= config.SPARSE_DENSIFY_MAX_ELEMS
+                 and density >= config.SPARSE_DENSIFY_DENSITY)
+                or m * n <= 65536)
+
+    def _device_A(self):
+        def make():
+            if self.densified():
+                return to_tensor(self.A.toarray())
+            dev = config.device()
+            return torch.sparse_csr_tensor(
+                torch.as_tensor(self.A.indptr, dtype=torch.int64, device=dev),
+                torch.as_tensor(self.A.indices, dtype=torch.int64, device=dev),
+                to_tensor(self.A.data), size=self.shape,
+                check_invariants=False)
+        return _cached(self, "_tA", make)
+
     def matvec(self, x):
-        raise _not_ported("SparseOp")
+        A = self._device_A()
+        if A.layout == torch.strided:
+            return A @ x
+        return (A @ x[:, None])[:, 0]
 
     def matmat(self, X):
-        raise _not_ported("SparseOp")
+        return self._device_A() @ X
 
     def host_matvec(self, x):
         return self.A @ np.asarray(x)
@@ -418,8 +449,9 @@ class SparseOp(LinOp):
 
 
 class KronOp(LinOp):
-    """Kronecker product A (x) B.  Host algebra only in this port so far;
-    its device apply (the vec-trick) is not yet ported."""
+    """Kronecker product A (x) B, applied with the vec trick
+    ``(A (x) B) vec(X) = vec(B X A^T)``: two child products, never the
+    Kronecker matrix itself."""
 
     def __init__(self, A: LinOp, B: LinOp):
         self.A = A
@@ -427,10 +459,23 @@ class KronOp(LinOp):
         self.shape = (A.m * B.m, A.n * B.n)
 
     def matvec(self, x):
-        raise _not_ported("KronOp")
+        # x = vec(X), X in R^{B.n x A.n} (column-major)
+        X = jmat(x, (self.B.n, self.A.n))
+        BX = self.B.matmat(X)                      # (B.m, A.n)
+        Y = self.A.matmat(BX.T).T                  # (B.m, A.m) = B X A^T
+        return jvec(Y)
 
     def matmat(self, X):
-        raise _not_ported("KronOp")
+        """All k columns through the same two child products: the batch
+        axis folds into the column axis."""
+        k = X.shape[1]
+        Xs = jmat(X.T, (self.B.n, self.A.n))               # (k, B.n, A.n)
+        Xb = Xs.permute(1, 0, 2).reshape(self.B.n, k * self.A.n)
+        BX = self.B.matmat(Xb).reshape(self.B.m, k, self.A.n)
+        T = BX.permute(2, 1, 0).reshape(self.A.n, k * self.B.m)
+        Y = self.A.matmat(T).reshape(self.A.m, k, self.B.m)
+        # Y[:, j, :] = (B X_j A^T)^T; its row-major flatten is vec(B X_j A^T)
+        return Y.permute(1, 0, 2).reshape(k, self.m).T
 
     def host_matvec(self, x):
         X = mat(np.asarray(x), (self.B.n, self.A.n))

@@ -6,19 +6,23 @@ solves
     Apply(v)  =  argmin_x  alpha * f(H(x))  +  1/2 ||A(x) - v||^2
 
 where ``H`` (the function's affine argument) and ``A`` (the scaled
-constraint columns) are block linear operators.  Ported so far:
+constraint columns) are block linear operators:
 
 - :class:`VectorProxOperator` — canonical kernel behind the scalar or
   diagonal reduction, with the pre/post transforms v' = B v + g,
-  x = C (y - g) + D v.
+  x = C (y - g) + D v, in every mode: prox or epigraph, on vectors, on
+  matrices, on two arguments, and per slice (axis mode, batched along the
+  rows of one kernel call); warm-startable kernels thread their state.
 - KKT operators (:class:`ZeroProxOperator`, :class:`AffineProxOperator`,
   :class:`SumSquareProxOperator`) — cached block-Cholesky solves, folded
   into one dense solve operator (:class:`_CollapsedKKT`) when that is
   smaller than the factor.
+- :class:`SecondOrderConeProxOperator` — row-wise SOC projection with
+  scalar scalings.
 
 Structure analysis and factorization run eagerly at construction; ``apply``
-runs on tensors.  The second-order-cone and rho-parameterized operators are
-not yet ported.
+runs on tensors.  The rho-parameterized operators of adaptive rho are not
+yet ported.
 """
 
 from __future__ import annotations
@@ -34,7 +38,9 @@ from ...ir import AffineOperator, ProxFunctionSpec, ProxKind, arg_key
 from .. import linop
 from ..block import BlockMatrix, BlockVector
 from ..cholesky import BlockCholesky
-from .registry import KernelEntry, get_kernel
+from . import vector as veckernels
+from .registry import (KernelEntry, epigraph_via_bisection, get_kernel,
+                       kernel_params)
 
 
 class ProxOperator:
@@ -92,11 +98,6 @@ class VectorProxOperator(ProxOperator):
                  affine_constraint: AffineOperator):
         self.spec = spec
         self.entry: KernelEntry = get_kernel(spec.kind)
-        if spec.epigraph or spec.axis is not None or self.entry.matrix \
-                or self.entry.nargs != 1:
-            raise NotImplementedError(
-                f"{spec!r}: epigraph, axis, matrix and two-argument kernels "
-                "are not yet ported")
         H, A = affine_arg.A, affine_constraint.A
         self.g = affine_arg.b
         HT, AT = H.T, A.T
@@ -140,6 +141,10 @@ class VectorProxOperator(ProxOperator):
             self.lam = lam
             self.elementwise = True
 
+        if spec.epigraph and self.elementwise:
+            raise ValueError("epigraph projection requires isotropic metric "
+                             "(scalar affine scaling)")
+
         # argument bookkeeping
         self.n_args = len(spec.arg_sizes) if spec.arg_sizes else 1
         self.arg_dims = [int(np.prod(s)) if s else 1 for s in (spec.arg_sizes or [None])]
@@ -148,10 +153,7 @@ class VectorProxOperator(ProxOperator):
 
     # -- kernel invocation -------------------------------------------------
     def _params(self) -> Dict:
-        p = dict(self.spec.scaled_zone_params or {})
-        if self.spec.k is not None:
-            p["k"] = self.spec.k
-        return p
+        return linop._cached(self, "_tparams", lambda: kernel_params(self.spec))
 
     def _lam(self):
         if isinstance(self.lam, np.ndarray):
@@ -161,19 +163,88 @@ class VectorProxOperator(ProxOperator):
     def _kernel_args(self, u: BlockVector) -> List[torch.Tensor]:
         return [u.get(arg_key(i), self.arg_dims[i]) for i in range(self.n_args)]
 
-    def apply(self, v: BlockVector) -> BlockVector:
-        g = self.g.to_device()
-        u = self.B.apply(v) + g
-        vals = self._kernel_args(u)
-        y = BlockVector({arg_key(0): self.entry.prox(vals[0], self._lam(),
-                                                     **self._params())})
-        x = self.C.apply(y - g)
+    def _mat(self, val):
+        return linop.jmat(val, tuple(self.spec.arg_sizes[0]))
+
+    def _slices(self, val):
+        """mat(val) with one slice per row: axis 0 reduces along columns,
+        so the kernel runs on the rows of its transpose."""
+        V = self._mat(val)
+        return V.T if self.spec.axis == 0 else V
+
+    def _unslice(self, X):
+        return linop.jvec(X.T if self.spec.axis == 0 else X)
+
+    def _apply_kernel(self, vals: List[torch.Tensor]) -> List[torch.Tensor]:
+        spec, entry, p = self.spec, self.entry, self._params()
+        if spec.epigraph:
+            epi = entry.epi or epigraph_via_bisection(spec.kind)
+            if entry.matrix:
+                X, t = epi(self._mat(vals[0]), vals[-1][0], **p)
+                return [linop.jvec(X), t.reshape(1)]
+            if entry.nargs == 2:
+                x, y, t = epi((vals[0], vals[1]), vals[-1][0], **p)
+                return [x, y, t.reshape(1)]
+            if spec.axis is not None:
+                # one epigraph projection per slice, batched along the rows
+                X, t = epi(self._slices(vals[0]), vals[-1], **p)
+                return [self._unslice(X), t]
+            if entry.elementwise_epi:
+                # per-coordinate epigraph: t is the same size as x
+                return list(epi(vals[0], vals[-1], **p))
+            x, t = epi(vals[0], vals[-1][0], **p)
+            return [x, t.reshape(1)]
+
+        lam = self._lam()
+        if entry.matrix:
+            return [linop.jvec(entry.prox(self._mat(vals[0]), lam, **p))]
+        if entry.nargs == 2:
+            return list(entry.prox((vals[0], vals[1]), lam, **p))
+        if spec.axis is not None and not entry.elementwise:
+            # one vector kernel per slice, batched along the rows (a
+            # separable kernel's per-slice prox is its flat prox)
+            return [self._unslice(entry.prox(self._slices(vals[0]), lam, **p))]
+        return [entry.prox(vals[0], lam, **p)]
+
+    def _finish(self, v: BlockVector, outs: List[torch.Tensor]) -> BlockVector:
+        y = BlockVector({arg_key(i): outs[i] for i in range(len(outs))})
+        x = self.C.apply(y - self.g.to_device())
         if self.D is not None:
             x = x + self.D.apply(v)
         return x
 
+    def apply(self, v: BlockVector) -> BlockVector:
+        u = self.B.apply(v) + self.g.to_device()
+        return self._finish(v, self._apply_kernel(self._kernel_args(u)))
+
+    # -- warm-startable (stateful) kernels ---------------------------------
+    def kernel_state_init(self):
+        """Cold state for kernels that warm-start across ADMM sweeps (TV-1D:
+        the PDAS dual), or None where this operator's mode cannot thread it
+        (epigraph, diagonal metric, axis batching, two arguments)."""
+        if (self.entry.stateful_prox is None or self.spec.epigraph
+                or self.elementwise or self.spec.axis is not None
+                or self.n_args != 1):
+            return None
+        return self.entry.state_init(self.arg_dims[0], config.default_dtype())
+
+    def apply_stateful(self, v: BlockVector, kstate):
+        """:meth:`apply` threading the kernel's warm state; returns
+        ``(x, new_state)``.  Valid when :meth:`kernel_state_init` is not
+        None."""
+        u = self.B.apply(v) + self.g.to_device()
+        x_k, st = self.entry.stateful_prox(self._kernel_args(u)[0], self.lam,
+                                           kstate, **self._params())
+        return self._finish(v, [x_k]), st
+
     def feval(self, u: BlockVector):
-        return self.entry.feval(self._kernel_args(u)[0], **self._params())
+        vals = self._kernel_args(u)
+        p = self._params()
+        if self.entry.nargs == 2:
+            return self.entry.feval((vals[0], vals[1]), **p)
+        if self.entry.matrix:
+            return self.entry.feval(self._mat(vals[0]), **p)
+        return self.entry.feval(vals[0], **p)
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +457,56 @@ class SumSquareProxOperator(_KKTProxOperator):
 
 
 # ---------------------------------------------------------------------------
+# Second-order cone
+# ---------------------------------------------------------------------------
+
+class SecondOrderConeProxOperator(ProxOperator):
+    """Row-wise SOC projection ||ax*x_i + bx|| <= at*t_i + bt_i;
+    arg0 = t (m,), arg1 = X (m, n)."""
+
+    def __init__(self, spec: ProxFunctionSpec, affine_arg: AffineOperator,
+                 affine_constraint: AffineOperator):
+        if len(spec.arg_sizes) != 2:
+            raise ValueError("SOC takes two arguments")
+        self.m, self.n = spec.arg_sizes[1]
+        H, g = affine_arg.A, affine_arg.b
+        A = affine_constraint.A
+        self.t_key = self.x_key = None
+        at = ax = None
+        for (r, c), op in H.blocks.items():
+            if r == arg_key(0):
+                self.t_key, at = c, op.scalar_value()
+            elif r == arg_key(1):
+                self.x_key, ax = c, op.scalar_value()
+            else:
+                raise ValueError(f"unexpected arg row {r}")
+        if at is None or ax is None:
+            raise ValueError("SOC scalings must be scalar")
+        ATA = A.T @ A
+        alphat = ATA[(self.t_key, self.t_key)].scalar_value()
+        alphax = ATA[(self.x_key, self.x_key)].scalar_value()
+        if alphat is None or alphax is None or not np.isclose(alphat, alphax):
+            raise ValueError("A'A not scalar for SOC")
+        self.AT = A.T.scale(1.0 / alphat)
+        self.a = at / abs(ax)
+        g_np = {k: np.asarray(val) for k, val in g.items()}
+        bt = g_np.get(arg_key(0), np.zeros(self.m))
+        bx = g_np.get(arg_key(1), np.zeros(self.m * self.n))
+        self._bt_host = np.asarray(bt, dtype=np.float64) / abs(ax)
+        self._bx_host = np.asarray(bx, dtype=np.float64) / ax
+
+    def apply(self, v: BlockVector) -> BlockVector:
+        bt, bx = linop._cached(self, "_tb", lambda: (
+            linop.to_tensor(self._bt_host), linop.to_tensor(self._bx_host)))
+        u = self.AT.apply(v)
+        X = linop.jmat(u[self.x_key] + bx, (self.m, self.n))
+        t = u[self.t_key] + bt / self.a
+        Xp, tp = veckernels.project_soc_rows(X, t, self.a)
+        return BlockVector({self.x_key: linop.jvec(Xp) - bx,
+                            self.t_key: tp - bt / self.a})
+
+
+# ---------------------------------------------------------------------------
 # factory
 # ---------------------------------------------------------------------------
 
@@ -400,5 +521,5 @@ def create_prox_operator(spec: ProxFunctionSpec,
     if kind == ProxKind.SUM_SQUARE and not spec.epigraph:
         return SumSquareProxOperator(spec, affine_arg, affine_constraint)
     if kind == ProxKind.SECOND_ORDER_CONE:
-        raise NotImplementedError("the second-order-cone prox operator is not yet ported")
+        return SecondOrderConeProxOperator(spec, affine_arg, affine_constraint)
     return VectorProxOperator(spec, affine_arg, affine_constraint)

@@ -6,11 +6,11 @@ on one device with a fixed rho: the x-update applies every prox operator at
 a cached block-Cholesky ZERO prox, and ``u += x - z``.  The JAX package's
 device ``while_loop`` becomes a Python loop over epochs with one host sync
 per epoch (the residual check), recording the same per-epoch residual
-series.
+series.  Warm-startable kernels (TV-1D PDAS duals) carry their state
+through the loop, as on the JAX package's unmeshed path.
 
 Not yet ported: the N-block solver, term sharding and scenario stacking,
-adaptive rho, over-relaxation, warm kernel state, stop callbacks and
-checkpoints.
+adaptive rho, over-relaxation, stop callbacks and checkpoints.
 """
 
 from __future__ import annotations
@@ -97,6 +97,11 @@ class ProxADMMTwoBlockSolver:
             for v in tvars:
                 self.all_dims[v] = problem.var_dims[v]
 
+        # warm-startable kernel state (TV-1D PDAS duals), one per term
+        ks = [op.kernel_state_init() if hasattr(op, "kernel_state_init")
+              else None for op in self.term_ops]
+        self._kstate0 = tuple(ks) if any(k is not None for k in ks) else None
+
         self._t_init = time.time() - t0
 
     def _build_term_ops(self, problem: ProxProblem):
@@ -120,14 +125,25 @@ class ProxADMMTwoBlockSolver:
         return v if self.sqrt_rho == 1.0 else self.sqrt_rho * v
 
     def _iter_body(self, state):
-        z, u = state
-        zu = z - u
+        z, u = state[0], state[1]
+        ks = state[2] if self._kstate0 is not None else None
+        v = self._scaled(z - u)
         x = _zeros(self.all_dims)
-        for op in self.term_ops:
-            x = x + op.apply(self._scaled(zu))
+        ks_out = []
+        for i, op in enumerate(self.term_ops):
+            k_i = ks[i] if ks is not None else None
+            if k_i is not None:
+                # warm-startable kernel: thread its state (TV PDAS dual)
+                xi, k_i = op.apply_stateful(v, k_i)
+            else:
+                xi = op.apply(v)
+            x = x + xi
+            ks_out.append(k_i)
         xu = x + u
         z_new = self._z_update(xu)
         u_new = u + x - z_new
+        if ks is not None:
+            return (z_new, u_new, tuple(ks_out)), x
         return (z_new, u_new), x
 
     def _z_update(self, xu):
@@ -149,7 +165,7 @@ class ProxADMMTwoBlockSolver:
         return torch.sqrt(total)
 
     def _residuals(self, state, x, z_prev):
-        z, u = state
+        z, u = state[0], state[1]
         rho = self.params.rho
         abs_tol, rel_tol = self.params.abs_tol, self.params.rel_tol
         sqrt_n = float(np.sqrt(max(self.n, 1)))
@@ -172,7 +188,10 @@ class ProxADMMTwoBlockSolver:
     def _init_state(self):
         if self.params.warm_start and self._warm_state is not None:
             return self._warm_state
-        return (_zeros(self.all_dims), _zeros(self.all_dims))
+        state = (_zeros(self.all_dims), _zeros(self.all_dims))
+        if self._kstate0 is not None:
+            state = state + (self._kstate0,)
+        return state
 
     def _rebuild_for_rho(self):
         """A cached solver asked for another fixed rho: rebuild the
@@ -181,11 +200,18 @@ class ProxADMMTwoBlockSolver:
         old_warm, old_rho = self._warm_state, self._init_rho
         self.__init__(self.problem, self.params)
         if old_warm is not None:
-            z, u = old_warm
+            z, u = old_warm[0], old_warm[1]
+            # kernel warm state restarts cold (the metric its duals live in
+            # changed)
             self._warm_state = (z, (old_rho / self._init_rho) * u)
+            if self._kstate0 is not None:
+                self._warm_state += (self._kstate0,)
 
     def solve(self) -> BlockVector:
         t0 = time.time()
+        # iteratively certified inner kernels (TV-1D) certify one decade
+        # tighter than the outer rel_tol, as in the JAX package
+        config.set_prox_inner_tol(config.prox_inner_tol_for(self.params.rel_tol))
         if self.params.rho != self._init_rho:
             self._rebuild_for_rho()
         state = self._init_state()

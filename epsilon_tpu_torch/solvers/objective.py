@@ -7,8 +7,9 @@ import torch
 
 from .. import config
 from ..ir import ProxKind, ProxProblem, ProxTerm, arg_key
+from ..ops import linop
 from ..ops.block import BlockVector
-from ..ops.prox.registry import get_kernel
+from ..ops.prox.registry import get_kernel, kernel_params
 
 
 def _zero():
@@ -44,12 +45,17 @@ def term_objective(term: ProxTerm, x: BlockVector):
         return spec.alpha * total
 
     entry = get_kernel(kind)
-    if entry.matrix or entry.nargs != 1 or spec.axis is not None:
-        raise NotImplementedError(f"objective of {spec!r} is not yet ported")
-    p = dict(spec.scaled_zone_params or {})
-    if spec.k is not None:
-        p["k"] = spec.k
-    return spec.alpha * entry.feval(u.get(arg_key(0)), **p)
+    p = kernel_params(spec)
+    val = u.get(arg_key(0))
+    if entry.matrix:
+        return spec.alpha * entry.feval(linop.jmat(val, tuple(spec.arg_sizes[0])), **p)
+    if entry.nargs == 2:
+        return spec.alpha * entry.feval((val, u.get(arg_key(1))), **p)
+    if spec.axis is not None:
+        # one value per slice (axis 0: per column), batched along the rows
+        V = linop.jmat(val, tuple(spec.arg_sizes[0]))
+        return spec.alpha * torch.sum(entry.feval(V.T if spec.axis == 0 else V, **p))
+    return spec.alpha * entry.feval(val, **p)
 
 
 def problem_objective(problem: ProxProblem, x: BlockVector):

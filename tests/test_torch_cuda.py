@@ -181,3 +181,28 @@ def test_consensus_lasso_on_card_through_kernel(cuda):
     config.set_device("cpu")
     ref = consensus_lasso_solver(A, b, lam, **kw).solve()
     np.testing.assert_allclose(res.z.cpu().numpy(), ref.z.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("row,kwargs,rtol", [
+    # an elementwise kernel (SUM_LOGISTIC prox, Newton with a fixed count)
+    ("logreg_l1", dict(m=200, n=100, rho=0.2), 1e-4),
+    # a matrix kernel (NEG_LOG_DET prox through torch.linalg.eigh)
+    ("covsel", dict(m=40, n=30, lam=0.1), 1e-4),
+    # TV-1D PDAS with its warm state threaded through the loop
+    ("tv_1d", dict(n=2000), 1e-3),
+])
+def test_library_row_on_card_matches_cpu_port(cuda, row, kwargs, rtol):
+    """A library row through Problem.solve on the card (f32) against the
+    port on the CPU (f64).  The port in f32 on the CPU was 3.6e-8
+    (logreg_l1), 1.0e-6 (covsel) and 3.2e-4 (tv_1d, whose f32 PDAS certifies
+    at 3e-4) from its f64 objective at these sizes."""
+    from epsilon_tpu_torch.problems import benchmark
+    inst = next(p for p in benchmark.PROBLEMS_REFERENCE() if p.name == row)
+    inst = benchmark.ProblemInstance(row, inst.create, kwargs)
+    prob = inst.create_problem()
+    obj_gpu = prob.solve(rel_tol=1e-3)
+    assert prob.status == "optimal"
+    assert np.isfinite(obj_gpu)
+    config.set_device("cpu")
+    obj_cpu = inst.create_problem().solve(rel_tol=1e-3)
+    np.testing.assert_allclose(obj_gpu, obj_cpu, rtol=rtol)

@@ -129,9 +129,72 @@ def test_symmetric_inverse_is_symmetric_factor(rng):
     assert not tl.dense(A + 20 * np.eye(20)).inverse()._sym
 
 
-def test_sparse_and_kron_applies_not_yet_ported():
-    S = tl.index_op(0, 4, 1, 6)
-    K = tl.KronOp(tl.dense(np.ones((2, 2))), tl.dense(np.ones((3, 3))))
-    for op in (S, K):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            op.matvec(torch.zeros(op.n, dtype=torch.float64))
+def _sparse(L, rng, shape, density):
+    import scipy.sparse as ssp
+    A = ssp.rand(*shape, density, format="csr", random_state=rng)
+    A.data = rng.randn(A.nnz)
+    return L.SparseOp(A)
+
+
+@pytest.mark.parametrize("shape,density,layout", [
+    ((30, 40), 0.2, torch.strided),         # small: densified
+    ((300, 400), 0.05, torch.strided),      # dense enough: densified
+    ((400, 300), 0.005, torch.sparse_csr),  # large and sparse: a CSR product
+    ((4, 6), None, torch.strided),          # index_op(0, 4, 1, 6): a selection
+])
+def test_sparse_apply_matches_jax(shape, density, layout):
+    """Both packages densify by the same rule (config.SPARSE_DENSIFY_*);
+    the port applies the rest as a torch sparse CSR product."""
+    def build(L):
+        if density is None:
+            return L.index_op(0, shape[0], 1, shape[1])
+        return _sparse(L, np.random.RandomState(1), shape, density)
+    op_j, op_t = build(jl), build(tl)
+    assert isinstance(op_t, tl.SparseOp) and op_t._device_A().layout == layout
+    rng = np.random.RandomState(2)
+    x, X = rng.randn(shape[1]), rng.randn(shape[1], 3)
+    for a, b in ((op_t, op_j), (op_t.T, op_j.T)):
+        xa, Xa = (x, X) if a is op_t else (rng.randn(shape[0]), rng.randn(shape[0], 3))
+        got = a.matvec(_t(xa)).numpy()
+        np.testing.assert_allclose(got, np.asarray(b.matvec(jnp.asarray(xa))),
+                                   rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(got, a.as_dense() @ xa, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(a.matmat(_t(Xa)).numpy(),
+                                   np.asarray(b.matmat(jnp.asarray(Xa))), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("factors", ["dense_dense", "dense_sparse", "scalar_dense",
+                                     "sparse_diag", "transposed", "dense_csr"])
+def test_kron_apply_matches_jax(factors):
+    """The vec trick with the column-major mat/vec convention, against the
+    JAX package and against np.kron, for one vector and a batch of 4."""
+    def build(L):
+        rng = np.random.RandomState(5)
+        A, B = L.dense(rng.randn(3, 4)), L.dense(rng.randn(5, 2))
+        S = _sparse(L, np.random.RandomState(6), (6, 5), 0.4)
+        return {"dense_dense": lambda: L.KronOp(A, B),
+                # a factor large and sparse enough to stay sparse on the device
+                "dense_csr": lambda: L.KronOp(
+                    A, _sparse(L, np.random.RandomState(9), (400, 300), 0.005)),
+                "dense_sparse": lambda: L.KronOp(A, S),
+                "scalar_dense": lambda: L.KronOp(L.scalar(2.5, 3), B),
+                "sparse_diag": lambda: L.KronOp(S, L.diagonal(rng.rand(4) + 1)),
+                "transposed": lambda: L.KronOp(A, B).T}[factors]()
+    op_j, op_t = build(jl), build(tl)
+    rng = np.random.RandomState(7)
+    x, X = rng.randn(op_j.n), rng.randn(op_j.n, 4)
+    got, got_m = op_t.matvec(_t(x)).numpy(), op_t.matmat(_t(X)).numpy()
+    np.testing.assert_allclose(got, np.asarray(op_j.matvec(jnp.asarray(x))), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got_m, np.asarray(op_j.matmat(jnp.asarray(X))), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got, op_t.as_dense() @ x, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got_m, op_t.as_dense() @ X, rtol=1e-12, atol=1e-12)
+
+
+def test_kron_carried_structurally_by_interop():
+    from epsilon_tpu_torch import interop
+    rng = np.random.RandomState(8)
+    op_j = jl.KronOp(jl.dense(rng.randn(3, 4)), jl.scalar(2.0, 5))
+    op_t = interop.linop_from_numpy(op_j)
+    assert isinstance(op_t, tl.KronOp)
+    assert isinstance(op_t.A, tl.DenseOp) and isinstance(op_t.B, tl.ScalarOp)
+    np.testing.assert_array_equal(op_t.as_dense(), np.asarray(op_j.as_dense()))

@@ -163,13 +163,22 @@ def test_scaled_zone_kernels_match_jax(rng):
                                   np.asarray(jew.prox_norm1(jnp.asarray(v), 0.4)))
 
 
-def test_unported_kernels_raise():
+def test_kinds_without_canonical_kernel_raise():
+    # every kernel is ported now: NORM_2 builds an operator, and only a kind
+    # with no canonical kernel raises, as in the JAX package
     spec = tir.ProxFunctionSpec(kind=tir.ProxKind.NORM_2)
     arg = tir.AffineOperator(tb.BlockMatrix({(tir.arg_key(0), "x"): tl.scalar(1.0, 3)}),
                              tb.BlockVector())
     con = tir.AffineOperator(tb.BlockMatrix({("x", "x"): tl.scalar(1.0, 3)}), tb.BlockVector())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        top.create_prox_operator(spec, arg, con)
+    v = torch.tensor([3.0, 4.0, 0.0], dtype=torch.float64)
+    x = top.create_prox_operator(spec, arg, con).apply(tb.BlockVector({"x": v}))
+    np.testing.assert_allclose(x["x"].numpy(), v.numpy() * (1 - 1 / 5), rtol=1e-14)
+    from epsilon_tpu.ops.prox import registry as jreg
+    from epsilon_tpu_torch.ops.prox import registry as treg
+    for kind in tir.ProxKind:
+        if kind.value not in {k.value for k in jreg.KERNELS}:
+            with pytest.raises(NotImplementedError, match="no canonical kernel"):
+                treg.get_kernel(kind)
 
 
 def test_to_device_is_cached_and_refreshed():

@@ -202,6 +202,7 @@ def test_port_imports_no_jax():
     for f in root.rglob("*.py"):
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f
-    code = ("import sys, epsilon_tpu_torch, epsilon_tpu_torch.interop; "
+    code = ("import sys, epsilon_tpu_torch, epsilon_tpu_torch.interop, "
+            "epsilon_tpu_torch.problems.benchmark; "
             "assert 'jax' not in sys.modules and 'epsilon_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root.parent)

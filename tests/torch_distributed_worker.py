@@ -5,6 +5,7 @@ Imports no JAX.
 Usage: python torch_distributed_worker.py <rank> <world> <init_file> <out_prefix>
 """
 
+import os
 import sys
 
 import numpy as np
@@ -43,5 +44,10 @@ except ValueError:
 
 np.savez(f"{out_prefix}.{rank}.npz", z=res.z.numpy(), iterations=res.iterations,
          converged=res.converged, series=res.series, uneven_raised=uneven_raised)
+dist.barrier(group)
 dist.destroy_process_group()
 print(f"[rank {rank}] done: iters={res.iterations} r={res.r_norm:.2e}", flush=True)
+# Leave without the interpreter's teardown: gloo's threads can abort it
+# ("terminate called without an active exception") once the work is done
+# and the results are written.
+os._exit(0)

@@ -18,6 +18,14 @@
    1 - busy / wall, device operations per iteration, and the costliest
    kernels.
 
+    python3 -m tools.profile_port --library infinite_push,tv_1d
+
+profiles, in place of the above, library rows (``PROBLEMS_REFERENCE``, at
+their reference sizes, f32): a cold solve of 10 iterations, timed in pieces,
+then a warm re-solve of 10 iterations with the same figures, plus the
+host-blocking calls per iteration (``cudaStreamSynchronize`` and the copies
+to and from the card).
+
 Only events on the device are summed: an aten op's entry also carries its
 kernels' device time, so summing every event counts most kernels twice.
 """
@@ -101,16 +109,26 @@ def profile_steady(tag, solve, iters):
         solve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
     rows = device_events(prof)
+    post_s = time.perf_counter() - t0
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     ops = sum(e.count for e in rows)
     print(f"{tag}: {iters} iterations without the profiler: {plain_ms / iters:.4f} ms/iter")
     print(f"{tag}: profiled: wall {wall_ms / iters:.4f} ms/iter, device busy "
           f"{busy_ms / iters:.4f} ms/iter, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{ops / iters:.1f} device operations/iter")
+          f"{ops / iters:.1f} device operations/iter; the profiler's event processing "
+          f"{post_s:.3f} s")
     for e in rows[:10]:
         print(f"{tag}:   {e.key[:60]} x{e.count}: "
               f"{e.self_device_time_total / iters:.2f} us/iter")
+    host = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key in (
+                "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync"):
+            host[e.key] = e.count
+    print(f"{tag}: host-side calls per iteration: " + ", ".join(
+        f"{k} {v / iters:.1f}" for k, v in sorted(host.items())))
 
 
 def profile_loop(ep, m, n, iters):
@@ -134,6 +152,26 @@ def profile_consensus(iters):
     profile_steady(f"[loop] consensus {S}x{m}x{n}", solver.solve, iters)
 
 
+def profile_library(rows, iters=10):
+    from epsilon_tpu_torch.problems import benchmark
+    for inst in benchmark.PROBLEMS_REFERENCE():
+        if inst.name not in rows:
+            continue
+        prob = inst.create_problem()
+        t0 = time.perf_counter()
+        prob.solve(rel_tol=1e-3, max_iterations=iters, warm_start=True)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        st = prob.solver_status
+        print(f"[library] {inst.name}: cold solve of {st.num_iterations} iterations: wall "
+              f"{wall_s:.3f} s = solver set-up {st.timing.init_usec / 1e6:.3f} s + solve "
+              f"{st.timing.solve_usec / 1e6:.3f} s + compile and write-back")
+        kw = dict(rel_tol=0.0, abs_tol=0.0, warm_start=True, max_iterations=iters)
+        profile_steady(f"[library] {inst.name}", lambda: prob.solve(**kw), iters)
+        del prob
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device available", file=sys.stderr)
@@ -145,6 +183,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    if len(sys.argv) == 3 and sys.argv[1] == "--library":
+        profile_library(sys.argv[2].split(","))
+        return 0
     sp.build()
     lu.build()
     profile_kernel(sp)
