@@ -17,13 +17,17 @@ Phases, in order; any failure exits non-zero:
 4. The slice configuration, lasso 16384 x 8192 through ``Problem.solve`` in
    the default CUDA mode (explicit inverse, so the 8192-dimensional pivot
    applies through the sym_packed kernel every iteration), with the launch
-   count and the same f64 check.
+   count and the same f64 check; then the same problem once more from a
+   cold state with ``over_relaxation=1.5`` on the cached solver (no second
+   set-up), one kernel launch per iteration.
 5. Kernel K1 (fused consensus local update) against its plain PyTorch
    version at (S, n) = (200, 200) in f32 and f64 (the consensus row's
    shape), (40, 5000) in f32 (4 GB of inverses, generated on the card) and
    the ragged (8, 130) in f32 and f64: error, bitwise repeatability, two rho
    values through one loaded library, and device times of the kernel, the
-   plain version and a ``Finv.sum()`` read of the same bytes.
+   plain version, a ``Finv.sum()`` read of the same bytes, and the library
+   call that computes the same function (``torch.bmm`` of the inverses with
+   the right-hand side, and the sum over blocks).
 6. Consensus lasso at full width (bench.py's consensus row: 200 blocks of
    2500 x 200, 1e8 nonzeros, seed 0, lambda 0.1, rho 1, f32) through
    ``consensus_lasso_solver`` in the default CUDA mode (explicit inverse, so
@@ -41,6 +45,21 @@ Phases, in order; any failure exits non-zero:
    oracle matrix's one-sided test and by the same band below it; each row
    must stop ``optimal``, and the rows with hard constraints also pass a
    feasibility residual computed in f64 numpy.
+8. The rest of the solver's one-device surface at the flagship's width
+   (lasso 2000 x 1000, phase 3's data, f32), each solve ``optimal`` and
+   held to phase 3's f64 checks: (a) adaptive rho; (b) the data scaled by
+   30 (the same minimiser, rho 1 far from balanced), fixed rho 1 and
+   adaptive; (c) the N-block solver at rho 1 and 4; (d) a ``Parameter``
+   right-hand side re-solved five times on one cached solver; (e) a stop
+   callback under ``drive="host"``; (f) a checkpoint, resumed by a new
+   solver; (g) ``eval_prox`` of three kinds at 1e6 elements against the
+   port on the CPU in f64.
+
+Each record of the ``kernels`` line carries, beside the measured times,
+``bound_ms``: the least time the card could take, the larger of the bytes
+the function must move (inputs read once, outputs written once) over
+3.35 TB/s and its operations over 67 TFLOP/s (the H100's published HBM
+rate and float32 rate outside the tensor cores).
 
 Prints a ``{"kernels": [...]}`` line, then a last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -120,6 +139,16 @@ LIBRARY_LEFT_OUT = {
     "max_softmax": "120 iterations at 2.7 s/iteration, about 330 s",
     "oneclass_svm": "5070 iterations at 27.8 ms/iteration, about 141 s",
 }
+# The H100's published peaks (SXM part): HBM bytes/s, and float32 FLOP/s
+# outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# Phase 8 (g): eval_prox on the card in f32 against the port on the CPU in
+# f64, relative to max |CPU result|.
+EVAL_PROX_RTOL = 1e-4
+EVAL_PROX_N = 1_000_000
+# Phase 8 (f): the resumed solution against the uninterrupted one.
+RESUME_ATOL = 1e-5
 REFERENCE_JSON = Path(__file__).resolve().parent / "tests" / "data" / "library_reference.json"
 
 
@@ -198,6 +227,17 @@ def call_ms(fn, reps=50):
     return _timed(fn, reps, head_start=False)
 
 
+def bound(n_bytes, flops):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``n_bytes`` of memory traffic and ``flops`` float32 operations."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_kernel(sp):
     """Kernel against the plain version at n = 8192; returns the JSON
     record for the main path's shape (R = 1, f32)."""
@@ -238,36 +278,67 @@ def phase_kernel(sp):
                 f"dense matmul {dense_ms:.4f} ms; back-to-back per call: kernel "
                 f"{call_ms(kernel):.4f} ms, dense matmul {call_ms(dense_mm):.4f} ms")
             if dtype == torch.float32 and R == 1:
+                # y = M x from the packed tiles: tiles and x read, y written
+                bound_ms, bound_by = bound(_nbytes(tiles, x, y), 2.0 * n * n * R)
+                log(f"[2] sym_packed n={n} R={R} f32: bound {bound_ms:.4f} ms by {bound_by} "
+                    f"({_nbytes(tiles, x, y)} bytes at {PEAK_BYTES_PER_S:.3g} B/s, "
+                    f"{2.0 * n * n * R:.3g} operations at {PEAK_F32_FLOPS:.3g}/s): "
+                    f"kernel at {bound_ms / ms:.2f} of it")
                 record = {"name": "sym_packed_matmul", "route": "cuda",
                           "source": "epsilon_tpu_torch/csrc/sym_packed.cu",
                           "replaces": "epsilon_tpu/ops/pallas_kernels.py:175",
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": dense_ms}
         del tiles, dense
     return record
 
 
-def run_lasso(ep, tag, A, b, lam, steady_iters):
-    """Solve through Problem.solve at rel_tol 1e-3 and check the result in
-    f64; then re-solve the same (warm-started) problem for a fixed count of
-    iterations, whose time has no first-touch set-up in it.  Returns the
-    solution."""
-    n = A.shape[1]
-    x = ep.Variable(n)
-    prob = ep.Problem(ep.Minimize(
+SOLVE = dict(rel_tol=1e-3, abs_tol=1e-6, rho=1.0)
+
+
+def lasso_problem(ep, A, b, lam):
+    x = ep.Variable(A.shape[1])
+    return x, ep.Problem(ep.Minimize(
         0.5 * ep.sum_squares(ep._wrap(A) * x - b) + lam * ep.norm1(x)))
-    t0 = time.time()
-    obj = prob.solve(rel_tol=1e-3, abs_tol=1e-6, rho=1.0, warm_start=True)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+
+
+def checked_solution(tag, prob, x, obj, A, b, lam, f_ref=None):
+    """The solution of a lasso solve that must have stopped ``optimal``,
+    held to the f64 checks: finite, KKT/lambda <= KKT_TOL and, where the
+    f64 reference objective is given, the objective within OBJ_RTOL of it.
+    Returns ``(x, kkt)``."""
     st = prob.solver_status
     if prob.status != "optimal":
         raise AssertionError(f"{tag}: solver state {st.state} after {st.num_iterations} iterations")
     xv = np.asarray(x.value, dtype=np.float64).ravel()
-    if xv.shape != (n,) or not np.all(np.isfinite(xv)) or not np.isfinite(obj):
+    if xv.shape != (A.shape[1],) or not np.all(np.isfinite(xv)) or not np.isfinite(obj):
         raise AssertionError(f"{tag}: non-finite or misshapen solution")
     kkt = kkt_violation(A, b, lam, xv)
     if not kkt <= KKT_TOL:
         raise AssertionError(f"{tag}: optimality violation {kkt} > {KKT_TOL}")
+    if f_ref is not None:
+        gap = abs(lasso_objective(A, b, lam, xv) - f_ref) / abs(f_ref)
+        if not gap <= OBJ_RTOL:
+            raise AssertionError(f"{tag}: objective {lasso_objective(A, b, lam, xv)} vs f64 "
+                                 f"reference {f_ref}: relative gap {gap} > {OBJ_RTOL}")
+    return xv, kkt
+
+
+def run_lasso(ep, tag, A, b, lam, steady_iters, f_ref=None, **params):
+    """Solve through Problem.solve at rel_tol 1e-3 (``params`` over
+    ``SOLVE``) and check the result in f64; then re-solve the same
+    (warm-started) problem for a fixed count of iterations, whose time has
+    no first-touch set-up in it.  Returns the solution, the first solve's
+    iterations and the problem (whose cached solver is warm)."""
+    params = dict(SOLVE, warm_start=True, **params)
+    x, prob = lasso_problem(ep, A, b, lam)
+    t0 = time.time()
+    obj = prob.solve(**params)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    st = prob.solver_status
+    xv, kkt = checked_solution(tag, prob, x, obj, A, b, lam, f_ref)
     init_s, solve_s = st.timing.init_usec / 1e6, st.timing.solve_usec / 1e6
     log(f"{tag}: optimal in {st.num_iterations} iterations, kkt {kkt:.2e} (tol {KKT_TOL:g}); "
         f"wall {wall:.3f} s = solver set-up {init_s:.3f} s + first solve {solve_s:.3f} s "
@@ -275,15 +346,22 @@ def run_lasso(ep, tag, A, b, lam, steady_iters):
         f"{wall - init_s - solve_s:.3f} s")
     first_iters = st.num_iterations
 
-    prob.solve(rel_tol=0.0, abs_tol=0.0, rho=1.0, warm_start=True,
-               epoch_iterations=100, max_iterations=steady_iters)
+    prob.solve(**dict(params, rel_tol=0.0, abs_tol=0.0, epoch_iterations=100,
+                      max_iterations=steady_iters))
     torch.cuda.synchronize()
     st = prob.solver_status
     steady_s = st.timing.solve_usec / 1e6
     log(f"{tag}: steady {st.num_iterations} iterations in {steady_s:.4f} s: "
         f"{1e3 * steady_s / st.num_iterations:.4f} ms/iter, "
         f"{st.num_iterations / steady_s:.1f} iter/s")
-    return xv, first_iters
+    return xv, first_iters, prob
+
+
+def cached_solver(prob):
+    """The solver that ``Problem.solve(warm_start=True)`` keeps for
+    ``prob``."""
+    from epsilon_tpu_torch.frontend.solve import _PROBLEM_CACHE
+    return _PROBLEM_CACHE[prob][1]
 
 
 def phase_local_update(lu):
@@ -323,18 +401,33 @@ def phase_local_update(lu):
             plain = lambda: lu.local_update_reference(Finv, Atb, u, z, 0.37)
             ms, plain_ms = device_ms(kernel), device_ms(plain)
             read_ms = device_ms(lambda: Finv.sum())
+            # the library call that computes K1's function on the same
+            # operands: bmm of the inverses with the right-hand side (made
+            # beforehand), and the sum over blocks that K1 fuses
+            rhs = (Atb + 0.37 * (z[None, :] - u)).unsqueeze(-1)
+            library = lambda: (torch.bmm(Finv, rhs).squeeze(-1) + u).sum(dim=0)
+            bmm_only_ms = device_ms(lambda: torch.bmm(Finv, rhs))
+            library_ms = device_ms(library)
             gbps = Finv.numel() * Finv.element_size() / (ms * 1e6)
+            n_bytes = _nbytes(Finv, Atb, u, z, x, xu)
+            bound_ms, bound_by = bound(n_bytes, 2.0 * S * n * n)
             err, scale = max(errs)
             log(f"[5] local_update S={S} n={n} {str(dtype)[6:]}: max_abs_err={err:.3e} "
                 f"(max|ref|={scale:.3e}, rtol {LOCAL_RTOL[dtype]:g}), bitwise repeatable, "
                 f"rho 1.0 and 0.37 through one library; device time: kernel {ms:.4f} ms "
-                f"({gbps:.0f} GB/s on Finv), plain {plain_ms:.4f} ms, Finv.sum() {read_ms:.4f} ms; "
+                f"({gbps:.0f} GB/s on Finv), plain {plain_ms:.4f} ms, Finv.sum() {read_ms:.4f} ms, "
+                f"torch.bmm + block sum {library_ms:.4f} ms (bmm alone {bmm_only_ms:.4f} ms); "
+                f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, "
+                f"{2.0 * S * n * n:.3g} operations): kernel at {bound_ms / ms:.2f} of it; "
                 f"back-to-back per call: kernel {call_ms(kernel):.4f} ms")
             if (S, n, dtype) == (200, 200, torch.float32):
                 record = {"name": "fused_local_update", "route": "cuda",
                           "source": "epsilon_tpu_torch/csrc/local_update.cu",
                           "replaces": "epsilon_tpu/ops/pallas_kernels.py:72",
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms}
+            del rhs
             del Finv, Atb, u, z
     return record
 
@@ -565,6 +658,189 @@ def phase_library():
     return out
 
 
+def phase_over_relaxed(sp, prob, A, b, lam, plain_iters):
+    """Phase 4's second solve: the 16384 x 8192 lasso from a cold state with
+    over_relaxation 1.5, on the solver that Problem.solve cached (its warm
+    state dropped, so no second set-up is paid).  Returns its iterations,
+    each of which launched K2 once."""
+    x = next(iter(_variables(prob)))
+    solver = cached_solver(prob)
+    solver._warm_state = None
+    before = sp.launches
+    t0 = time.time()
+    obj = prob.solve(**dict(SOLVE, warm_start=True, over_relaxation=1.5))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if cached_solver(prob) is not solver:
+        raise AssertionError("over-relaxation built a second solver")
+    _, kkt = checked_solution("[4] over-relaxed", prob, x, obj, A, b, lam)
+    iters = prob.solver_status.num_iterations
+    launches = sp.launches - before
+    if launches != iters:
+        raise AssertionError(f"over-relaxed lasso 16384x8192: sym_packed launched {launches} "
+                             f"times in {iters} iterations")
+    log(f"[4] over_relaxation 1.5, cold, on the cached solver: optimal in {iters} iterations "
+        f"(plain: {plain_iters}), kkt {kkt:.2e} (tol {KKT_TOL:g}), wall {wall:.3f} s with no "
+        f"second set-up; sym_packed launches {launches}, one per iteration")
+    return iters
+
+
+def _variables(prob):
+    from epsilon_tpu_torch.frontend import api
+    objs = {}
+    api.expr_var_objects(prob.objective.expr, objs)
+    return list(objs.values())
+
+
+def _ms_per_iter(st):
+    return st.timing.solve_usec / 1e3 / st.num_iterations
+
+
+def phase_surface(ep, fixed_iters, x_ref):
+    """Phase 8; raises on the first check that fails."""
+    import tempfile
+    from epsilon_tpu_torch import config
+    from epsilon_tpu_torch.compiler import compiler
+    from epsilon_tpu_torch.solvers import SolverParams, create_solver
+    from epsilon_tpu_torch.utils import SolverCheckpointer
+
+    A, b, lam = workload(2000, 1000)
+    n = A.shape[1]
+    f_ref = lasso_objective(A, b, lam, x_ref)
+
+    # (a) adaptive rho
+    _, iters, prob = run_lasso(ep, "[8a] adaptive rho", A, b, lam, steady_iters=500,
+                               f_ref=f_ref, adaptive_rho=True)
+    rho = float(cached_solver(prob)._warm_state[2])
+    log(f"[8a] adaptive rho: {iters} iterations (fixed rho 1 in phase 3: {fixed_iters}), "
+        f"rho {rho:g} after the steady re-solve")
+
+    # (b) the same minimiser with rho 1 far from balanced
+    As, bs, lams = 30.0 * A, 30.0 * b, 900.0 * lam
+    fs_ref = lasso_objective(As, bs, lams, x_ref)
+    counts = {}
+    for name, extra in (("fixed rho 1", {}), ("adaptive", dict(adaptive_rho=True))):
+        x, prob = lasso_problem(ep, As, bs, lams)
+        obj = prob.solve(**dict(SOLVE, warm_start=True, max_iterations=100000, **extra))
+        torch.cuda.synchronize()
+        st = prob.solver_status
+        _, kkt = checked_solution(f"[8b] scaled by 30, {name}", prob, x, obj, As, bs, lams, fs_ref)
+        counts[name] = st.num_iterations
+        tail = (f", final rho {float(cached_solver(prob)._warm_state[2]):g}" if extra else "")
+        log(f"[8b] scaled by 30, {name}: optimal in {st.num_iterations} iterations, kkt "
+            f"{kkt:.2e}, solve {st.timing.solve_usec / 1e6:.3f} s "
+            f"({_ms_per_iter(st):.4f} ms/iter){tail}")
+    log(f"[8b] iterations: fixed rho 1 {counts['fixed rho 1']}, adaptive {counts['adaptive']}")
+
+    # (c) the N-block solver
+    for rho in (1.0, 4.0):
+        _, iters, _ = run_lasso(ep, f"[8c] prox_admm rho {rho:g}", A, b, lam, steady_iters=500,
+                                f_ref=f_ref, solver="prox_admm", rho=rho)
+
+    # (d) a Parameter right-hand side, re-solved on one cached solver
+    rng = np.random.RandomState(1)
+    bp = ep.Parameter(A.shape[0], value=b)
+    x = ep.Variable(n)
+    prob = ep.Problem(ep.Minimize(
+        0.5 * ep.sum_squares(ep._wrap(A) * x - bp) + lam * ep.norm1(x)))
+    t0 = time.perf_counter()
+    obj = prob.solve(**dict(SOLVE, warm_start=True))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    checked_solution("[8d] first solve", prob, x, obj, A, b, lam, f_ref)
+    solver, first_iters = cached_solver(prob), prob.solver_status.num_iterations
+    resolves = []
+    for k in range(5):
+        x0 = rng.randn(n) * (rng.rand(n) < 0.1)
+        bk = A @ x0 + 0.01 * rng.randn(A.shape[0])
+        bp.value = bk       # the penalty stays; only the right-hand side moves
+        t0 = time.perf_counter()
+        obj = prob.solve(**dict(SOLVE, warm_start=True))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fk_ref = lasso_objective(A, bk, lam, numpy_two_block(A, bk, lam))
+        checked_solution(f"[8d] re-solve {k}", prob, x, obj, A, bk, lam, fk_ref)
+        if cached_solver(prob) is not solver:
+            raise AssertionError("[8d] the Parameter re-solve built another solver")
+        resolves.append((dt, prob.solver_status.num_iterations))
+    log(f"[8d] Parameter sweep on one cached solver: first solve {first_s:.3f} s "
+        f"({first_iters} iterations); re-solves "
+        + ", ".join(f"{dt:.3f} s ({it})" for dt, it in resolves))
+
+    # (e) a stop callback under host drive, after 3 epochs
+    compiled = compiler.compile_problem(lasso_problem(ep, A, b, lam)[1].expression_problem())
+    calls = []
+    solver = create_solver(compiled, SolverParams(**dict(SOLVE, rel_tol=0.0, abs_tol=0.0,
+                                                         drive="host")))
+    solver.register_stop_callback(lambda: calls.append(1) or len(calls) >= 3)
+    solver.solve()
+    if solver.status.num_iterations != 30 or solver.status.state.value == "optimal":
+        raise AssertionError(f"[8e] the stop callback gave {solver.status.num_iterations} "
+                             f"iterations, state {solver.status.state}")
+    log(f"[8e] stop callback under drive=host: returned after {solver.status.num_iterations} "
+        f"iterations, {solver.status.state.value}")
+
+    # (f) a checkpoint, resumed by a new solver
+    # rho 8 at rel_tol 1e-5 takes a few hundred iterations (240 in f32 on
+    # the CPU), well past the cut
+    tight = dict(rel_tol=1e-5, abs_tol=1e-8, rho=8.0)
+    whole = create_solver(compiled, SolverParams(**tight))
+    x_whole = whole.solve()
+    with tempfile.TemporaryDirectory() as d:
+        cut = create_solver(compiled, SolverParams(**dict(tight, max_iterations=50)))
+        cut.attach_checkpointer(SolverCheckpointer(d))
+        cut.solve()
+        ckpt = SolverCheckpointer(d)
+        saved = ckpt.latest_step()
+        resumed = create_solver(compiled, SolverParams(**tight))
+        resumed.attach_checkpointer(ckpt)
+        x_res = resumed.solve()
+    diff = max(float((x_res[k] - x_whole[k]).abs().max()) for k in x_whole.keys())
+    on_card = all(v.device.type == config.device().type for v in x_res.data.values())
+    if (saved != 50 or resumed.status.num_iterations != whole.status.num_iterations
+            or resumed.status.state.value != "optimal" or not diff <= RESUME_ATOL
+            or not on_card or whole.status.num_iterations <= 50):
+        raise AssertionError(f"[8f] checkpoint: saved at {saved}, resumed to "
+                             f"{resumed.status.num_iterations} ({resumed.status.state}), whole "
+                             f"{whole.status.num_iterations}, max difference {diff}, on the "
+                             f"card {on_card}")
+    log(f"[8f] checkpoint at 50 iterations, resumed by a new solver: {resumed.status.num_iterations} "
+        f"iterations in all, as the uninterrupted solve; max difference {diff:.2e} "
+        f"(tol {RESUME_ATOL:g})")
+
+    # (g) eval_prox on the card against the port on the CPU in f64
+    N = EVAL_PROX_N
+    rng = np.random.RandomState(2)
+    v, w, c = rng.randn(N), rng.rand(N) + 0.5, rng.randn(N)
+    s0 = 0.25 * float(np.abs(v).sum())
+    kinds = (
+        ("norm1 (elementwise)", lambda x, t: ep.norm1(x), 0.7, False),
+        ("norm1 epigraph", lambda x, t: ep.norm1(x) <= t, 1.0, True),
+        ("sum_squares, affine argument",
+         lambda x, t: ep.sum_squares(ep.mul_elemwise(w.reshape(-1, 1), x) - c), 0.8, False),
+    )
+    for name, build, lam_p, epi in kinds:
+        out = {}
+        for device in ("cuda", "cpu"):
+            config.set_device(device)
+            try:
+                x, t = ep.Variable(N), ep.Variable(1)
+                v_map = {x: v, t: np.array([s0])} if epi else {x: v}
+                t0 = time.perf_counter()
+                ep.eval_prox(build(x, t), v_map, lam=lam_p)
+                dt = time.perf_counter() - t0
+                out[device] = (np.concatenate([x.value.ravel()] + ([t.value.ravel()] if epi else [])), dt)
+            finally:
+                config.set_device("cuda")
+        (got, dt_card), (want, dt_cpu) = out["cuda"], out["cpu"]
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        if got.shape != want.shape or not np.all(np.isfinite(got)) or not err <= EVAL_PROX_RTOL:
+            raise AssertionError(f"[8g] eval_prox {name}: relative error {err} > {EVAL_PROX_RTOL}")
+        log(f"[8g] eval_prox {name}, {N} elements: relative error {err:.2e} against the port "
+            f"on the CPU in f64 (tol {EVAL_PROX_RTOL:g}); {dt_card:.3f} s on the card, "
+            f"{dt_cpu:.3f} s on the CPU, compile included")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -596,9 +872,10 @@ def main():
 
     # -- 3. flagship lasso 2000 x 1000 ------------------------------------------
     A, b, lam = workload(2000, 1000)
-    xv, _ = run_lasso(ep, "[3] lasso 2000x1000", A, b, lam, steady_iters=2000)
+    xv, flagship_iters, _ = run_lasso(ep, "[3] lasso 2000x1000", A, b, lam, steady_iters=2000)
     f_port = lasso_objective(A, b, lam, xv)
-    f_ref = lasso_objective(A, b, lam, numpy_two_block(A, b, lam))
+    x_ref = numpy_two_block(A, b, lam)
+    f_ref = lasso_objective(A, b, lam, x_ref)
     gap = abs(f_port - f_ref) / abs(f_ref)
     if not gap <= OBJ_RTOL:
         raise AssertionError(f"lasso 2000x1000: objective {f_port} vs f64 reference "
@@ -611,15 +888,16 @@ def main():
     A, b, lam = workload(16384, 8192)
     log(f"[4] generated 16384x8192 data in {time.time() - t0:.2f} s")
     sp.launches = 0
-    _, iters = run_lasso(ep, "[4] lasso 16384x8192", A, b, lam, steady_iters=STEADY_ITERS)
+    _, iters, prob = run_lasso(ep, "[4] lasso 16384x8192", A, b, lam, steady_iters=STEADY_ITERS)
     launches = sp.launches
     if launches < iters + STEADY_ITERS:
         raise AssertionError(f"lasso 16384x8192: sym_packed launched {launches} times "
                              f"in {iters} + {STEADY_ITERS} iterations")
     log(f"[4] sym_packed launches in the main path: {launches} "
         f"({iters} + {STEADY_ITERS} iterations)")
-    record["launches"] = launches
-    del A, b
+    relaxed_iters = phase_over_relaxed(sp, prob, A, b, lam, iters)
+    record["launches"] = launches + relaxed_iters
+    del A, b, prob
 
     # -- 5. K1 against its plain version ------------------------------------------
     record_k1 = phase_local_update(lu)
@@ -633,6 +911,14 @@ def main():
     phase_library()
     log(f"[7] hand-written kernel launches in phase 7: sym_packed {sp.launches}, "
         f"local_update {lu.launches} (no library row reaches either)")
+
+    # -- 8. the rest of the solver's surface at the flagship's width -----------------
+    sp.launches = lu.launches = 0
+    t0 = time.perf_counter()
+    phase_surface(ep, flagship_iters, x_ref)
+    log(f"[8] passed in {time.perf_counter() - t0:.1f} s; hand-written kernel launches in "
+        f"phase 8: sym_packed {sp.launches}, local_update {lu.launches} (n = 1000 is below "
+        f"K2's gate)")
 
     log(json.dumps({"kernels": records}))
     log(card)

@@ -1,8 +1,9 @@
-"""Top-level ``solve`` entry point.
+"""Top-level ``solve`` and ``eval_prox`` entry points.
 
-Counterpart of ``solve`` in ``epsilon_tpu/frontend/solve.py``: compile ->
-solve -> write-back, with a compiled-problem cache for warm starts and a
-single-prox fast path.
+Counterpart of ``epsilon_tpu/frontend/solve.py``: compile -> solve ->
+write-back, with a compiled-problem cache for warm starts (a cached solver
+takes new ``Parameter`` values through ``update_problem``) and a
+single-prox fast path; ``eval_prox`` evaluates one proximal operator.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import logging
 import time
 import weakref
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ from ..ops.prox.operator import create_prox_operator
 from ..solvers import SolverParams, SolverState, create_solver, problem_objective
 from ..solvers.status import SolverStatus
 from . import api
+from . import expression as ex
 
 logger = logging.getLogger("epsilon_tpu_torch")
 
@@ -79,11 +81,16 @@ def solve(problem: api.Problem, verbose: bool = False, **kwargs) -> float:
     cached = _PROBLEM_CACHE.get(key) if params.warm_start else None
     if cached is not None:
         prox_problem, solver = cached
-        if _has_parameters(problem):
-            raise NotImplementedError(
-                "re-solving a warm-started problem with Parameters "
-                "(solver.update_problem) is not yet ported")
         solver.params = params
+        if _has_parameters(problem):
+            # Parameter values may have changed: fold the (identically
+            # structured) problem again and hand its data to the cached
+            # solver, which keeps its warm state (solver.update_problem)
+            prox_problem = compiler.compile_problem(
+                problem.expression_problem(),
+                use_epigraph=params.use_epigraph)
+            solver.update_problem(prox_problem)
+            _PROBLEM_CACHE[key] = (prox_problem, solver)
     else:
         prox_problem = compiler.compile_problem(
             problem.expression_problem(), use_epigraph=params.use_epigraph)
@@ -147,3 +154,54 @@ def _solve_single_prox(problem: api.Problem,
     problem.solver_status = status
     problem.status = "optimal"
     return float(problem_objective(prox_problem, x))
+
+
+def eval_prox(f, v_map: Dict[api.Variable, np.ndarray], lam: float = 1.0,
+              expected_kind=None, epigraph: Optional[bool] = None):
+    """Evaluate a single proximal operator: for each variable x with value
+    v, compute argmin lam*f(x) + 1/2 sum ||x - v||^2 on the configured
+    device and write it back; returns ``{variable id: numpy array}``."""
+    # standalone prox evaluations certify at full (dtype sqrt-precision)
+    # accuracy, not whatever inner tol a previous solve left behind
+    config.set_prox_inner_tol(None)
+
+    problem = ex.Problem(objective=api._wrap(f), constraints=[])
+    prox_problem = compiler.compile_problem(problem)
+    if len(prox_problem.terms) != 1:
+        raise ValueError(
+            f"prox does not have a single term:\n"
+            f"{text_format.format_problem(prox_problem)}")
+    if prox_problem.constraints:
+        raise ValueError("prox has constraints")
+    term = prox_problem.terms[0]
+    if expected_kind is not None and (
+            term.spec.kind != expected_kind or
+            (epigraph is not None and term.spec.epigraph != bool(epigraph))):
+        raise ValueError(
+            f"prox compiled to {term.spec.kind} (epigraph="
+            f"{term.spec.epigraph}), expected {expected_kind}")
+
+    inv_sqrt_lam = 1.0 / np.sqrt(lam)
+    A = BlockMatrix()
+    v = BlockVector()
+    tvars = sorted({c for (_, c) in term.H.A.blocks})
+    var_objs: Dict[str, api.Variable] = {}
+    api.expr_var_objects(problem.objective, var_objs)
+    for i, vid in enumerate(tvars):
+        A.insert(f"c{i}", vid, linop.scalar(inv_sqrt_lam, prox_problem.var_dims[vid]))
+    op = create_prox_operator(term.spec, term.H,
+                              AffineOperator(A, BlockVector()))
+    for i, vid in enumerate(tvars):
+        var = var_objs.get(vid)
+        if var is not None and var in v_map:
+            val = linop.vec(np.asarray(v_map[var], dtype=float))
+        else:
+            val = np.zeros(prox_problem.var_dims[vid])
+        v[f"c{i}"] = linop.to_tensor(inv_sqrt_lam * val)
+
+    x = op.apply(v)
+    out = {vid: _host(val) for vid, val in x.items()}
+    for vid, var in var_objs.items():
+        if vid in out:
+            var.value = linop.mat(out[vid], var.size)
+    return out

@@ -62,21 +62,49 @@ def prox_problem_from_numpy(p) -> ProxProblem:
         var_shapes={k: tuple(v) for k, v in p.var_shapes.items()})
 
 
+def _t(a):
+    return linop.to_tensor(np.array(a, dtype=np.float64))
+
+
+def _bv(d):
+    return BlockVector({k: _t(v) for k, v in d.items()})
+
+
 def state_from_numpy(z: Dict[str, np.ndarray], u: Dict[str, np.ndarray],
-                     kstates=None):
+                     kstates=None, rho=None):
     """The two-block solver's warm state from per-variable numpy arrays
     (e.g. a JAX solver's state, converted with ``np.asarray``), as tensors
-    on the configured device: ``(z, u)``, or ``(z, u, kstates)`` when the
-    solver threads warm kernel state (one entry per term, None for the
-    terms without)."""
-    def t(a):
-        return linop.to_tensor(np.array(a, dtype=np.float64))
+    on the configured device, packed as the solver packs it:
+    ``(z, u[, rho][, kstates])``.  ``rho`` (adaptive mode) becomes a 0-d
+    tensor; ``kstates`` is given when the solver threads warm kernel state
+    (one entry per term, None for the terms without)."""
+    out = (_bv(z), _bv(u))
+    if rho is not None:
+        out += (_t(rho).reshape(()),)
+    if kstates is not None:
+        out += (tuple(None if k is None else _t(k) for k in kstates),)
+    return out
 
-    def bv(d):
-        return BlockVector({k: t(v) for k, v in d.items()})
-    if kstates is None:
-        return bv(z), bv(u)
-    return bv(z), bv(u), tuple(None if k is None else t(k) for k in kstates)
+
+def two_block_state_from_reference(state):
+    """:func:`state_from_numpy` of a JAX two-block solver's packed state
+    ``(z, u[, rho][, kstates])``, told apart by the types of its entries."""
+    rho = kstates = None
+    for extra in state[2:]:
+        if isinstance(extra, tuple):
+            kstates = [None if k is None else np.asarray(k) for k in extra]
+        else:
+            rho = np.asarray(extra)
+    return state_from_numpy({k: np.asarray(v) for k, v in state[0].items()},
+                            {k: np.asarray(v) for k, v in state[1].items()},
+                            kstates=kstates, rho=rho)
+
+
+def nblock_state_from_numpy(u: Dict[str, np.ndarray], ys):
+    """The N-block solver's warm state ``(u, ys)`` from numpy arrays keyed
+    by constraint row (``ys``: one dict per term), as tensors on the
+    configured device."""
+    return _bv(u), tuple(_bv(y) for y in ys)
 
 
 def consensus_state_from_numpy(x, u, z, rho):

@@ -20,9 +20,13 @@ constraint columns) are block linear operators:
 - :class:`SecondOrderConeProxOperator` — row-wise SOC projection with
   scalar scalings.
 
+- The rho-parameterized operators of adaptive rho
+  (:func:`create_rho_prox_operator`): ``apply_rho(v, rho)`` solves
+  ``argmin alpha f(H x + g) + rho/2 ||x - v||^2`` with ``rho`` a 0-d tensor
+  on the device, so a change of rho costs no refactorization.
+
 Structure analysis and factorization run eagerly at construction; ``apply``
-runs on tensors.  The rho-parameterized operators of adaptive rho are not
-yet ported.
+runs on tensors.
 """
 
 from __future__ import annotations
@@ -155,10 +159,19 @@ class VectorProxOperator(ProxOperator):
     def _params(self) -> Dict:
         return linop._cached(self, "_tparams", lambda: kernel_params(self.spec))
 
-    def _lam(self):
-        if isinstance(self.lam, np.ndarray):
-            return linop._cached(self, "_tlam", lambda: linop.to_tensor(self.lam))
-        return self.lam
+    def _lam(self, rho=None):
+        lam = self.lam
+        if isinstance(lam, np.ndarray):
+            lam = linop._cached(self, "_tlam", lambda: linop.to_tensor(self.lam))
+        return lam if rho is None else lam / rho
+
+    def apply_rho(self, v: BlockVector, rho) -> BlockVector:
+        """Apply at penalty rho (a 0-d tensor):  argmin alpha f(H x + g)
+        + rho/2 ||x - v||^2.  Valid when the operator was built with A = I
+        (unit constraint metric): then B, C and D do not depend on rho and
+        the penalty enters through lam -> lam/rho alone (epigraph
+        projections ignore it)."""
+        return self.apply(v, rho=rho)
 
     def _kernel_args(self, u: BlockVector) -> List[torch.Tensor]:
         return [u.get(arg_key(i), self.arg_dims[i]) for i in range(self.n_args)]
@@ -175,7 +188,7 @@ class VectorProxOperator(ProxOperator):
     def _unslice(self, X):
         return linop.jvec(X.T if self.spec.axis == 0 else X)
 
-    def _apply_kernel(self, vals: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _apply_kernel(self, vals: List[torch.Tensor], rho=None) -> List[torch.Tensor]:
         spec, entry, p = self.spec, self.entry, self._params()
         if spec.epigraph:
             epi = entry.epi or epigraph_via_bisection(spec.kind)
@@ -195,7 +208,7 @@ class VectorProxOperator(ProxOperator):
             x, t = epi(vals[0], vals[-1][0], **p)
             return [x, t.reshape(1)]
 
-        lam = self._lam()
+        lam = self._lam(rho)
         if entry.matrix:
             return [linop.jvec(entry.prox(self._mat(vals[0]), lam, **p))]
         if entry.nargs == 2:
@@ -213,9 +226,9 @@ class VectorProxOperator(ProxOperator):
             x = x + self.D.apply(v)
         return x
 
-    def apply(self, v: BlockVector) -> BlockVector:
+    def apply(self, v: BlockVector, rho=None) -> BlockVector:
         u = self.B.apply(v) + self.g.to_device()
-        return self._finish(v, self._apply_kernel(self._kernel_args(u)))
+        return self._finish(v, self._apply_kernel(self._kernel_args(u), rho=rho))
 
     # -- warm-startable (stateful) kernels ---------------------------------
     def kernel_state_init(self):
@@ -228,13 +241,14 @@ class VectorProxOperator(ProxOperator):
             return None
         return self.entry.state_init(self.arg_dims[0], config.default_dtype())
 
-    def apply_stateful(self, v: BlockVector, kstate):
+    def apply_stateful(self, v: BlockVector, kstate, rho=None):
         """:meth:`apply` threading the kernel's warm state; returns
         ``(x, new_state)``.  Valid when :meth:`kernel_state_init` is not
         None."""
         u = self.B.apply(v) + self.g.to_device()
-        x_k, st = self.entry.stateful_prox(self._kernel_args(u)[0], self.lam,
-                                           kstate, **self._params())
+        x_k, st = self.entry.stateful_prox(self._kernel_args(u)[0],
+                                           self._lam(rho), kstate,
+                                           **self._params())
         return self._finish(v, [x_k]), st
 
     def feval(self, u: BlockVector):
@@ -504,6 +518,144 @@ class SecondOrderConeProxOperator(ProxOperator):
         Xp, tp = veckernels.project_soc_rows(X, t, self.a)
         return BlockVector({self.x_key: linop.jvec(Xp) - bx,
                             self.t_key: tp - bt / self.a})
+
+
+# ---------------------------------------------------------------------------
+# rho-parameterized operators (adaptive-rho two-block ADMM)
+# ---------------------------------------------------------------------------
+#
+# These solve  argmin_x alpha*f(H x + g) + rho/2 ||x - v||^2  with rho a 0-d
+# tensor on the device, so residual-balancing adaptive rho (Boyd et al.
+# 3.4.1) costs no refactorization: projections do not depend on rho,
+# canonical kernels take lam/rho, and quadratics apply through a cached
+# eigendecomposition (Q diag(1/(w+rho)) Q') instead of a Cholesky factor.
+
+
+class RhoProjectionOperator(ProxOperator):
+    """Wrapper for operators that do not depend on rho (indicators and
+    projections: ZERO, SOC, every epigraph): ``apply_rho`` ignores rho."""
+
+    def __init__(self, inner: ProxOperator):
+        self.inner = inner
+
+    def apply(self, v: BlockVector) -> BlockVector:
+        return self.inner.apply(v)
+
+    def apply_rho(self, v: BlockVector, rho) -> BlockVector:
+        return self.inner.apply(v)
+
+
+class RhoAffineProxOperator(ProxOperator):
+    """f(x) = alpha*c'x (+ const) at penalty rho:  x = v - c/rho (the
+    closed form of :class:`AffineProxOperator` in the unit metric)."""
+
+    def __init__(self, spec: ProxFunctionSpec, affine_arg: AffineOperator,
+                 var_dims: Dict[str, int]):
+        self.var_dims = dict(var_dims)
+        c: Dict[str, np.ndarray] = {}
+        if spec.kind == ProxKind.AFFINE:
+            for (r, ckey), op in affine_arg.A.blocks.items():
+                dense = op.as_dense()
+                if dense.shape[0] != 1:
+                    raise ValueError("affine arg must be 1-row")
+                vec = dense[0] * spec.alpha
+                c[ckey] = c[ckey] + vec if ckey in c else vec
+        self._c_host = {k: np.asarray(v, dtype=np.float64)
+                        for k, v in c.items()}
+
+    def apply_rho(self, v: BlockVector, rho) -> BlockVector:
+        c = linop._cached(self, "_tc", lambda: {
+            k: linop.to_tensor(ck) for k, ck in self._c_host.items()})
+        out = {}
+        for k, n in self.var_dims.items():
+            vk = v.get(k, n)
+            if k in c:
+                vk = vk - c[k] / rho
+            out[k] = vk
+        return BlockVector(out)
+
+    def apply(self, v: BlockVector) -> BlockVector:
+        return self.apply_rho(v, 1.0)
+
+
+class RhoSumSquareProxOperator(ProxOperator):
+    """f = alpha*||H x + g||^2 at penalty rho:
+        x = Q diag(1/(w + rho)) Q' (rho v - 2 alpha H'g),
+    where Q w Q' = eigh(2 alpha H'H), computed once on the host in float64:
+    the eigendecomposition analogue of the cached Cholesky factor that stays
+    valid for every rho.  The two products with Q run on the device."""
+
+    def __init__(self, spec: ProxFunctionSpec, affine_arg: AffineOperator,
+                 var_dims: Dict[str, int]):
+        H, g = affine_arg.A, affine_arg.b
+        self.col_keys = sorted(var_dims)
+        self.var_dims = dict(var_dims)
+        # dense H with rows/cols in sorted-key order (cols may include
+        # variables H never touches; pad with zero columns)
+        rows = H.row_keys()
+        m = sum(H.row_dim(r) for r in rows)
+        n = sum(var_dims[k] for k in self.col_keys)
+        Hd = np.zeros((m, n))
+        roff = {}
+        acc = 0
+        for r in rows:
+            roff[r] = acc
+            acc += H.row_dim(r)
+        coff = {}
+        acc = 0
+        for k in self.col_keys:
+            coff[k] = acc
+            acc += var_dims[k]
+        for (r, c), op in H.blocks.items():
+            Hd[roff[r]:roff[r] + op.m, coff[c]:coff[c] + op.n] = op.as_dense()
+        g_flat = np.zeros(m)
+        for r, val in g.items():
+            g_flat[roff[r]:roff[r] + len(np.asarray(val))] = np.asarray(val)
+        G = 2.0 * spec.alpha * (Hd.T @ Hd)
+        w, Q = np.linalg.eigh(G)
+        self._w_host = np.maximum(w, 0.0)  # G is PSD; clip eigh noise
+        self._Q_host = Q
+        self._r0_host = -2.0 * spec.alpha * (Hd.T @ g_flat)
+        self._coff = coff
+
+    def apply_rho(self, v: BlockVector, rho) -> BlockVector:
+        Q, w, r0 = linop._cached(self, "_tdev", lambda: tuple(
+            linop.to_tensor(a) for a in (self._Q_host, self._w_host,
+                                         self._r0_host)))
+        parts = [v.get(k, self.var_dims[k]) for k in self.col_keys]
+        flat = torch.cat(parts) if parts else Q.new_zeros(0)
+        t = rho * flat + r0
+        x = Q @ ((Q.T @ t) / (w + rho))
+        return BlockVector({k: x[self._coff[k]:self._coff[k] + self.var_dims[k]]
+                            for k in self.col_keys})
+
+    def apply(self, v: BlockVector) -> BlockVector:
+        return self.apply_rho(v, 1.0)
+
+
+def create_rho_prox_operator(spec: ProxFunctionSpec,
+                             affine_arg: AffineOperator,
+                             var_dims: Dict[str, int]) -> ProxOperator:
+    """Factory for rho-parameterized operators in the unit constraint
+    metric (A = I over ``var_dims``); every returned operator supports
+    ``apply_rho(v, rho)`` with rho a 0-d tensor."""
+    kind = spec.kind
+    eye = BlockMatrix({(k, k): linop.identity(n)
+                       for k, n in var_dims.items()})
+    unit = AffineOperator(eye, BlockVector())
+    if kind == ProxKind.ZERO:
+        return RhoProjectionOperator(ZeroProxOperator(spec, affine_arg, unit))
+    if kind in (ProxKind.AFFINE, ProxKind.CONSTANT):
+        return RhoAffineProxOperator(spec, affine_arg, var_dims)
+    if kind == ProxKind.SUM_SQUARE and not spec.epigraph:
+        return RhoSumSquareProxOperator(spec, affine_arg, var_dims)
+    if kind == ProxKind.SECOND_ORDER_CONE:
+        return RhoProjectionOperator(
+            SecondOrderConeProxOperator(spec, affine_arg, unit))
+    op = VectorProxOperator(spec, affine_arg, unit)
+    if spec.epigraph:
+        return RhoProjectionOperator(op)
+    return op  # VectorProxOperator.apply_rho takes lam/rho
 
 
 # ---------------------------------------------------------------------------

@@ -12,11 +12,19 @@ becomes a Python loop whose continuation test (one host sync per round)
 mirrors the JAX termination exactly.  Inside ADMM the kernel is warm
 started from the previous iteration's dual (:func:`prox_tv1d_registry_warm`).
 
+Off the registry path, as in the JAX module: Douglas-Rachford/ADMM
+splitting whose x-update ``(I + rho D^T D)^{-1} r`` is solved exactly in the
+DCT-II basis by one FFT pair (:func:`neumann_laplacian_solve`) or by the
+decaying Toeplitz inverse kernel as a framed matmul
+(:func:`neumann_laplacian_solve_conv`): a fixed count (:func:`prox_tv1d`),
+epochs until the duality gap certifies, with residual-balancing rho
+(:func:`prox_tv1d_certified`), and coarse-to-fine continuation for long
+signals (:func:`prox_tv1d_multiscale`).
+
 :func:`tv1d_exact_numpy` (the exact taut-string algorithm on the host) is
-the test oracle.  The Douglas-Rachford, certified and multiscale variants
-of the JAX module are not on the registry path and are not ported, nor is
-the registry's uncertified-gap warning (a debug callback there; here it
-would cost a host sync per call): :func:`prox_tv1d_pdas` returns the gap.
+the test oracle.  The registry's uncertified-gap warning of the JAX module
+(a debug callback there; here it would cost a host sync per call) is not
+ported: :func:`prox_tv1d_pdas` returns the gap.
 """
 
 from __future__ import annotations
@@ -24,7 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["prox_tv1d_pdas", "prox_tv1d_registry", "prox_tv1d_registry_warm",
+__all__ = ["prox_tv1d", "prox_tv1d_certified", "prox_tv1d_multiscale",
+           "neumann_laplacian_solve", "neumann_laplacian_solve_conv",
+           "prox_tv1d_pdas", "prox_tv1d_registry", "prox_tv1d_registry_warm",
            "tv1d_state_init", "pcr_tridiag_solve", "eval_tv1d", "tv1d_gap",
            "tv_gap_tol", "default_tv_tol", "pdas_default_tol",
            "tv1d_exact_numpy"]
@@ -56,6 +66,166 @@ def _diff_t(w):
     """D^T w for the forward-difference operator."""
     pad = torch.zeros_like(w[..., :1])
     return torch.cat([-w, pad], dim=-1) + torch.cat([pad, w], dim=-1)
+
+
+def neumann_laplacian_solve(r, rho):
+    """Solve ``(I + rho * D^T D) x = r`` exactly, where D^T D is the
+    free-boundary (Neumann) 1-D Laplacian, by the mirror-extension FFT
+    trick: on the even-symmetric length-2n extension the operator is a
+    circulant, so the solve is one rfft / irfft pair."""
+    n = r.shape[-1]
+    ext = torch.cat([r, torch.flip(r, dims=(-1,))], dim=-1)
+    R = torch.fft.rfft(ext, dim=-1)
+    k = torch.arange(R.shape[-1], dtype=r.dtype, device=r.device)
+    eig = 2.0 - 2.0 * torch.cos(torch.pi * k / n)
+    x = torch.fft.irfft(R / (1.0 + rho * eig), n=2 * n, dim=-1)
+    return x[..., :n].to(r.dtype)
+
+
+def neumann_laplacian_solve_conv(r, rho, taps: int = 256, block: int = 256):
+    """Same solve as :func:`neumann_laplacian_solve` through the decaying
+    Toeplitz inverse kernel instead of the FFT.  The infinite-grid inverse
+    of ``I + rho*D^T D`` is ``g[d] = q^|d| / sqrt(1+4 rho)`` with
+    ``q = (1+2 rho - sqrt(1+4 rho)) / (2 rho)`` (|q| < 1), so the solve is a
+    (2*taps-1)-tap correlation of the symmetrically padded signal, computed
+    as overlapping frames times a banded Toeplitz matrix built from ``rho``
+    (a number or a 0-d tensor).  The truncation error is
+    ``O(q^taps * ||r||_inf)``; callers that need exactness certify a
+    posteriori (:func:`prox_tv1d_certified`)."""
+    dt, dev = r.dtype, r.device
+    n = r.shape[-1]
+    K, C = taps, block
+    W = C + 2 * K - 2
+    F = -(-n // C)
+    rho = torch.as_tensor(rho, dtype=dt, device=dev)
+    s = torch.sqrt(1.0 + 4.0 * rho)
+    q = torch.where(rho > 0, (1.0 + 2.0 * rho - s) / (2.0 * rho),
+                    torch.zeros_like(rho))
+
+    # banded Toeplitz (W, C): T[w, j] = q^|w-j-(K-1)| / s inside the band
+    d = (torch.arange(W, device=dev)[:, None]
+         - torch.arange(C, device=dev)[None, :] - (K - 1))
+    band = (d > -K) & (d < K)
+    T = torch.where(band, torch.pow(q, torch.abs(d).to(dt)) / s,
+                    torch.zeros((), dtype=dt, device=dev))
+
+    # frame f reads positions C*f - (K-1) + [0, W) of the signal, extended
+    # symmetrically (the edge sample repeats) on both sides
+    pos = (C * torch.arange(F, device=dev)[:, None]
+           + torch.arange(W, device=dev)[None, :] - (K - 1)) % (2 * n)
+    idx = torch.where(pos >= n, 2 * n - 1 - pos, pos)
+    frames = r[..., idx]                             # (..., F, W)
+    y = frames @ T
+    return y.reshape(r.shape[:-1] + (F * C,))[..., :n]
+
+
+def _soft(x, t):
+    return torch.sign(x) * torch.clamp(torch.abs(x) - t, min=0.0)
+
+
+def prox_tv1d(v, lam, iters: int = 150, rho: float = 1.0):
+    """ADMM with the exact DCT-based x-update, a fixed count of iterations:
+    minimize (1/2)||x-v||^2 + lam ||w||_1  s.t.  D x = w."""
+    w = _soft(_diff(v), lam)
+    u = torch.zeros_like(w)
+    x = v
+    for _ in range(iters):
+        x = neumann_laplacian_solve(v + rho * _diff_t(w - u), rho)
+        dx = _diff(x)
+        w = _soft(dx + u, lam / rho)
+        u = u + dx - w
+    return x
+
+
+def prox_tv1d_certified(v, lam, tol=None, max_iters=3000, check_every=32,
+                        rho0=1.0, w0=None, u0=None):
+    """Gap-certified TV prox: Douglas-Rachford/ADMM epochs of
+    ``check_every`` iterations with residual-balancing rho, until the
+    certified duality gap satisfies ``gap <= 0.5*(tol*scale)^2``
+    (``scale = max(1, ||v||_2)``), i.e. ``||x - x*||_2 <= tol*scale``, or
+    ``max_iters``; one host sync per epoch.  Returns ``(x_d, gap, iters)``
+    with ``x_d`` the dual-certified primal point."""
+    dt = v.dtype
+    n = v.shape[-1]
+    lam = torch.as_tensor(lam, dtype=dt, device=v.device)
+    if tol is None:
+        tol = default_tv_tol(dt)
+    gap_tol = tv_gap_tol(v, tol)
+
+    # x-update: the truncated inverse kernel for long signals (rho clamped
+    # so that the kernel's tail stays below about 1e-8), the exact FFT
+    # solve for short ones (where the framing would pad past the signal)
+    taps = 256
+    if n >= 2 * taps:
+        rho_hi = torch.full_like(lam, 200.0)
+
+        def solve(r, rho):
+            return neumann_laplacian_solve_conv(r, rho, taps=taps)
+    else:
+        rho_hi = torch.full_like(lam, float("inf"))
+        solve = neumann_laplacian_solve
+
+    w = _soft(_diff(v), lam) if w0 is None else w0
+    u = torch.zeros_like(w) if u0 is None else u0
+    # the w-update's threshold is lam/rho: start rho near lam
+    rho = torch.minimum(torch.maximum(torch.as_tensor(rho0, dtype=dt,
+                                                      device=v.device), lam),
+                        rho_hi)
+    iters = 0
+    gap = torch.full_like(lam, float("inf"))
+    while iters < max_iters and bool(gap > gap_tol):
+        w_prev = w
+        for _ in range(check_every):
+            x = solve(v + rho * _diff_t(w - u), rho)
+            # over-relaxation (alpha = 1.8) on the splitting variable
+            dx = 1.8 * _diff(x) + (1.0 - 1.8) * w
+            w_prev, w = w, _soft(dx + u, lam / rho)
+            u = u + dx - w
+        # residual balancing: the scaled dual u tracks y/rho
+        x = solve(v + rho * _diff_t(w - u), rho)
+        r_p = torch.sqrt(torch.sum((_diff(x) - w) ** 2))
+        r_d = rho * torch.sqrt(torch.sum(_diff_t(w - w_prev) ** 2))
+        fac = torch.where(r_p > 10.0 * r_d, torch.full_like(rho, 2.0),
+                          torch.where(r_d > 10.0 * r_p,
+                                      torch.full_like(rho, 0.5),
+                                      torch.ones_like(rho)))
+        rho_new = torch.minimum(rho * fac, rho_hi)
+        u = u * (rho / rho_new)
+        rho = rho_new
+        _, gap = tv1d_gap(v, lam, torch.clamp(rho * u, -lam, lam))
+        iters += check_every
+    xd, gap = tv1d_gap(v, lam, torch.clamp(rho * u, -lam, lam))
+    return xd, gap, iters
+
+
+def prox_tv1d_multiscale(v, lam, tol=1e-6, coarse_n: int = 2048,
+                         fine_iters: int = 512, check_every: int = 32):
+    """Gap-certified TV prox for LONG signals by multiscale continuation.
+
+    Pair-decimation of the prox is again a TV prox (averaging pairs gives
+    ``prox_{(lam/2) TV}(v_c)``), so recurse to at most ``coarse_n`` points,
+    upsample, and rebuild the *dual* from the primal candidate through the
+    KKT identity ``z = -cumsum(v - x)``: a warm primal-dual start for a
+    short certified solve at the fine level.  The returned gap is the FINE
+    level's certificate, so an error at a coarse level never goes unseen.
+    Returns ``(x, gap, iters_at_finest)``."""
+    n = v.shape[-1]
+    if n <= coarse_n:
+        return prox_tv1d_certified(v, lam, tol=tol)
+    lamd = torch.as_tensor(lam, dtype=v.dtype, device=v.device)
+    # the edge padding to an even length only shapes the warm start: the
+    # certified solve below runs on the original signal
+    v_even = v if n % 2 == 0 else torch.cat([v, v[-1:]])
+    vc = 0.5 * (v_even[0::2] + v_even[1::2])
+    xc, _, _ = prox_tv1d_multiscale(vc, 0.5 * lamd, tol=tol,
+                                    coarse_n=coarse_n, fine_iters=fine_iters)
+    x_hat = torch.repeat_interleave(xc, 2)[:n]
+    # dual candidate from stationarity v - x = D^T z: z_k = -sum_{i<=k}(v-x)
+    z = torch.clamp(-torch.cumsum(v - x_hat, dim=-1)[:-1], -lamd, lamd)
+    rho0 = torch.clamp(lamd, min=1.0)
+    return prox_tv1d_certified(v, lam, tol=tol, max_iters=fine_iters,
+                               check_every=check_every, w0=_diff(x_hat),
+                               u0=z / torch.clamp(rho0, max=200.0))
 
 
 def tv1d_gap(v, lam, z):
@@ -111,7 +281,9 @@ def prox_tv1d_pdas(v, lam, tol=None, max_iters: int = 40, z0=None,
     if n <= 1:
         out = (v, torch.zeros((), dtype=dt, device=v.device), 0)
         return out + (v.new_zeros((0,)),) if return_dual else out
-    lamd = float(lam)
+    # lam stays where it is: a number, or a 0-d tensor on the device (the
+    # adaptive solver's lam/rho), never read back to the host
+    lamd = lam.to(dt) if isinstance(lam, torch.Tensor) else float(lam)
     dv = _diff(v)
     m = n - 1
     if tol is None:

@@ -206,3 +206,64 @@ def test_library_row_on_card_matches_cpu_port(cuda, row, kwargs, rtol):
     config.set_device("cpu")
     obj_cpu = inst.create_problem().solve(rel_tol=1e-3)
     np.testing.assert_allclose(obj_gpu, obj_cpu, rtol=rtol)
+
+
+def _small_lasso(rs, m=60, n=30):
+    A = rs.randn(m, n) / np.sqrt(m)
+    b = A @ (rs.randn(n) * (rs.rand(n) < 0.2)) + 0.01 * rs.randn(m)
+    x = et.Variable(n)
+    prob = et.Problem(et.Minimize(
+        0.5 * et.sum_squares(et._wrap(A) * x - b) + 0.05 * et.norm1(x)))
+    return A, b, x, prob
+
+
+@pytest.mark.parametrize("params", [dict(adaptive_rho=True, rho=20.0),
+                                    dict(over_relaxation=1.6),
+                                    dict(solver="prox_admm", rho=4.0)])
+def test_solver_modes_on_the_card_match_the_cpu(cuda, rs, params):
+    """Each solver mode in f32 on the card against the port in f64 on the
+    CPU: same status, solution within 1e-3."""
+    _, _, x, prob = _small_lasso(rs)
+    kw = dict(rel_tol=1e-4, abs_tol=1e-7, warm_start=True, **params)
+    prob.solve(**kw)
+    from epsilon_tpu_torch.frontend.solve import _PROBLEM_CACHE
+    state = _PROBLEM_CACHE[prob][1]._warm_state
+    assert state[0][next(iter(state[0].keys()))].device.type == "cuda"
+    if params.get("adaptive_rho"):
+        assert state[2].device.type == "cuda" and state[2].shape == ()
+    got, status = x.value.copy(), prob.status
+    config.set_device("cpu")
+    _, _, x2, prob2 = _small_lasso(np.random.RandomState(0))
+    prob2.solve(**kw)
+    assert status == prob2.status == "optimal"
+    np.testing.assert_allclose(got, x2.value, atol=1e-3)
+
+
+def test_checkpoint_restores_onto_the_card(cuda, rs, tmp_path):
+    from epsilon_tpu_torch.compiler import compiler
+    from epsilon_tpu_torch.solvers import SolverParams, create_solver
+    from epsilon_tpu_torch.utils import SolverCheckpointer
+    _, _, _, prob = _small_lasso(rs)
+    compiled = compiler.compile_problem(prob.expression_problem())
+    kw = dict(rel_tol=1e-5, abs_tol=1e-8, rho=8.0)
+    s1 = create_solver(compiled, SolverParams(max_iterations=20, **kw))
+    s1.attach_checkpointer(SolverCheckpointer(str(tmp_path)))
+    s1.solve()
+    ck = SolverCheckpointer(str(tmp_path))
+    restored, step = ck.restore(s1._init_state())
+    assert step == 20 and all(v.device.type == "cuda" for v in restored[0].data.values())
+    s2 = create_solver(compiled, SolverParams(**kw))
+    s2.attach_checkpointer(ck)
+    whole = create_solver(compiled, SolverParams(**kw))
+    x2, xw = s2.solve(), whole.solve()
+    assert s2.status.num_iterations == whole.status.num_iterations
+    for k in xw.keys():
+        assert float((x2[k] - xw[k]).abs().max()) <= 1e-5
+
+
+def test_eval_prox_on_the_card(cuda, rs):
+    v = rs.randn(1000)
+    x = et.Variable(1000)
+    et.eval_prox(et.norm1(x), {x: v}, lam=0.5)
+    np.testing.assert_allclose(x.value.ravel(), np.sign(v) * np.maximum(np.abs(v) - 0.5, 0),
+                               atol=1e-6)

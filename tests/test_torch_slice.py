@@ -188,9 +188,11 @@ def test_single_prox_fast_path_matches_jax():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("kwargs", [dict(adaptive_rho=True), dict(over_relaxation=1.5),
-                                    dict(solver="prox_admm")])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object()),
+                                    dict(mesh=object(), adaptive_rho=True),
+                                    dict(mesh=object(), solver="prox_admm")])
 def test_unported_options_raise(kwargs):
+    """A mesh (term sharding) is the one solver option that still raises."""
     A, b, lam = workload(20, 10)
     _, pt = lasso(et, A, b, lam)
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -191,3 +191,130 @@ def test_warm_kernel_state_through_admm_matches_jax(row):
         obj_t, obj_j = pt.solve(**settings), pj.solve(**settings)
         assert pt.solver_status.num_iterations == pj.solver_status.num_iterations
         _close(obj_t, obj_j, 1e-9, 0)
+
+
+# -- the variants off the registry path ----------------------------------------
+# Against the JAX functions atol 1e-8 (f64; the FFT and the framed matmul
+# differ in the rounding of their sums, amplified over the iterations);
+# against the exact oracle at each variant's own reach.  These loops are
+# thousands of small operations: one intra-op thread, so that several test
+# processes side by side do not fight over the cores.
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("rho", [0.3, 1.0, 25.0])
+@pytest.mark.parametrize("n", [5, 64, 301])
+def test_neumann_laplacian_solve_matches_jax_and_dense(n, rho):
+    r = np.random.RandomState(n).randn(n)
+    x = ttv.neumann_laplacian_solve(torch.tensor(r), rho).numpy()
+    np.testing.assert_allclose(
+        x, np.asarray(jtv.neumann_laplacian_solve(jnp.asarray(r), rho)), atol=1e-12)
+    D = np.diff(np.eye(n), axis=0)
+    np.testing.assert_allclose(x, np.linalg.solve(np.eye(n) + rho * D.T @ D, r),
+                               atol=1e-10)
+    # a batch of signals, rho a 0-d tensor
+    R = np.random.RandomState(1).randn(3, n)
+    X = ttv.neumann_laplacian_solve(torch.tensor(R), torch.tensor(rho, dtype=torch.float64))
+    np.testing.assert_allclose(X[1].numpy(), ttv.neumann_laplacian_solve(
+        torch.tensor(R[1]), rho).numpy(), atol=1e-13)
+
+
+@pytest.mark.parametrize("rho", [0.0, 0.5, 20.0, 200.0])
+@pytest.mark.parametrize("n,taps,block", [(700, 256, 256), (512, 64, 128), (90, 16, 32)])
+def test_neumann_laplacian_solve_conv_matches_jax(n, taps, block, rho):
+    r = np.random.RandomState(n).randn(2, n)
+    got = ttv.neumann_laplacian_solve_conv(torch.tensor(r), rho, taps=taps, block=block)
+    want = jtv.neumann_laplacian_solve_conv(jnp.asarray(r), rho, taps=taps, block=block)
+    assert got.shape == (2, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-12)
+    if taps == 256 and rho <= 20.0:
+        # the kernel's tail q^taps is below 1e-8: the exact solve
+        np.testing.assert_allclose(
+            got.numpy(), ttv.neumann_laplacian_solve(torch.tensor(r), rho).numpy(), atol=1e-8)
+
+
+def test_soft_threshold_matches_jax():
+    x = np.random.RandomState(0).randn(50)
+    np.testing.assert_allclose(ttv._soft(torch.tensor(x), 0.4).numpy(),
+                               np.asarray(jtv._soft(jnp.asarray(x), 0.4)), atol=0)
+
+
+@pytest.mark.parametrize("n,lam,iters,rho", [(40, 0.5, 150, 1.0), (200, 2.0, 400, 1.0),
+                                             (120, 0.8, 300, 3.0)])
+def test_prox_tv1d_douglas_rachford_matches_jax(n, lam, iters, rho, one_thread):
+    v = _signal(n, 3)
+    x = ttv.prox_tv1d(torch.tensor(v), lam, iters=iters, rho=rho).numpy()
+    np.testing.assert_allclose(
+        x, np.asarray(jtv.prox_tv1d(jnp.asarray(v), lam, iters=iters, rho=rho)), atol=1e-8)
+    # a fixed count, not a converged solve
+    np.testing.assert_allclose(x, ttv.tv1d_exact_numpy(v, lam), atol=2e-2)
+
+
+@pytest.mark.parametrize("n,lam,tol", [(30, 0.8, None), (300, 2.0, 1e-7), (600, 1.5, 1e-7),
+                                       (1100, 6.0, 1e-6)])
+def test_prox_tv1d_certified_matches_jax_and_oracle(n, lam, tol, one_thread):
+    """Short signals take the FFT solve, n >= 512 the framed matmul with rho
+    clamped at 200; the same epochs as the JAX loop, and the certificate
+    holds against the exact solution."""
+    v = _signal(n, 4)
+    x, gap, iters = ttv.prox_tv1d_certified(torch.tensor(v), lam, tol=tol)
+    xj, gapj, itersj = jtv.prox_tv1d_certified(jnp.asarray(v), lam, tol=tol)
+    assert iters == int(itersj) and iters < 3000
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), atol=1e-8)
+    exact = ttv.tv1d_exact_numpy(v, lam)
+    assert np.sum((x.numpy() - exact) ** 2) <= 2.0 * float(gap) + 1e-12
+    reach = (tol or 1e-7) * max(1.0, np.linalg.norm(v))
+    assert float(gap) <= 0.5 * reach ** 2
+    np.testing.assert_allclose(x.numpy(), exact, atol=reach)
+
+
+def test_prox_tv1d_certified_respects_the_iteration_cap_and_warm_start(one_thread):
+    v = _signal(400, 5)
+    x, gap, iters = ttv.prox_tv1d_certified(torch.tensor(v), 3.0, tol=1e-9, max_iters=64)
+    xj, gapj, itersj = jtv.prox_tv1d_certified(jnp.asarray(v), 3.0, tol=1e-9, max_iters=64)
+    assert iters == int(itersj) == 64
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), atol=1e-8)
+    np.testing.assert_allclose(float(gap), float(gapj), rtol=1e-6)
+    w0, u0 = np.diff(ttv.tv1d_exact_numpy(v, 3.0)), np.zeros(399)
+    xw, _, iw = ttv.prox_tv1d_certified(torch.tensor(v), 3.0, tol=1e-6,
+                                        w0=torch.tensor(w0), u0=torch.tensor(u0))
+    xwj, _, iwj = jtv.prox_tv1d_certified(jnp.asarray(v), 3.0, tol=1e-6,
+                                          w0=jnp.asarray(w0), u0=jnp.asarray(u0))
+    assert iw == int(iwj)
+    np.testing.assert_allclose(xw.numpy(), np.asarray(xwj), atol=1e-8)
+
+
+@pytest.mark.parametrize("n,coarse_n", [(900, 256), (1301, 256), (200, 2048)])
+def test_prox_tv1d_multiscale_matches_jax_and_oracle(n, coarse_n, one_thread):
+    """Two levels of decimation (odd lengths edge-padded for the warm start
+    only), and the short-signal case that goes straight to the certified
+    solve."""
+    v, lam, tol = _signal(n, 6), 2.5, 1e-6
+    x, gap, iters = ttv.prox_tv1d_multiscale(torch.tensor(v), lam, tol=tol,
+                                             coarse_n=coarse_n)
+    xj, gapj, itersj = jtv.prox_tv1d_multiscale(jnp.asarray(v), lam, tol=tol,
+                                                coarse_n=coarse_n)
+    assert iters == int(itersj)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), atol=1e-8)
+    exact = ttv.tv1d_exact_numpy(v, lam)
+    assert np.sum((x.numpy() - exact) ** 2) <= 2.0 * float(gap) + 1e-12
+    np.testing.assert_allclose(x.numpy(), exact, atol=max(
+        tol * max(1.0, np.linalg.norm(v)), np.sqrt(2.0 * float(gap))))
+
+
+def test_pdas_takes_lam_as_a_tensor():
+    """The adaptive solver hands lam/rho over as a 0-d tensor; the kernel
+    gives the number's result without reading it back."""
+    v = torch.tensor(_signal(120, 8))
+    lam = torch.tensor(1.7, dtype=torch.float64)
+    xa, ga, ia, za = ttv.prox_tv1d_pdas(v, lam, return_dual=True)
+    xb, gb, ib, zb = ttv.prox_tv1d_pdas(v, 1.7, return_dual=True)
+    assert ia == ib and torch.equal(xa, xb) and torch.equal(za, zb)
+    xw, _, _, _ = ttv.prox_tv1d_pdas(v, lam / 2, z0=za, return_dual=True)
+    np.testing.assert_allclose(xw.numpy(), ttv.tv1d_exact_numpy(v.numpy(), 0.85), atol=ORACLE_ATOL)

@@ -26,6 +26,21 @@ then a warm re-solve of 10 iterations with the same figures, plus the
 host-blocking calls per iteration (``cudaStreamSynchronize`` and the copies
 to and from the card).
 
+    python3 -m tools.profile_port --surface [trace_dir]
+
+profiles the steady loop of the 2000 x 1000 lasso in each solver mode
+(fixed rho, adaptive rho, over-relaxation 1.5, the N-block solver at rho 1
+and 4) with the same figures, and writes a Chrome trace of 50 adaptive
+iterations to ``<trace_dir>/trace.json`` (``utils.profile_trace``;
+``build/trace_adaptive`` unless given).
+
+    python3 -m tools.profile_port --tv1d-f64
+
+solves the ``tv_1d`` row at its reference size twice, with float32 state
+(the port's default on the card) and with float64 state on the card
+(``config.default_dtype`` patched for the run; nothing in the port sets
+it), and prints objective, iterations and seconds of both.
+
 Only events on the device are summed: an aten op's entry also carries its
 kernels' device time, so summing every event counts most kernels twice.
 """
@@ -131,15 +146,52 @@ def profile_steady(tag, solve, iters):
         f"{k} {v / iters:.1f}" for k, v in sorted(host.items())))
 
 
-def profile_loop(ep, m, n, iters):
+def profile_loop(ep, m, n, iters, tag="", **params):
     A, b, lam = workload(m, n)
     x = ep.Variable(n)
     prob = ep.Problem(ep.Minimize(
         0.5 * ep.sum_squares(ep._wrap(A) * x - b) + lam * ep.norm1(x)))
-    prob.solve(rel_tol=1e-3, abs_tol=1e-6, rho=1.0, warm_start=True)
-    kw = dict(rel_tol=0.0, abs_tol=0.0, rho=1.0, warm_start=True,
-              epoch_iterations=iters, max_iterations=iters)
-    profile_steady(f"[loop] lasso {m}x{n}", lambda: prob.solve(**kw), iters)
+    params = dict(dict(rho=1.0, warm_start=True), **params)
+    prob.solve(rel_tol=1e-3, abs_tol=1e-6, **params)
+    kw = dict(params, rel_tol=0.0, abs_tol=0.0, epoch_iterations=iters,
+              max_iterations=iters)
+    profile_steady(f"[loop] lasso {m}x{n}{tag}", lambda: prob.solve(**kw), iters)
+    return prob, kw
+
+
+def profile_surface(ep, trace_dir="build/trace_adaptive"):
+    """The flagship's steady loop in every solver mode, and a trace."""
+    from epsilon_tpu_torch.utils import profile_trace
+    for tag, params in ((" fixed rho", {}), (" adaptive rho", dict(adaptive_rho=True)),
+                        (" over-relaxation 1.5", dict(over_relaxation=1.5)),
+                        (" N-block rho 1", dict(solver="prox_admm")),
+                        (" N-block rho 4", dict(solver="prox_admm", rho=4.0))):
+        prob, kw = profile_loop(ep, 2000, 1000, 200, tag=tag, **params)
+        if "adaptive_rho" in params:
+            with profile_trace(trace_dir) as prof:
+                prob.solve(**dict(kw, max_iterations=50, epoch_iterations=10))
+            busy = sum(e.self_device_time_total for e in device_events(prof))
+            print(f"[surface] trace of 50 adaptive iterations written to "
+                  f"{trace_dir}/trace.json; device busy {busy / 1e3:.3f} ms")
+
+
+def profile_tv1d_f64():
+    """tv_1d at reference size with f32 and with f64 state on the card."""
+    from epsilon_tpu_torch import config
+    from epsilon_tpu_torch.problems import benchmark
+    inst = next(p for p in benchmark.PROBLEMS_REFERENCE() if p.name == "tv_1d")
+    real = config.default_dtype, config.default_np_dtype
+    for name, dt, npdt in (("f32", torch.float32, np.float32), ("f64", torch.float64, np.float64)):
+        config.default_dtype, config.default_np_dtype = (lambda dt=dt: dt), (lambda d=npdt: np.dtype(d))
+        try:
+            for rel_tol in (1e-3, 1e-5):
+                row = benchmark.benchmark_epsilon(inst, rel_tol=rel_tol, max_iterations=50000)
+                print(f"[tv1d] {name} state, rel_tol {rel_tol:g}: objective {row['objective']:.9g}, "
+                      f"{row['iterations']} iterations ({row['status']}), set-up "
+                      f"{row['setup_s']:.3f} s, solve {row['solve_s']:.3f} s, "
+                      f"{row['ms_per_iter']:.4f} ms/iter")
+        finally:
+            config.default_dtype, config.default_np_dtype = real
 
 
 def profile_consensus(iters):
@@ -185,6 +237,12 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     if len(sys.argv) == 3 and sys.argv[1] == "--library":
         profile_library(sys.argv[2].split(","))
+        return 0
+    if sys.argv[1:2] == ["--surface"] and len(sys.argv) <= 3:
+        profile_surface(ep, *sys.argv[2:])
+        return 0
+    if sys.argv[1:] == ["--tv1d-f64"]:
+        profile_tv1d_f64()
         return 0
     sp.build()
     lu.build()
