@@ -23,11 +23,17 @@ Phases, in order; any failure exits non-zero:
 5. Kernel K1 (fused consensus local update) against its plain PyTorch
    version at (S, n) = (200, 200) in f32 and f64 (the consensus row's
    shape), (40, 5000) in f32 (4 GB of inverses, generated on the card) and
-   the ragged (8, 130) in f32 and f64: error, bitwise repeatability, two rho
-   values through one loaded library, and device times of the kernel, the
-   plain version, a ``Finv.sum()`` read of the same bytes, and the library
-   call that computes the same function (``torch.bmm`` of the inverses with
-   the right-hand side, and the sum over blocks).
+   the ragged (8, 130) in f32 and f64, on every path a shape can take (the
+   plan's own and, where that is the ring, the streaming path through the
+   private launcher): error, bitwise repeatability, two rho values through
+   one loaded library, and device times of the kernel, the plain version,
+   a ``Finv.sum()`` read of the same bytes, and the library call that
+   computes the same function (``torch.bmm`` of the inverses with the
+   right-hand side, and the sum over blocks).  Then library call, kernel
+   and streaming path are timed in turns (library, kernel, stream, stream,
+   kernel, library, for several rounds), each side's median and min-max
+   printed, and at (200, 200) in f32 once more with L2 flushed between
+   launches.
 6. Consensus lasso at full width (bench.py's consensus row: 200 blocks of
    2500 x 200, 1e8 nonzeros, seed 0, lambda 0.1, rho 1, f32) through
    ``consensus_lasso_solver`` in the default CUDA mode (explicit inverse, so
@@ -101,6 +107,12 @@ CONSENSUS_Z_ATOL = 1e-5
 # bench.py's consensus row: re-solves of 500 iterations, epochs of 50.
 CONSENSUS_STEADY_ITERS = 500
 CONSENSUS_REPS = 3
+# Phase 5's interleaved A/B: rounds, and calls per reading.
+AB_ROUNDS = 5
+AB_REPS = 20
+# Phase 5's L2-cold reading: bytes written between launches, above the
+# H100's 50 MB of L2.
+L2_FLUSH_BYTES = 256 * 1024 * 1024
 # Spin before each device-timed call (about 1 ms): longer than any host
 # enqueue time of the calls timed.
 HEAD_START_CYCLES = 2_000_000
@@ -196,13 +208,15 @@ def numpy_two_block(A, b, lam, tol=1e-12, max_iters=20000):
     return x2
 
 
-def _timed(fn, reps, head_start):
+def _timed(fn, reps, head_start, before=None):
     for _ in range(5):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         if head_start:
             torch.cuda._sleep(HEAD_START_CYCLES)
         start.record()
@@ -213,11 +227,25 @@ def _timed(fn, reps, head_start):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=50):
+def device_ms(fn, reps=50, before=None):
     """Median device milliseconds of fn(), from CUDA events.  A spin kernel
     queued first keeps the card busy while the host enqueues fn, so the
-    events bracket the device work only, not the launch overhead."""
-    return _timed(fn, reps, head_start=True)
+    events bracket the device work only, not the launch overhead.
+    ``before()`` is queued ahead of the spin, outside the events."""
+    return _timed(fn, reps, head_start=True, before=before)
+
+
+def interleaved_ms(sides, rounds=AB_ROUNDS, reps=AB_REPS):
+    """Time the callables of ``sides`` (a dict by name) in turns within this
+    one process: every round runs them in the dict's order and then in
+    reverse (library, kernel, kernel, library), one ``device_ms`` of
+    ``reps`` calls each.  Returns ``{name: (median, min, max)}`` over the
+    2 * rounds readings of each."""
+    readings = {name: [] for name in sides}
+    for _ in range(rounds):
+        for name in list(sides) + list(sides)[::-1]:
+            readings[name].append(device_ms(sides[name], reps=reps))
+    return {name: (statistics.median(r), min(r), max(r)) for name, r in readings.items()}
 
 
 def call_ms(fn, reps=50):
@@ -365,8 +393,9 @@ def cached_solver(prob):
 
 
 def phase_local_update(lu):
-    """K1 against its plain version; returns the JSON record for the
-    consensus row's shape ((200, 200), f32)."""
+    """K1 against its plain version on every path a shape can take, and the
+    interleaved A/B of kernel, streaming path and library call; returns the
+    JSON record for the consensus row's shape ((200, 200), f32)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     record = None
@@ -377,26 +406,39 @@ def phase_local_update(lu):
             gen.manual_seed(2)
             Finv, Atb, u, z = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
                                for shape in ((S, n, n), (S, n), (S, n), (n,)))
+            tag = f"local_update S={S} n={n} {str(dtype)[6:]}"
             lib = lu._library()
-            errs = []
-            for rho in (1.0, 0.37):
-                x, xu = lu.fused_local_update(Finv, Atb, u, z, rho)
-                x2, xu2 = lu.fused_local_update(Finv, Atb, u, z, rho)
-                x_ref, xu_ref = lu.local_update_reference(Finv, Atb, u, z, rho)
-                torch.cuda.synchronize()
-                for name, got, again, ref in (("x", x, x2, x_ref), ("xu_sum", xu, xu2, xu_ref)):
-                    scale = ref.abs().max().item()
-                    err = (got - ref).abs().max().item()
-                    if not err <= LOCAL_RTOL[dtype] * scale:
-                        raise AssertionError(f"local_update ({S}, {n}) {dtype} rho={rho} {name}: "
-                                             f"max error {err} > {LOCAL_RTOL[dtype]} * {scale}")
-                    if not torch.equal(got, again):
-                        raise AssertionError(f"local_update ({S}, {n}) {dtype} {name}: two runs differ")
-                    errs.append((err, scale))
-                if rho == 1.0:
-                    x_first = x
-            if lu._library() is not lib or lu.build()[1] != 0.0 or torch.equal(x_first, x):
-                raise AssertionError("local_update: a new rho rebuilt the library or was ignored")
+            # the plan the wrapper takes, and where that is the ring, the
+            # streaming path (the earlier design) through the private launcher
+            chosen = lu.plan_for(Finv, Atb, u, z)
+            plans = {chosen.path: chosen}
+            if chosen.path == "ring":
+                plans["stream"] = lu.plan_for(Finv, Atb, u, z, aligned=False)
+            errs = {}
+            for path, plan in plans.items():
+                run = ((lambda rho: lu.fused_local_update(Finv, Atb, u, z, rho))
+                       if plan is chosen else
+                       (lambda rho, plan=plan: lu._launch(plan, Finv, Atb, u, z, rho)))
+                for rho in (1.0, 0.37):
+                    x, xu = run(rho)
+                    if lu.last_plan != plan:
+                        raise AssertionError(f"{tag}: ran {lu.last_plan}, not {plan}")
+                    x2, xu2 = run(rho)
+                    x_ref, xu_ref = lu.local_update_reference(Finv, Atb, u, z, rho)
+                    torch.cuda.synchronize()
+                    for name, got, again, ref in (("x", x, x2, x_ref), ("xu_sum", xu, xu2, xu_ref)):
+                        scale = ref.abs().max().item()
+                        err = (got - ref).abs().max().item()
+                        if not err <= LOCAL_RTOL[dtype] * scale:
+                            raise AssertionError(f"{tag} {path} rho={rho} {name}: "
+                                                 f"max error {err} > {LOCAL_RTOL[dtype]} * {scale}")
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{tag} {path} {name}: two runs differ")
+                        errs[path] = max(errs.get(path, (0.0, 0.0)), (err, scale))
+                    if rho == 1.0:
+                        x_first = x
+                if lu._library() is not lib or lu.build()[1] != 0.0 or torch.equal(x_first, x):
+                    raise AssertionError(f"{tag} {path}: a new rho rebuilt the library or was ignored")
             kernel = lambda: lu.fused_local_update(Finv, Atb, u, z, 0.37)
             plain = lambda: lu.local_update_reference(Finv, Atb, u, z, 0.37)
             ms, plain_ms = device_ms(kernel), device_ms(plain)
@@ -411,23 +453,53 @@ def phase_local_update(lu):
             gbps = Finv.numel() * Finv.element_size() / (ms * 1e6)
             n_bytes = _nbytes(Finv, Atb, u, z, x, xu)
             bound_ms, bound_by = bound(n_bytes, 2.0 * S * n * n)
-            err, scale = max(errs)
-            log(f"[5] local_update S={S} n={n} {str(dtype)[6:]}: max_abs_err={err:.3e} "
+            err, scale = errs[chosen.path]
+            log(f"[5] {tag}: path {chosen.path} (rows {chosen.rows}, stages {chosen.stages}, "
+                f"lanes {chosen.lanes}, {chosen.smem_bytes} B of shared memory, grid "
+                f"{chosen.grid} over {chosen.items} items); max_abs_err={err:.3e} "
                 f"(max|ref|={scale:.3e}, rtol {LOCAL_RTOL[dtype]:g}), bitwise repeatable, "
-                f"rho 1.0 and 0.37 through one library; device time: kernel {ms:.4f} ms "
+                f"rho 1.0 and 0.37 through one library"
+                + "".join(f"; {path} path max_abs_err={e:.3e}, bitwise repeatable"
+                          for path, (e, _) in errs.items() if path != chosen.path)
+                + f"; device time: kernel {ms:.4f} ms "
                 f"({gbps:.0f} GB/s on Finv), plain {plain_ms:.4f} ms, Finv.sum() {read_ms:.4f} ms, "
                 f"torch.bmm + block sum {library_ms:.4f} ms (bmm alone {bmm_only_ms:.4f} ms); "
                 f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, "
                 f"{2.0 * S * n * n:.3g} operations): kernel at {bound_ms / ms:.2f} of it; "
                 f"back-to-back per call: kernel {call_ms(kernel):.4f} ms")
+            # The interleaved A/B, so that a margin is read against the
+            # spread.  Each call follows a call on the same operands, so at
+            # (200, 200) in f32 Finv (32 MB of the 50 MB L2) is found warm
+            # in L2, as the consensus loop finds it from one iteration to
+            # the next; in f64 (64 MB) and at (40, 5000) it is not.
+            sides = {"library": library, "kernel": kernel}
+            if "stream" in plans:
+                sides["stream"] = lambda: lu._launch(plans["stream"], Finv, Atb, u, z, 0.37)
+            ab = interleaved_ms(sides)
+            log(f"[5] {tag}: in turns, {2 * AB_ROUNDS} readings of {AB_REPS} calls each, "
+                "median (min-max) ms: "
+                + "; ".join(f"{name} {med:.4f} ({lo:.4f}-{hi:.4f})"
+                            for name, (med, lo, hi) in ab.items())
+                + f"; kernel / library {ab['kernel'][0] / ab['library'][0]:.4f}"
+                + (f", kernel / stream {ab['kernel'][0] / ab['stream'][0]:.4f}"
+                   if "stream" in ab else ""))
             if (S, n, dtype) == (200, 200, torch.float32):
+                # one reading with Finv cold in L2: a buffer larger than L2
+                # is written between the launches
+                flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+                cold = {name: device_ms(fn, reps=AB_REPS, before=flush.zero_)
+                        for name, fn in sides.items()}
+                del flush
+                log(f"[5] {tag}: L2 cold ({L2_FLUSH_BYTES >> 20} MB written between launches), "
+                    "ms: " + "; ".join(f"{name} {t:.4f}" for name, t in cold.items()))
                 record = {"name": "fused_local_update", "route": "cuda",
                           "source": "epsilon_tpu_torch/csrc/local_update.cu",
                           "replaces": "epsilon_tpu/ops/pallas_kernels.py:72",
+                          "path": chosen.path,
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": library_ms}
-            del rhs
+            del rhs, sides
             del Finv, Atb, u, z
     return record
 
@@ -544,7 +616,10 @@ def phase_consensus(lu):
     if launches < iters_run:
         raise AssertionError(f"consensus: local_update launched {launches} times "
                              f"in {iters_run} iterations")
-    log(f"[6] local_update launches in the main path: {launches} ({iters_run} iterations)")
+    if lu.last_plan.path != "ring":
+        raise AssertionError(f"consensus: local_update took {lu.last_plan}, not the ring path")
+    log(f"[6] local_update launches in the main path: {launches} ({iters_run} iterations), "
+        f"path {lu.last_plan.path}")
     return launches
 
 

@@ -123,31 +123,98 @@ def test_lasso_on_card_matches_cpu_port(cuda, rs, monkeypatch, path):
     np.testing.assert_allclose(x_gpu, x_cpu, rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S,n,offset", [
-    (8, 130, 0),      # f32 rows not 16-byte aligned: scalar loads
-    (3, 131, 0),      # ragged in both types
-    (5, 200, 0),      # the consensus row's n: vector loads
-    (5, 200, 1),      # Finv pointer off 16-byte alignment: scalar loads
-    (2, 4100, 0),     # several shared-memory chunks and a ragged tail
-])
-def test_local_update_matches_reference(cuda, dtype, S, n, offset):
+def _k1_inputs(cuda, dtype, S, n, offset=0):
     gen = torch.Generator(device=cuda).manual_seed(0)
     buf = torch.randn(S * n * n + offset, generator=gen, device=cuda, dtype=dtype)
     Finv = buf[offset:].view(S, n, n)
     Atb, u = (torch.randn(S, n, generator=gen, device=cuda, dtype=dtype) for _ in range(2))
     z = torch.randn(n, generator=gen, device=cuda, dtype=dtype)
+    return Finv, Atb, u, z
+
+
+def _k1_check(run, args, dtype):
+    """``run(rho)`` against the plain version at two rho, one launch each,
+    bitwise equal across two runs."""
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     for rho in (1.0, 0.3):
         before = lu.launches
-        x, xu = lu.fused_local_update(Finv, Atb, u, z, rho)
+        x, xu = run(rho)
         assert lu.launches == before + 1
-        x_ref, xu_ref = lu.local_update_reference(Finv, Atb, u, z, rho)
+        x_ref, xu_ref = lu.local_update_reference(*args, rho)
         for got, ref in ((x, x_ref), (xu, xu_ref)):
             assert got.dtype == dtype and got.shape == ref.shape
             assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
-        x2, xu2 = lu.fused_local_update(Finv, Atb, u, z, rho)
+        x2, xu2 = run(rho)
+        torch.cuda.synchronize()
         assert torch.equal(x, x2) and torch.equal(xu, xu2)
+
+
+@pytest.mark.parametrize("path", ["plan", "stream"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,n,offset,ring", [
+    (8, 130, 0, False),     # f32 rows not 16-byte aligned: scalar loads
+    (3, 131, 0, False),     # ragged in both types
+    (5, 200, 0, False),     # the consensus row's n, too few items for the ring: vector loads
+    (5, 200, 1, False),     # Finv pointer off 16-byte alignment: scalar loads
+    (2, 4100, 0, True),     # long rows: the ring's smallest item; several rhs chunks when streamed
+    (300, 200, 0, True),    # more items than persistent blocks, a last item of 8 rows
+    (300, 200, 1, False),   # the same off alignment
+    (64, 136, 0, False),    # fewer items than two to a block
+])
+def test_local_update_matches_reference(cuda, dtype, S, n, offset, ring, path):
+    """The public call (whatever path the plan takes) and, through the
+    private launcher, the streaming path at the same shape."""
+    args = _k1_inputs(cuda, dtype, S, n, offset)
+    plan = lu.plan_for(*args)
+    assert plan.path == ("ring" if ring else "stream")
+    if path == "plan":
+        _k1_check(lambda rho: lu.fused_local_update(*args, rho), args, dtype)
+        assert lu.last_plan == plan
+    else:
+        stream = lu.plan_for(*args, aligned=False)
+        assert stream.path == "stream"
+        _k1_check(lambda rho: lu._launch(stream, *args, rho), args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,n,rows,lanes,stages,grid", [
+    (7, 8, 32, 8, 2, 7),        # n below the rows of an item (the public gate is n >= 128)
+    (7, 8, 32, 8, 3, 2),        # the same, several items to a block
+    (5, 200, 32, 8, 2, 3),      # a ring walked more than STAGES times; a last item of 8 rows
+    (5, 200, 32, 8, 4, 35),     # one item to a block
+    (9, 200, 16, 32, 3, 4),     # a warp to a row, two rows to a warp in turn
+    (3, 1000, 4, 32, 2, 5),     # a warp to a row, s changes inside a block's run
+    (40, 136, 64, 8, 2, 1),     # one block walks everything
+])
+def test_local_update_ring_plans(cuda, dtype, S, n, rows, lanes, stages, grid):
+    """Ring plans the shape rule would not pick, through the private
+    launcher."""
+    args = _k1_inputs(cuda, dtype, S, n)
+    plan = lu.ring_plan(S, n, args[0].element_size(), 132, rows, lanes, stages, 1)
+    plan = plan._replace(grid=min(grid, plan.items))
+    _k1_check(lambda rho: lu._launch(plan, *args, rho), args, dtype)
+    assert lu.last_plan == plan
+
+
+def test_local_update_rejects_bad_plans(cuda):
+    args = _k1_inputs(cuda, torch.float32, 80, 200)
+    good = lu.plan_for(*args)
+    assert good.path == "ring"
+    for bad in (good._replace(smem_bytes=good.smem_bytes + 16),    # not the layout's size
+                good._replace(grid=good.items + 1),
+                good._replace(grid=0),
+                good._replace(stages=1),
+                good._replace(lanes=16),
+                good._replace(rhs_bufs=1),
+                lu.ring_plan(80, 200, 4, 132, 200, 8, 2, 1),        # 320,000 bytes of slabs
+                lu.plan_for(*args, aligned=False)._replace(grid=3)):
+        with pytest.raises(RuntimeError):
+            lu._launch(bad, *args, 1.0)
+    off = _k1_inputs(cuda, torch.float32, 80, 200, offset=1)
+    with pytest.raises(RuntimeError):                               # unaligned rows on the ring
+        lu._launch(good, *off, 1.0)
+    torch.cuda.synchronize()
+    _k1_check(lambda rho: lu.fused_local_update(*args, rho), args, torch.float32)
 
 
 def test_local_update_rejects_bad_arguments(cuda):

@@ -5,9 +5,11 @@
 1. Kernel K2 alone at the slice's shape (n = 8192, R = 1, f32): device
    microseconds per call of each of its two passes, beside a dense GEMV with
    the full matrix and a plain ``tiles.sum()`` over the same packed bytes
-   (a bandwidth yardstick).  Kernel K1 alone at the consensus row's shape
-   (S = 200, n = 200, f32), beside its plain version (``torch.bmm`` and a
-   sum) and ``Finv.sum()``.
+   (a bandwidth yardstick).  Kernel K1 alone at its timed shapes ((200,
+   200) in f32 and f64, (40, 5000) and (8, 130) in f32): device time of
+   each of its kernels beside its plain version's, and the whole call by
+   CUDA events beside ``Finv.sum()``, ``torch.bmm`` and the library call
+   (``--k1`` runs this part alone).
 2. The ADMM loop of the two ``chip_smoke.py`` lassos (2000 x 1000 and
    16384 x 8192) and of the consensus lasso (200 blocks of 2500 x 200,
    bench.py's consensus row): a warm re-solve for a fixed count of
@@ -41,6 +43,13 @@ solves the ``tv_1d`` row at its reference size twice, with float32 state
 (``config.default_dtype`` patched for the run; nothing in the port sets
 it), and prints objective, iterations and seconds of both.
 
+    python3 -m tools.profile_port --k1-tune
+
+times K1's ring path at other sizes (rows per item, lanes per row, slabs,
+blocks per SM) beside the plan's own, the streaming path and the library
+call, and then ring against streaming path at small block counts, all in
+one process on one card: what ``local_update_plan``'s rules were set from.
+
 Only events on the device are summed: an aten op's entry also carries its
 kernels' device time, so summing every event counts most kernels twice.
 """
@@ -54,7 +63,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import workload
+from chip_smoke import call_ms, device_ms, interleaved_ms, workload
 
 
 def device_events(prof):
@@ -99,15 +108,114 @@ def profile_kernel(sp):
           f"dense bytes {dense.numel() * dense.element_size()}")
 
 
+K1_SHAPES = ((200, 200, torch.float32), (200, 200, torch.float64),
+             (40, 5000, torch.float32), (8, 130, torch.float32))
+
+
 def profile_k1(lu):
-    S, n = 200, 200
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    Finv, Atb, u, z = (torch.randn(shape, generator=gen, device="cuda")
-                       for shape in ((S, n, n), (S, n), (S, n), (n,)))
-    profile_calls("k1", (("fused_local_update", lambda: lu.fused_local_update(Finv, Atb, u, z, 1.0)),
-                         ("plain", lambda: lu.local_update_reference(Finv, Atb, u, z, 1.0)),
-                         ("Finv.sum()", lambda: Finv.sum())))
-    print(f"[k1] Finv bytes {Finv.numel() * Finv.element_size()}")
+    """K1 at each timed shape: device time of each of its kernels from the
+    profiler, and CUDA-event time of the whole call beside ``Finv.sum()``,
+    ``torch.bmm`` alone and the library call (bmm and the block sum)."""
+    for S, n, dtype in K1_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        Finv, Atb, u, z = (torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+                           for shape in ((S, n, n), (S, n), (S, n), (n,)))
+        rhs = (Atb + z[None, :] - u).unsqueeze(-1)
+        tag = f"k1 ({S}, {n}) {str(dtype)[6:]}"
+        calls = (("fused_local_update", lambda: lu.fused_local_update(Finv, Atb, u, z, 1.0)),
+                 ("plain", lambda: lu.local_update_reference(Finv, Atb, u, z, 1.0)),
+                 ("Finv.sum()", lambda: Finv.sum()),
+                 ("torch.bmm", lambda: torch.bmm(Finv, rhs)),
+                 ("torch.bmm + block sum",
+                  lambda: (torch.bmm(Finv, rhs).squeeze(-1) + u).sum(dim=0)))
+        profile_calls(tag, calls[:2])
+        print(f"[{tag}] whole call, CUDA events, median of 50: " + ", ".join(
+            f"{label} {1e3 * device_ms(fn):.2f} us" for label, fn in calls)
+            + f"; path {lu.plan_for(Finv, Atb, u, z).path}"
+            + f"; Finv bytes {Finv.numel() * Finv.element_size()}")
+        del Finv, rhs
+
+
+K1_TUNE = {
+    # (S, n, dtype): rows, lanes, stages, blocks per SM to try
+    (200, 200, torch.float32): ((16, 32, 64), (8, 32), (2, 3, 4), (1, 2, 3)),
+    (200, 200, torch.float64): ((8, 16, 32), (8, 32), (2, 3, 4), (1, 2, 3)),
+    (40, 5000, torch.float32): ((2, 4), (32,), (2, 3), (1,)),
+}
+
+
+def tune_k1(lu):
+    """Every ring plan of ``K1_TUNE`` that fits, beside the plan
+    ``local_update_plan`` chooses, the streaming path and the library call,
+    all in this one process on one card: each is held to the plain version,
+    then timed twice (once in the list's order, once in reverse; CUDA
+    events, median of 30)."""
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    for (S, n, dtype), (rows_c, lanes_c, stages_c, bps_c) in K1_TUNE.items():
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        Finv, Atb, u, z = (torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+                           for shape in ((S, n, n), (S, n), (S, n), (n,)))
+        isz = Finv.element_size()
+        x_ref, xu_ref = lu.local_update_reference(Finv, Atb, u, z, 0.37)
+        rhs = (Atb + 0.37 * (z[None, :] - u)).unsqueeze(-1)
+        sides = {"library: torch.bmm + block sum":
+                 lambda: (torch.bmm(Finv, rhs).squeeze(-1) + u).sum(dim=0)}
+        plans = {"chosen": lu.plan_for(Finv, Atb, u, z),
+                 "stream": lu.plan_for(Finv, Atb, u, z, aligned=False)}
+        for rows in rows_c:
+            for lanes in lanes_c:
+                for stages in stages_c:
+                    for bps in bps_c:
+                        plan = lu.ring_plan(S, n, isz, sm_count, rows, lanes, stages, bps)
+                        if plan.smem_bytes > min(lu.BLOCK_SMEM_LIMIT, lu.SM_SMEM_BYTES // bps
+                                                 - lu.BLOCK_RESERVED_SMEM):
+                            continue
+                        plans[f"rows {rows} lanes {lanes} stages {stages} x{bps}"] = plan
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        for name, plan in plans.items():
+            x, xu = lu._launch(plan, Finv, Atb, u, z, 0.37)
+            torch.cuda.synchronize()
+            if not ((x - x_ref).abs().max() <= tol * x_ref.abs().max()
+                    and (xu - xu_ref).abs().max() <= tol * xu_ref.abs().max()):
+                raise AssertionError(f"K1 ({S}, {n}) {dtype} {name}: wrong result")
+            sides[name] = lambda plan=plan: lu._launch(plan, Finv, Atb, u, z, 0.37)
+        times = {name: [] for name in sides}
+        for order in (list(sides), list(sides)[::-1]):
+            for name in order:
+                times[name].append(1e3 * device_ms(sides[name], reps=30))
+        tag = f"tune ({S}, {n}) {str(dtype)[6:]}"
+        for name in sorted(times, key=lambda k: min(times[k])):
+            plan = plans.get(name)
+            print(f"[{tag}] {name}: {times[name][0]:.2f}, {times[name][1]:.2f} us"
+                  + (f"  (grid {plan.grid}, {plan.smem_bytes} B)" if plan else ""))
+        del Finv, rhs, sides, plans
+
+
+def crossover_k1(lu):
+    """Ring against streaming path where the items are few: n = 200 (and the
+    ragged 130 in f64) at rising block counts, both through the private
+    launcher, in turns (``chip_smoke.interleaved_ms``)."""
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.float64):
+        for S, n in ((8, 130), (5, 200), (20, 200), (40, 200), (75, 200), (100, 200), (151, 200)):
+            isz = torch.empty((), dtype=dtype).element_size()
+            if (n * isz) % 16:
+                continue
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            Finv, Atb, u, z = (torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+                               for shape in ((S, n, n), (S, n), (S, n), (n,)))
+            stream = lu.plan_for(Finv, Atb, u, z, aligned=False)
+            ring = lu.ring_plan(S, n, isz, sm_count, 32, 8, 3 if isz == 4 else 2, 2)
+            ab = interleaved_ms({
+                "ring": lambda: lu._launch(ring, Finv, Atb, u, z, 0.37),
+                "stream": lambda: lu._launch(stream, Finv, Atb, u, z, 0.37)})
+            print(f"[crossover ({S}, {n}) {str(dtype)[6:]}] {ring.items} items, ring grid "
+                  f"{ring.grid}; plan's path {lu.plan_for(Finv, Atb, u, z).path}; " + "; ".join(
+                      f"{k} {1e3 * m:.2f} ({1e3 * lo:.2f}-{1e3 * hi:.2f}) us"
+                      for k, (m, lo, hi) in ab.items())
+                  + f"; back-to-back per call: ring "
+                  f"{1e3 * call_ms(lambda: lu._launch(ring, Finv, Atb, u, z, 0.37)):.2f} us, stream "
+                  f"{1e3 * call_ms(lambda: lu._launch(stream, Finv, Atb, u, z, 0.37)):.2f} us")
 
 
 def profile_steady(tag, solve, iters):
@@ -243,6 +351,14 @@ def main():
         return 0
     if sys.argv[1:] == ["--tv1d-f64"]:
         profile_tv1d_f64()
+        return 0
+    if sys.argv[1:] == ["--k1"]:
+        lu.build()
+        profile_k1(lu)
+        return 0
+    if sys.argv[1:] == ["--k1-tune"]:
+        tune_k1(lu)
+        crossover_k1(lu)
         return 0
     sp.build()
     lu.build()
