@@ -22,8 +22,10 @@ Phases, in order; any failure exits non-zero:
    set-up), one kernel launch per iteration.
 5. Kernel K1 (fused consensus local update) against its plain PyTorch
    version at (S, n) = (200, 200) in f32 and f64 (the consensus row's
-   shape), (40, 5000) in f32 (4 GB of inverses, generated on the card) and
-   the ragged (8, 130) in f32 and f64, on every path a shape can take (the
+   shape), (50, 200) in f32 (one rank's blocks in phase 9 (d), where the
+   plan must be the streaming path), (40, 5000) in f32 (4 GB of inverses,
+   generated on the card) and the ragged (8, 130) in f32 and f64, on every
+   path a shape can take (the
    plan's own and, where that is the ring, the streaming path through the
    private launcher): error, bitwise repeatability, two rho values through
    one loaded library, and device times of the kernel, the plain version,
@@ -60,6 +62,32 @@ Phases, in order; any failure exits non-zero:
    callback under ``drive="host"``; (f) a checkpoint, resumed by a new
    solver; (g) ``eval_prox`` of three kinds at 1e6 elements against the
    port on the CPU in f64.
+9. The meshed two-block solver and the sharded consensus solver, run by
+   four processes over one process group (``tools/mesh_worker.py``, one
+   rank each): NCCL with a card a rank where the machine has four cards,
+   otherwise gloo with CUDA tensors, every rank on the one card; the line
+   printed says which.  A rank that exits non-zero or outlives the hard
+   timeout (and is killed) fails the run.  (a) Scenario stacking at full
+   width: phase 6's data stated as a general problem (200 SUM_SQUARE terms
+   over private variables tied to one z, NORM_1 on z) through
+   ``Problem.solve(mesh=group)``: one group of 200, 50 rows a rank, held in
+   f64 numpy to the stacked lasso's KKT test and to phase 6's objective,
+   the same x on every rank bitwise.  (b) Term buckets at full width: the
+   heterogeneous problem of ``tests/test_term_sharding.py`` at n = 2048
+   with 64 groups against the same solve in this process (same iteration
+   count, x within 1e-4 relative), then the flagship lasso on four ranks
+   (two empty buckets) held to phase 3's checks.  (c) ``solver="prox_admm"``
+   with the group on the flagship lasso, and adaptive rho with the group on
+   (b)'s problem.  (d) The sharded consensus solve of phase 6's data, K1 on
+   every rank's 50 blocks (the streaming path, at the shape phase 5 holds
+   to the plain version), for 500 iterations against phase 6's z.
+
+Depth cut when phase 9 was added, no kernel or check with it: the timed warm
+re-solves of phases 3 and 4 run 500 and 100 iterations (2000 and 200
+before).  On an H100 the script takes about 410-435 s, of which phase 7
+takes about 210 s (its rows' host-side build and set-up at reference size)
+and phase 9 about 100 s; phases 3, 4 and 6 together hold under 2 s of
+steady iterations, so no cut there brings the whole under 300 s.
 
 Each record of the ``kernels`` line carries, beside the measured times,
 ``bound_ms``: the least time the card could take, the larger of the bytes
@@ -67,15 +95,21 @@ the function must move (inputs read once, outputs written once) over
 3.35 TB/s and its operations over 67 TFLOP/s (the H100's published HBM
 rate and float32 rate outside the tensor cores).
 
+K1 has two records, one for each shape and path that a main path gives
+it: (200, 200) on the ring path with phase 6's launches, and (50, 200) on
+the streaming path with rank 0's launches in phase 9 (d).
+
 Prints a ``{"kernels": [...]}`` line, then a last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when no CUDA device is available.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -94,8 +128,10 @@ KERNEL_RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 KKT_TOL = 1e-2
 # Flagship objective against the numpy two-block iteration run to 1e-12.
 OBJ_RTOL = 1e-4
-# Iterations of the timed warm re-solve of the 16384 x 8192 lasso.
-STEADY_ITERS = 200
+# Iterations of the timed warm re-solves of the 2000 x 1000 and the
+# 16384 x 8192 lasso.
+FLAGSHIP_STEADY_ITERS = 500
+STEADY_ITERS = 100
 # Phase 5 tolerance, relative to max |plain result|: the kernel sums in
 # another order than torch.bmm.
 LOCAL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -161,6 +197,15 @@ EVAL_PROX_RTOL = 1e-4
 EVAL_PROX_N = 1_000_000
 # Phase 8 (f): the resumed solution against the uninterrupted one.
 RESUME_ATOL = 1e-5
+# Phase 9: ranks, the hard limit on the workers' run, and (b)'s x against
+# the one-process solve, relative to max |x|.
+MESH_WORLD = 4
+# about three times what the ranks took on an H100 (94-98 s)
+MESH_TIMEOUT_S = 300
+MESH_X_RTOL = 1e-4
+# K1's shape on one rank of phase 9 (d): a quarter of the consensus row's
+# 200 blocks.  Phase 5 holds the kernel to its plain version there.
+K1_RANK_SHAPE = (200 // MESH_WORLD, 200)
 REFERENCE_JSON = Path(__file__).resolve().parent / "tests" / "data" / "library_reference.json"
 
 
@@ -395,11 +440,15 @@ def cached_solver(prob):
 def phase_local_update(lu):
     """K1 against its plain version on every path a shape can take, and the
     interleaved A/B of kernel, streaming path and library call; returns the
-    JSON record for the consensus row's shape ((200, 200), f32)."""
+    JSON records of the two shapes that main paths give it, by ``(S, n)``:
+    the consensus row's (200, 200) in f32 (phase 6, the ring path) and one
+    rank's quarter of it, (50, 200) in f32 (phase 9 (d), the streaming
+    path)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
-    record = None
+    records = {}
     for S, n, dtypes in ((200, 200, (torch.float32, torch.float64)),
+                         (K1_RANK_SHAPE[0], K1_RANK_SHAPE[1], (torch.float32,)),
                          (40, 5000, (torch.float32,)),
                          (8, 130, (torch.float32, torch.float64))):
         for dtype in dtypes:
@@ -411,6 +460,9 @@ def phase_local_update(lu):
             # the plan the wrapper takes, and where that is the ring, the
             # streaming path (the earlier design) through the private launcher
             chosen = lu.plan_for(Finv, Atb, u, z)
+            if (S, n) == K1_RANK_SHAPE and chosen.path != "stream":
+                raise AssertionError(f"{tag}: the plan is {chosen}, not the streaming path "
+                                     "that phase 9 (d) is held to")
             plans = {chosen.path: chosen}
             if chosen.path == "ring":
                 plans["stream"] = lu.plan_for(Finv, Atb, u, z, aligned=False)
@@ -492,16 +544,17 @@ def phase_local_update(lu):
                 del flush
                 log(f"[5] {tag}: L2 cold ({L2_FLUSH_BYTES >> 20} MB written between launches), "
                     "ms: " + "; ".join(f"{name} {t:.4f}" for name, t in cold.items()))
-                record = {"name": "fused_local_update", "route": "cuda",
-                          "source": "epsilon_tpu_torch/csrc/local_update.cu",
-                          "replaces": "epsilon_tpu/ops/pallas_kernels.py:72",
-                          "path": chosen.path,
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": library_ms}
+            if dtype == torch.float32 and (S, n) in ((200, 200), K1_RANK_SHAPE):
+                records[S, n] = {"name": "fused_local_update", "route": "cuda",
+                                 "source": "epsilon_tpu_torch/csrc/local_update.cu",
+                                 "replaces": "epsilon_tpu/ops/pallas_kernels.py:72",
+                                 "path": chosen.path, "shape": [S, n],
+                                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "library_ms": library_ms}
             del rhs, sides
             del Finv, Atb, u, z
-    return record
+    return records
 
 
 def numpy_consensus(A, b, lam, rho, iters):
@@ -546,7 +599,9 @@ def setup_pieces(A, b, rho):
 
 
 def phase_consensus(lu):
-    """bench.py's consensus row on the card; returns K1's launch count."""
+    """bench.py's consensus row on the card; returns K1's launch count, the
+    data, the converged z and the z after the first 500 cold iterations of
+    the steady solver (phase 9 holds the meshed solves to them)."""
     from epsilon_tpu_torch.parallel import consensus_lasso_solver
     from epsilon_tpu_torch.problems.scaling_bench import make_blocks
     S, m, n, lam, rho = 200, 2500, 200, 0.1, 1.0
@@ -598,7 +653,9 @@ def phase_consensus(lu):
                                     max_iterations=CONSENSUS_STEADY_ITERS, epoch_iterations=50)
     torch.cuda.synchronize()
     setup2_s = time.perf_counter() - t0
-    iters_run += solver.solve().iterations
+    res = solver.solve()
+    iters_run += res.iterations
+    z_steady = res.z.cpu().numpy().astype(np.float64)
     ips = []
     for _ in range(CONSENSUS_REPS):
         torch.cuda.synchronize()
@@ -620,7 +677,7 @@ def phase_consensus(lu):
         raise AssertionError(f"consensus: local_update took {lu.last_plan}, not the ring path")
     log(f"[6] local_update launches in the main path: {launches} ({iters_run} iterations), "
         f"path {lu.last_plan.path}")
-    return launches
+    return launches, (A, b, lam), z, z_steady
 
 
 def _rel(violation, scale):
@@ -916,6 +973,181 @@ def phase_surface(ep, fixed_iters, x_ref):
             f"{dt_cpu:.3f} s on the CPU, compile included")
 
 
+def run_mesh_workers(mw, out_dir, world=MESH_WORLD, timeout=MESH_TIMEOUT_S):
+    """Run ``world`` ranks of ``tools/mesh_worker.py`` under one hard limit
+    (a rank that exits non-zero, or is killed at the limit, raises) and
+    return the ranks' ``(json, arrays)`` results."""
+    mw.spawn_ranks("run", world, timeout, out_dir)
+    out = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            meta = json.load(f)
+        with np.load(os.path.join(out_dir, f"rank{rank}.npz")) as f:
+            out.append((meta, {k: f[k] for k in f.files}))
+    return out
+
+
+def _same_on_all_ranks(ranks, part):
+    digests = {meta[part]["x_digest"] for meta, _ in ranks}
+    if len(digests) != 1:
+        raise AssertionError(f"[9] {part}: the ranks returned different x")
+
+
+def _checked_lasso_x(tag, meta, xv, A, b, lam, f_ref):
+    """Phase 3's f64 checks on a flagship solution that came back from the
+    ranks."""
+    if meta["status"] != "optimal":
+        raise AssertionError(f"{tag}: status {meta['status']} after {meta['iterations']} iterations")
+    kkt = kkt_violation(A, b, lam, xv)
+    gap = abs(lasso_objective(A, b, lam, xv) - f_ref) / abs(f_ref)
+    if not (np.all(np.isfinite(xv)) and kkt <= KKT_TOL and gap <= OBJ_RTOL):
+        raise AssertionError(f"{tag}: kkt {kkt} (tol {KKT_TOL}), objective gap {gap} (tol {OBJ_RTOL})")
+    return kkt, gap
+
+
+def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
+    """Phase 9; returns K1's launch count on rank 0 in (d), all on the
+    streaming path at ``K1_RANK_SHAPE``."""
+    from tools import mesh_worker as mw
+    from epsilon_tpu_torch.solvers import ProxADMMTwoBlockSolver, SolverParams
+
+    # the one-process reference of (b), on the card, before the ranks start
+    n, n_groups = mw.FULL["hetero"]
+    t0 = time.perf_counter()
+    ref = ProxADMMTwoBlockSolver(mw.hetero_problem(n, n_groups),
+                                 SolverParams(max_iterations=20000, warm_start=True,
+                                              **mw.SOLVE))
+    x_one = ref.solve()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    x_one = x_one["x"].cpu().numpy().astype(np.float64)
+    one_bytes = ref.operator_bytes()
+    log(f"[9b] one process: hetero n={n}, {n_groups} groups ({len(ref.term_ops)} terms): "
+        f"{ref.status.state.value} in {ref.status.num_iterations} iterations, {one_s:.2f} s "
+        f"(set-up {ref.status.timing.init_usec / 1e6:.2f} s, solve "
+        f"{ref.status.timing.solve_usec / 1e6:.2f} s, "
+        f"{ref.status.timing.solve_usec / 1e3 / ref.status.num_iterations:.4f} ms/iter); "
+        f"operator bytes {one_bytes}")
+    if ref.status.state.value != "optimal":
+        raise AssertionError("[9b] the one-process reference did not converge")
+    one_iters = ref.status.num_iterations
+    # one warm re-solve, for the ranks' ms per iteration to stand beside
+    ref.params = SolverParams(**dict(mw.SOLVE, rel_tol=0.0, abs_tol=0.0, warm_start=True,
+                                     epoch_iterations=50,
+                                     max_iterations=mw.FULL["steady_iters"]["b"]))
+    ref.solve()
+    torch.cuda.synchronize()
+    one_ms = ref.status.timing.solve_usec / 1e3 / ref.status.num_iterations
+    del ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        ranks = run_mesh_workers(mw, td)
+    metas = [m for m, _ in ranks]
+    log(f"[9] {MESH_WORLD} ranks finished in {time.perf_counter() - t0:.1f} s; backend "
+        f"{metas[0]['backend']}, cards {[m['card'] for m in metas]} of "
+        f"{torch.cuda.device_count()}; {card}")
+    if len({m["backend"] for m in metas}) != 1:
+        raise AssertionError("[9] the ranks chose different backends")
+
+    failed = []
+
+    # (a) scenario stacking at full width
+    A, b, lam = consensus_data
+    S, m, n = A.shape
+    a0 = metas[0]["a"]
+    _same_on_all_ranks(ranks, "a")
+    z = ranks[0][1]["a_z"]
+    X = A.astype(np.float64).reshape(S * m, n)
+    y = b.astype(np.float64).ravel()
+    g = X.T @ (X @ z) - X.T @ y
+    kkt = float(np.where(z != 0, np.abs(g + lam * np.sign(z)),
+                         np.maximum(np.abs(g) - lam, 0.0)).max() / lam)
+    f_a, f_6 = (0.5 * float(np.sum((X @ v - y) ** 2)) + lam * float(np.abs(v).sum())
+                for v in (z, z_consensus))
+    gap = abs(f_a - f_6) / abs(f_6)
+    del X
+    want_bytes = S * (n * n + n) * 4 // MESH_WORLD
+    stacked = [m_["a"]["bytes"]["stacks"] for m_ in metas]
+    med, lo, hi = a0["steady"]["ms_per_iter"]
+    log(f"[9a] scenario stacking, {S}x{m}x{n} through {a0['route']}: one group of "
+        f"{a0['groups'][0]['S']}, rows per rank {[m_['a']['groups'][0]['rows'] for m_ in metas]}, "
+        f"{a0['bucketed_terms']} bucketed term(s); {a0['status']} in {a0['iterations']} iterations; "
+        f"kkt {kkt:.2e} (tol {KKT_TOL:g}); objective {f_a:.9g} vs phase 6's {f_6:.9g}, relative "
+        f"gap {gap:.2e} (tol {OBJ_RTOL:g}); the same x on every rank; wall {a0['wall_s']:.2f} s "
+        f"(solver set-up {a0['setup_s']:.2f} s, first solve {a0['solve_s']:.2f} s); warm re-solves of "
+        f"{mw.FULL['steady_iters']['a']} iterations: {med:.4f} ms/iter (min {lo:.4f}, max {hi:.4f}), "
+        f"{a0['steady']['collectives_per_iter']:.2f} collectives and "
+        f"{a0['steady']['device_ops_per_iter']:.1f} device operations (rank 0) per iteration; "
+        f"stacked bytes per rank {stacked} (a quarter of the stacks: {want_bytes}); term-operator "
+        f"bytes {[m_['a']['bytes']['term_ops'] for m_ in metas]}; CUDA bytes allocated after (a) "
+        f"{[m_['a'].get('cuda_bytes_allocated') for m_ in metas]}")
+    if not (a0["status"] == "optimal" and kkt <= KKT_TOL and gap <= OBJ_RTOL
+            and all(s_ == want_bytes for s_ in stacked)):
+        failed.append("9a")
+
+    # (b) term buckets at full width, against the one-process solve
+    b0 = metas[0]["b"]
+    _same_on_all_ranks(ranks, "b")
+    xb = ranks[0][1]["b_x"]
+    err = float(np.abs(xb - x_one).max() / np.abs(x_one).max())
+    med, lo, hi = b0["steady"]["ms_per_iter"]
+    log(f"[9b] term buckets, hetero n={mw.FULL['hetero'][0]}: {b0['status']} in "
+        f"{b0['iterations']} iterations (one process: {one_iters}); max|x - x_one|/max|x_one| "
+        f"{err:.2e} (tol {MESH_X_RTOL:g}); bucket sizes {b0['bucket_sizes']}; wall "
+        f"{b0['wall_s']:.2f} s (set-up {b0['setup_s']:.2f} s, solve {b0['solve_s']:.2f} s); warm "
+        f"re-solves of {mw.FULL['steady_iters']['b']} iterations: {med:.4f} ms/iter (min {lo:.4f}, "
+        f"max {hi:.4f}; one process, one re-solve: {one_ms:.4f}), "
+        f"{b0['steady']['collectives_per_iter']:.2f} collectives and "
+        f"{b0['steady']['device_ops_per_iter']:.1f} device operations (rank 0) per iteration; "
+        f"term-operator bytes per "
+        f"rank {[m_['b']['bytes']['term_ops'] for m_ in metas]} (one process: "
+        f"{one_bytes['term_ops']}), constraint projection {b0['bytes']['constr_prox']} on each")
+    if not (b0["status"] == "optimal" and b0["iterations"] == one_iters and err <= MESH_X_RTOL):
+        failed.append("9b")
+    Af, bf, lamf, f_ref = flagship
+    for part, tag in (("b_flagship", "[9b] flagship lasso, two terms on four ranks"),
+                      ("c_prox_admm", "[9c] flagship lasso, solver=prox_admm with the group")):
+        meta = metas[0][part]
+        for _, arrays in ranks[1:]:
+            if not np.array_equal(arrays[f"{part}_x"], ranks[0][1][f"{part}_x"]):
+                raise AssertionError(f"{tag}: the ranks returned different x")
+        kkt, gap = _checked_lasso_x(tag, meta, ranks[0][1][f"{part}_x"], Af, bf, lamf, f_ref)
+        log(f"{tag}: optimal in {meta['iterations']} iterations, kkt {kkt:.2e}, objective gap "
+            f"{gap:.2e}" + (f"; bucket sizes {meta['bucket_sizes']}" if "bucket_sizes" in meta
+                            else f"; solved by {meta['solver']}"))
+    c = metas[0]["c_adaptive"]
+    log(f"[9c] adaptive rho with the group on (b)'s problem: {c['status']} in {c['iterations']} "
+        f"iterations, final rho {c['rho']:g}, objective {c['objective']:.9g} "
+        f"(fixed rho 1: {b0['objective']:.9g})")
+    if c["status"] != "optimal" or any(m_["c_adaptive"]["iterations"] != c["iterations"]
+                                       for m_ in metas):
+        failed.append("9c adaptive rho")
+
+    # (d) the sharded consensus solve
+    d0 = metas[0]["d"]
+    dz = float(np.abs(ranks[0][1]["d_z"] - z_consensus_steady).max())
+    log(f"[9d] sharded consensus, {d0['blocks']} blocks a rank, {d0['iterations']} iterations: "
+        f"max|z - one-process z| {dz:.2e} (tol {CONSENSUS_Z_ATOL:g}); {d0['ms_per_iter']:.4f} "
+        f"ms/iter, {d0['collectives_per_iter']:.2f} collectives per iteration, set-up {d0['setup_s']:.2f} s; K1 launches per rank "
+        f"{[m_['d']['k1_launches'] for m_ in metas]}, path {d0['k1_path']} at (S, n) = "
+        f"{tuple(d0['k1_shape'])}, the shape phase 5 held to the plain version")
+    for _, arrays in ranks[1:]:
+        if not np.array_equal(arrays["d_z"], ranks[0][1]["d_z"]):
+            raise AssertionError("[9d] the ranks hold different z")
+    if not (dz <= CONSENSUS_Z_ATOL and all(m_["d"]["k1"] for m_ in metas)
+            and all(m_["d"]["k1_launches"] >= d0["iterations"]
+                    and m_["d"]["k1_path"] == "stream"
+                    and tuple(m_["d"]["k1_shape"]) == K1_RANK_SHAPE for m_ in metas)):
+        failed.append("9d")
+    log("[9] seconds per part on rank 0: "
+        + ", ".join(f"({k}) {metas[0][f'{k}_seconds']:.1f}" for k in "abcd"))
+    if failed:
+        raise AssertionError(f"[9] failed: {failed}")
+    return d0["k1_launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -947,7 +1179,8 @@ def main():
 
     # -- 3. flagship lasso 2000 x 1000 ------------------------------------------
     A, b, lam = workload(2000, 1000)
-    xv, flagship_iters, _ = run_lasso(ep, "[3] lasso 2000x1000", A, b, lam, steady_iters=2000)
+    xv, flagship_iters, _ = run_lasso(ep, "[3] lasso 2000x1000", A, b, lam,
+                                      steady_iters=FLAGSHIP_STEADY_ITERS)
     f_port = lasso_objective(A, b, lam, xv)
     x_ref = numpy_two_block(A, b, lam)
     f_ref = lasso_objective(A, b, lam, x_ref)
@@ -975,11 +1208,12 @@ def main():
     del A, b, prob
 
     # -- 5. K1 against its plain version ------------------------------------------
-    record_k1 = phase_local_update(lu)
-    records.append(record_k1)
+    k1_records = phase_local_update(lu)
+    record_k1, record_k1_rank = k1_records[200, 200], k1_records[K1_RANK_SHAPE]
+    records += [record_k1, record_k1_rank]
 
     # -- 6. consensus lasso at full width -------------------------------------------
-    record_k1["launches"] = phase_consensus(lu)
+    record_k1["launches"], consensus_data, z_consensus, z_consensus_steady = phase_consensus(lu)
 
     # -- 7. the problem library at reference size ------------------------------------
     sp.launches = lu.launches = 0
@@ -994,6 +1228,15 @@ def main():
     log(f"[8] passed in {time.perf_counter() - t0:.1f} s; hand-written kernel launches in "
         f"phase 8: sym_packed {sp.launches}, local_update {lu.launches} (n = 1000 is below "
         f"K2's gate)")
+
+    # -- 9. the meshed paths, four processes over one group ------------------------------
+    A, b, lam = workload(2000, 1000)
+    # K1's second record: the streaming path at one rank's shape, its count
+    # rank 0's in (d) (each rank is a process of its own and sets its count
+    # to 0 just before the solve)
+    record_k1_rank["launches"] = phase_mesh(
+        card, (A, b, lam, lasso_objective(A, b, lam, x_ref)),
+        consensus_data, z_consensus, z_consensus_steady)
 
     log(json.dumps({"kernels": records}))
     log(card)

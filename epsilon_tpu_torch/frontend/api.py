@@ -3,8 +3,11 @@
 The reference exposes Epsilon through CVXPY (``epopt.solve(cvxpy_prob)``).
 CVXPY is optional here: this module provides the same modeling surface
 natively — ``Variable``, atoms, ``Problem(Minimize(...), [...]).solve()`` —
-building :mod:`epsilon_tpu_torch.frontend.expression` trees directly.  The
-CVXPY bridge of :mod:`epsilon_tpu.frontend.cvxpy_bridge` is not ported yet.
+building :mod:`epsilon_tpu_torch.frontend.expression` trees directly;
+:mod:`epsilon_tpu_torch.frontend.cvxpy_bridge` converts CVXPY problems.
+``Problem.solve`` takes the solver parameters as keywords, ``mesh`` (a
+``torch.distributed`` process group: every rank solves the same problem
+together) among them.
 """
 
 from __future__ import annotations

@@ -22,7 +22,8 @@ from ..ir import AffineOperator, ProxProblem
 from ..ops import linop
 from ..ops.block import BlockMatrix, BlockVector
 from ..ops.prox.operator import create_prox_operator
-from ..solvers import SolverParams, SolverState, create_solver, problem_objective
+from ..solvers import (ProxADMMSolver, SolverParams, SolverState, create_solver,
+                       problem_objective)
 from ..solvers.status import SolverStatus
 from . import api
 from . import expression as ex
@@ -79,6 +80,11 @@ def solve(problem: api.Problem, verbose: bool = False, **kwargs) -> float:
     t0 = time.time()
     key = problem
     cached = _PROBLEM_CACHE.get(key) if params.warm_start else None
+    if (cached is not None and params.mesh is not None
+            and isinstance(cached[1], ProxADMMSolver)):
+        # the N-block solver cannot take a process group: build anew
+        # (create_solver rewrites it into the two-block solver)
+        cached = None
     if cached is not None:
         prox_problem, solver = cached
         solver.params = params
@@ -119,7 +125,9 @@ def solve(problem: api.Problem, verbose: bool = False, **kwargs) -> float:
     problem.solver_status = solver.status
     problem.status = ("optimal" if solver.status.state == SolverState.OPTIMAL
                       else "max_iterations")
-    return float(problem_objective(prox_problem, values))
+    # the solver's own evaluation: with a process group (mesh) each rank
+    # evaluates the terms it owns and the sum is all-reduced
+    return float(solver.objective_value(values))
 
 
 def _solve_single_prox(problem: api.Problem,

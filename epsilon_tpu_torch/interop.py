@@ -100,6 +100,50 @@ def two_block_state_from_reference(state):
                             kstates=kstates, rho=rho)
 
 
+def meshed_state_from_numpy(solver, z: Dict[str, np.ndarray],
+                            u: Dict[str, np.ndarray], rho=None):
+    """A meshed two-block solver's warm state on THIS rank from the global
+    layout of the JAX package's meshed state (``np.asarray`` of its ``z``
+    and ``u``: a stacked key ``scn:k`` holds all ``S * d`` entries there):
+    the rank keeps its ``S / world`` rows of every stacked key and the
+    replicated keys whole.  Kernel warm state starts cold (the JAX package
+    carries none on its meshed path)."""
+    rows = {g.key: slice(g.rows.start * g.d, g.rows.stop * g.d)
+            for g in solver.scn_groups}
+
+    def local(d):
+        return {k: np.asarray(v)[rows[k]] if k in rows else v
+                for k, v in d.items()}
+
+    state = state_from_numpy(local(z), local(u), rho=rho)
+    return solver._pack_state(state[0], state[1],
+                              state[2] if rho is not None else None,
+                              solver._kstate0)
+
+
+def meshed_state_to_numpy(solver, state):
+    """The inverse of :func:`meshed_state_from_numpy`: ``(z, u, rho)`` in
+    the global layout as numpy (``rho`` None unless adaptive), the ranks'
+    rows of the stacked keys all-gathered.  Every rank calls it together."""
+    import torch
+    import torch.distributed as dist
+
+    stacked = {g.key for g in solver.scn_groups}
+
+    def whole(bv):
+        out = {}
+        for k, v in bv.items():
+            if k in stacked:
+                parts = [torch.empty_like(v) for _ in range(solver.n_dev)]
+                dist.all_gather(parts, v.contiguous(), group=solver.mesh)
+                v = torch.cat(parts)
+            out[k] = v.detach().cpu().numpy()
+        return out
+
+    z, u, rho, _ = solver._unpack_state(state)
+    return whole(z), whole(u), None if rho is None else float(rho)
+
+
 def nblock_state_from_numpy(u: Dict[str, np.ndarray], ys):
     """The N-block solver's warm state ``(u, ys)`` from numpy arrays keyed
     by constraint row (``ys``: one dict per term), as tensors on the

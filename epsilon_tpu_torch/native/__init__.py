@@ -1,18 +1,44 @@
-"""Block-Cholesky elimination ordering.
+"""Host kernels: block-Cholesky elimination ordering and the exact TV-1D
+prox.
 
-Counterpart of ``epsilon_tpu/native`` (``min_fill_order``, the C++ kernel
-of ``native/ordering.cc``).  The JAX package ships that kernel as a built
-library, so its ``BlockCholesky`` orders every system of three or more keys
-with it.  The port computes the same whole-system order with numpy, in the
-same integer arithmetic and with the same tie-breaking, so both packages
-eliminate in the same order (and round the same way) with nothing to build.
+Counterpart of ``epsilon_tpu/native`` (``min_fill_order``, ``tv1d_prox``
+and ``tv1d_prox_batch``, the C++ kernels of ``native/``).  The JAX package
+ships those as a built library, so its ``BlockCholesky`` orders every
+system of three or more keys with it.  The port computes the same
+whole-system order with numpy, in the same integer arithmetic and with the
+same tie-breaking, so both packages eliminate in the same order (and round
+the same way) with nothing to build; its TV-1D entry points run the numpy
+taut string the JAX package uses when its library is not built.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["min_fill_order"]
+__all__ = ["available", "min_fill_order", "tv1d_prox", "tv1d_prox_batch"]
+
+
+def available() -> bool:
+    """Whether a built native library is loaded: never, the port has
+    nothing to build (the numpy versions below always run)."""
+    return False
+
+
+def tv1d_prox(y: np.ndarray, lam: float) -> np.ndarray:
+    """Exact TV-1D prox on the host in float64 (the numpy taut string)."""
+    from ..ops.prox.tv1d import tv1d_exact_numpy
+    return tv1d_exact_numpy(np.ascontiguousarray(y, dtype=np.float64), lam)
+
+
+def tv1d_prox_batch(Y: np.ndarray, lams: np.ndarray) -> np.ndarray:
+    """:func:`tv1d_prox` of every row of ``Y``, ``lams`` one per row (or
+    one for all)."""
+    from ..ops.prox.tv1d import tv1d_exact_numpy
+    Y = np.ascontiguousarray(Y, dtype=np.float64)
+    lams = np.ascontiguousarray(np.broadcast_to(lams, (Y.shape[0],)),
+                                dtype=np.float64)
+    return np.stack([tv1d_exact_numpy(Y[i], lams[i])
+                     for i in range(Y.shape[0])])
 
 
 def min_fill_order(nnz: np.ndarray, dims: np.ndarray) -> np.ndarray:

@@ -48,10 +48,61 @@ from .registry import (KernelEntry, epigraph_via_bisection, get_kernel,
 
 
 class ProxOperator:
-    """Base class."""
+    """Base class.
+
+    Scenario stacking (``solvers/scenario.py``) asks an operator over ONE
+    variable ``var`` three things, so that S such operators can apply as one
+    batched call on ``(S, d)`` inputs:
+
+    - :meth:`stack_signature` — a hashable structural signature (apply
+      path, mode, every scalar by value, shapes and dtypes of every data
+      array), or None when the operator cannot stack.  Two operators stack
+      only on equal signatures, so whatever a signature leaves out must be
+      in :meth:`stack_data`.
+    - :meth:`stack_data` — the per-term data arrays, in a fixed order.
+    - :meth:`stacked_fn` — ``fn(data, V, rho=None) -> X`` over those arrays
+      with a leading ``(S, ...)`` axis; it keeps nothing of this operator's
+      own data alive, so the operator can be dropped once its arrays are
+      stacked.
+    """
 
     def apply(self, v: BlockVector) -> BlockVector:
         raise NotImplementedError
+
+    def stack_signature(self, var: str):
+        return None
+
+    def stack_data(self, var: str) -> List:
+        raise NotImplementedError
+
+    def stacked_fn(self, var: str):
+        raise NotImplementedError
+
+
+def _np_sig(a) -> tuple:
+    """Shape and dtype of a data array, for a signature."""
+    return (tuple(a.shape), str(a.dtype).replace("torch.", ""))
+
+
+def _batched_matvec(M, V):
+    """``M[s] @ V[s]`` for every s: M (S, m, n), V (S, n)."""
+    return torch.bmm(M, V.unsqueeze(-1)).squeeze(-1)
+
+
+def _stack_block(op):
+    """(signature, data arrays, batched apply) of one linear block of a
+    stackable operator: a scalar (by value, no data), a diagonal or a dense
+    matrix (stacked data); None for any other structure."""
+    sv = op.scalar_value()
+    if sv is not None:
+        return ("scalar", float(sv)), [], lambda data, V: V if sv == 1.0 else sv * V
+    if isinstance(op, linop.DiagonalOp):
+        return (("diag",) + _np_sig(op.d), [op.d],
+                lambda data, V: data[0] * V)
+    if isinstance(op, linop.DenseOp):
+        return (("dense",) + _np_sig(op.A), [op.A],
+                lambda data, V: _batched_matvec(data[0], V))
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +281,88 @@ class VectorProxOperator(ProxOperator):
         u = self.B.apply(v) + self.g.to_device()
         return self._finish(v, self._apply_kernel(self._kernel_args(u), rho=rho))
 
+    # -- scenario stacking ---------------------------------------------------
+    def _stack_parts(self, var: str):
+        """The pieces of the stacked apply, or None outside the plain vector
+        mode (one argument, no epigraph, no matrix or per-slice kernel, no
+        warm kernel state) or when B, C or D is not one scalar, diagonal or
+        dense block between ``var`` and the argument."""
+        spec, entry = self.spec, self.entry
+        if (spec.epigraph or entry.matrix or entry.nargs != 1
+                or self.n_args != 1 or spec.axis is not None
+                or entry.stateful_prox is not None):
+            return None
+        a0 = arg_key(0)
+        mats = [(self.B, (a0, var)), (self.C, (var, a0))]
+        if self.D is not None:
+            mats.append((self.D, (var, var)))
+        blocks = []
+        for M, key in mats:
+            if list(M.blocks) != [key]:
+                return None
+            part = _stack_block(M.blocks[key])
+            if part is None:
+                return None
+            blocks.append(part)
+        if set(self.g.keys()) - {a0}:
+            return None
+        return blocks
+
+    def stack_signature(self, var: str):
+        blocks = self._stack_parts(var)
+        if blocks is None:
+            return None
+        spec = self.spec
+        params = tuple(sorted(
+            (k, (_np_sig(v), np.asarray(v).tobytes()) if hasattr(v, "shape")
+             else v) for k, v in (spec.scaled_zone_params or {}).items()))
+        lam = (_np_sig(self.lam) if isinstance(self.lam, np.ndarray)
+               else float(self.lam))
+        g = self.g.data.get(arg_key(0))
+        return ("vector", spec.kind.value, spec.k, params, lam,
+                None if g is None else tuple(np.shape(g)),
+                self.arg_dims[0], tuple(b[0] for b in blocks))
+
+    def stack_data(self, var: str) -> List:
+        data = [a for b in self._stack_parts(var) for a in b[1]]
+        if isinstance(self.lam, np.ndarray):
+            data.append(self.lam)
+        g = self.g.data.get(arg_key(0))
+        if g is not None:
+            data.append(g)
+        return data
+
+    def stacked_fn(self, var: str):
+        blocks = self._stack_parts(var)
+        counts = [len(b[1]) for b in blocks]
+        applies = [b[2] for b in blocks]
+        lam0 = None if isinstance(self.lam, np.ndarray) else float(self.lam)
+        has_g = arg_key(0) in self.g.data
+        prox, params = self.entry.prox, self._params()
+
+        def fn(data, V, rho=None):
+            pos, parts = 0, []
+            for n in counts:
+                parts.append(data[pos:pos + n])
+                pos += n
+            lam = lam0
+            if lam is None:
+                lam = data[pos]
+                pos += 1
+            if rho is not None:
+                lam = lam / rho
+            u = applies[0](parts[0], V)
+            if has_g:
+                u = u + data[pos]
+            y = prox(u, lam, **params)
+            if has_g:
+                y = y - data[pos]
+            x = applies[1](parts[1], y)
+            if len(applies) == 3:
+                x = x + applies[2](parts[2], V)
+            return x
+        return fn
+
     # -- warm-startable (stateful) kernels ---------------------------------
     def kernel_state_init(self):
         """Cold state for kernels that warm-start across ADMM sweeps (TV-1D:
@@ -397,6 +530,28 @@ class _KKTProxOperator(ProxOperator):
                             keys=self.var_keys).select(self.var_keys)
         return _descale_solution(x, self._descale)
 
+    # -- scenario stacking: the collapsed solve ``x = w (S v + c)`` ----------
+    # Every KKT operator over one variable that collapsed applies alike, so
+    # the signature names the apply path and not the class: the kind and
+    # the height of H went into S and c, which are stacked data.
+    def stack_signature(self, var: str):
+        c = self._collapsed
+        if c is None or c.in_keys != [var] or c.out_keys != [var]:
+            return None   # the factored substitution chain does not stack
+        return ("collapsed_kkt", float(self._descale.get(var, 1.0)),
+                _np_sig(c.S), _np_sig(c.c))
+
+    def stack_data(self, var: str) -> List:
+        return [self._collapsed.S, self._collapsed.c]
+
+    def stacked_fn(self, var: str):
+        w = float(self._descale.get(var, 1.0))
+
+        def fn(data, V, rho=None):
+            y = _batched_matvec(data[0], V) + data[1]
+            return y if w == 1.0 else w * y
+        return fn
+
 
 class ZeroProxOperator(_KKTProxOperator):
     """Projection onto {H(x) + g = 0} in the metric ||A(x) - v||: solve
@@ -544,6 +699,17 @@ class RhoProjectionOperator(ProxOperator):
     def apply_rho(self, v: BlockVector, rho) -> BlockVector:
         return self.inner.apply(v)
 
+    def stack_signature(self, var: str):
+        sig = self.inner.stack_signature(var)
+        return None if sig is None else ("rho_free",) + sig
+
+    def stack_data(self, var: str) -> List:
+        return self.inner.stack_data(var)
+
+    def stacked_fn(self, var: str):
+        inner = self.inner.stacked_fn(var)
+        return lambda data, V, rho=None: inner(data, V)
+
 
 class RhoAffineProxOperator(ProxOperator):
     """f(x) = alpha*c'x (+ const) at penalty rho:  x = v - c/rho (the
@@ -576,6 +742,17 @@ class RhoAffineProxOperator(ProxOperator):
 
     def apply(self, v: BlockVector) -> BlockVector:
         return self.apply_rho(v, 1.0)
+
+    def stack_signature(self, var: str):
+        if list(self.var_dims) != [var] or set(self._c_host) - {var}:
+            return None
+        return ("rho_affine", self.var_dims[var], var in self._c_host)
+
+    def stack_data(self, var: str) -> List:
+        return [self._c_host[var]] if var in self._c_host else []
+
+    def stacked_fn(self, var: str):
+        return lambda data, V, rho=None: (V - data[0] / rho) if data else V
 
 
 class RhoSumSquareProxOperator(ProxOperator):
@@ -631,6 +808,22 @@ class RhoSumSquareProxOperator(ProxOperator):
 
     def apply(self, v: BlockVector) -> BlockVector:
         return self.apply_rho(v, 1.0)
+
+    def stack_signature(self, var: str):
+        if self.col_keys != [var]:
+            return None
+        # the height of H went into Q, w and r0, which are stacked data
+        return ("rho_sum_square", self.var_dims[var])
+
+    def stack_data(self, var: str) -> List:
+        return [self._Q_host, self._w_host, self._r0_host]
+
+    def stacked_fn(self, var: str):
+        def fn(data, V, rho=None):
+            Q, w, r0 = data
+            t = _batched_matvec(Q.transpose(1, 2), rho * V + r0)
+            return _batched_matvec(Q, t / (w + rho))
+        return fn
 
 
 def create_rho_prox_operator(spec: ProxFunctionSpec,

@@ -113,6 +113,7 @@ class ConsensusADMM:
         self.rel_tol, self.abs_tol = rel_tol, abs_tol
         self.max_iterations = max_iterations
         self.epoch_iterations = epoch_iterations
+        self.n_collectives = 0   # collectives this solver has started
         blocks = _local_blocks(S, group)
         self.S_local = blocks.stop - blocks.start
         self.data = {k: v[blocks] if v.shape[0] == S else v for k, v in data.items()}
@@ -123,6 +124,7 @@ class ConsensusADMM:
 
     def _all_reduce(self, t):
         if self.group is not None:
+            self.n_collectives += 1
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 

@@ -110,6 +110,32 @@ def PROBLEMS_REFERENCE() -> List[ProblemInstance]:
     ]
 
 
+def _scale_problems() -> List[ProblemInstance]:
+    """Log-spaced size sweeps: the scaling curves behind the reference's
+    benchmark graphs, built when asked for so that importing this module
+    stays cheap."""
+    out: List[ProblemInstance] = []
+    out += [ProblemInstance(f"lasso_{int(m)}", _p("lasso").create,
+                            dict(m=int(m), n=10 * int(m),
+                                 rho=1 if m < 50 else 0.01))
+            for m in np.logspace(1, np.log10(5000), 20)]
+    out += [ProblemInstance(f"mv_lasso_{int(m)}", _p("mv_lasso").create,
+                            dict(m=int(m), n=10 * int(m), k=10,
+                                 rho=1 if m < 50 else 0.01))
+            for m in np.logspace(1, np.log10(5000), 20)]
+    out += [ProblemInstance(f"fused_lasso_{int(m)}", _p("fused_lasso").create,
+                            dict(m=int(m), ni=10, k=int(m)))
+            for m in np.logspace(1, 3, 20)]
+    out += [ProblemInstance(f"hinge_l2_{int(n)}", _p("hinge_l2").create,
+                            dict(m=10 * int(n), n=int(n)))
+            for n in np.logspace(1, np.log10(5000), 20)]
+    return out
+
+
+def PROBLEMS_SCALE() -> List[ProblemInstance]:
+    return _scale_problems()
+
+
 def _sync():
     if config.on_cuda():
         torch.cuda.synchronize()
@@ -226,12 +252,36 @@ def format_result(r: Dict) -> str:
             f"obj={r['objective']:.6e}  {r['status']}")
 
 
+def format_table(results: List[Dict], fmt: str = "text") -> str:
+    """The rows as one table: ``"text"`` (a :func:`format_result` line
+    each), ``"html"`` or ``"latex"`` (problem, time, objective)."""
+    nan = float("nan")
+    if fmt == "html":
+        rows = "".join(
+            f"<tr><td>{r['name']}</td><td>{r.get('time', nan):.2f}</td>"
+            f"<td>{r.get('objective', nan):.4e}</td></tr>"
+            for r in results)
+        return f"<table><tr><th>problem</th><th>time</th><th>objective</th></tr>{rows}</table>"
+    if fmt == "latex":
+        rows = "\\\\\n".join(
+            f"{r['name']} & {r.get('time', nan):.2f} & "
+            f"{r.get('objective', nan):.4e}"
+            for r in results)
+        return ("\\begin{tabular}{lrr}\nproblem & time & objective\\\\\n"
+                + rows + "\\\\\n\\end{tabular}")
+    return "\n".join(format_result(r) for r in results)
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--problem", default=None)
     parser.add_argument("--small", action="store_true")
     parser.add_argument("--reference", action="store_true",
                         help="the reference's 27-row suite at its sizes")
+    parser.add_argument("--scale", action="store_true",
+                        help="run the log-spaced size sweeps")
+    parser.add_argument("--format", default="text",
+                        choices=["text", "html", "latex"])
     parser.add_argument("--rel-tol", type=float, default=1e-3)
     parser.add_argument("--max-iterations", type=int, default=50000)
     parser.add_argument("--device", default="cuda",
@@ -247,12 +297,16 @@ def main():
     suite = PROBLEMS_SMALL if args.small else PROBLEMS
     if args.reference:
         suite = PROBLEMS_REFERENCE()
+    if args.scale:
+        suite = _scale_problems()
     if args.problem:
-        suite = [p for p in suite if p.name == args.problem]
+        suite = [p for p in suite if p.name == args.problem
+                 or p.name.startswith(args.problem + "_")]
         if not suite:
             raise SystemExit(f"unknown problem {args.problem}")
     if args.isolate:
-        flags = ["--reference"] if args.reference else ["--small"] if args.small else []
+        flags = (["--scale"] if args.scale else ["--reference"] if args.reference
+                 else ["--small"] if args.small else [])
         results = run_benchmarks_isolated(
             suite, suite_flags=flags, row_timeout=args.row_timeout,
             json_path=args.json, rel_tol=args.rel_tol,
@@ -260,6 +314,8 @@ def main():
     else:
         results = run_benchmarks(suite, rel_tol=args.rel_tol,
                                  max_iterations=args.max_iterations)
+    if args.format != "text":
+        print(format_table(results, args.format))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(results, f, indent=1, default=float)

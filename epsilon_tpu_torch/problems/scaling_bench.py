@@ -1,8 +1,12 @@
-"""Consensus-lasso iteration rate on one device (BASELINE config[4]).
+"""Consensus-lasso iteration rate (BASELINE config[4]).
 
-Counterpart of ``epsilon_tpu/problems/scaling_bench.py``, on one device so
-far: ``make_blocks`` is the same numpy generator, and :func:`run_scaling`
-times a warm solve of ``iters`` consensus iterations.
+Counterpart of ``epsilon_tpu/problems/scaling_bench.py``: ``make_blocks``
+is the same numpy generator, and :func:`run_scaling` times a warm solve of
+``iters`` consensus iterations, on one device or (``group``) with the
+blocks split over the ranks of a process group.  The JAX package times
+several mesh sizes in one process; here a process is one rank, so one run
+gives one row, and the rows of runs at several world sizes are compared by
+the caller.
 
     python -m epsilon_tpu_torch.problems.scaling_bench --nnz 1e8
 """
@@ -25,16 +29,21 @@ def make_blocks(S, m, n, dtype=np.float32, seed=0):
     return A, b
 
 
-def run_scaling(S=32, m=500, n=500, lam=0.1, iters=500):
+def run_scaling(S=32, m=500, n=500, lam=0.1, iters=500, group=None):
     """Time ``iters`` consensus iterations on the configured device, after a
     first (warm-up) solve; returns ``[{devices, iters_per_sec, efficiency}]``
-    with one row.  Several cards are not ported yet."""
+    with one row.  With ``group`` (every rank calls this together) the
+    blocks are split over its ranks, ``devices`` is its size and
+    ``efficiency`` (the rate over a one-device run's) is left to the caller
+    who has both rows: None."""
+    import torch.distributed as dist
+
     from epsilon_tpu_torch import config
     from epsilon_tpu_torch.parallel import consensus_lasso_solver
 
     A, b = make_blocks(S, m, n)
     solver = consensus_lasso_solver(
-        A, b, lam, rel_tol=0.0, abs_tol=0.0,
+        A, b, lam, group=group, rel_tol=0.0, abs_tol=0.0,
         max_iterations=iters, epoch_iterations=min(50, iters))
     solver.solve()
     if config.on_cuda():
@@ -44,7 +53,9 @@ def run_scaling(S=32, m=500, n=500, lam=0.1, iters=500):
     if config.on_cuda():
         torch.cuda.synchronize()
     ips = res.iterations / (time.perf_counter() - t0)
-    return [dict(devices=1, iters_per_sec=round(ips, 1), efficiency=1.0)]
+    devices = 1 if group is None else dist.get_world_size(group)
+    return [dict(devices=devices, iters_per_sec=round(ips, 1),
+                 efficiency=1.0 if group is None else None)]
 
 
 def main():

@@ -1,6 +1,8 @@
 """ADMM operator-splitting solvers on tensors.
 
-Counterpart of ``epsilon_tpu/solvers/admm.py`` on one device:
+Counterpart of ``epsilon_tpu/solvers/admm.py``, on one device or (the
+two-block solver, ``SolverParams.mesh``) over the ranks of a
+``torch.distributed`` process group:
 
 - :class:`ProxADMMTwoBlockSolver` — two-block consensus ADMM: the x-update
   applies every prox operator at ``z - u`` independently, the z-update
@@ -20,17 +22,26 @@ checkpointer, rebuild themselves in place when a cached solver is asked for
 another rho or mode (keeping the warm state where that is well defined),
 and take new problem data of the same structure (:meth:`update_problem`).
 
-Not yet ported: term sharding over a mesh and scenario stacking.
+With a process group in place of the JAX mesh (one process per mesh
+device, ``psum`` -> ``all_reduce``, ``lax.switch(axis_index)`` -> "this
+rank's bucket", ``P(axis)`` on a stacked key -> each rank holds its
+``S / world`` rows), the two-block solver shards its terms: scenario
+stacking (:mod:`.scenario`) for terms that fit the consensus template and
+one bucket of the remaining terms per rank.  The JAX package's bucket heaps
+have no counterpart: they exist there because one traced program holds
+every branch, while a rank here builds the operators of its own bucket
+alone.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import config
 from ..ir import (AffineOperator, Cone, ProxFunctionSpec, ProxKind,
@@ -38,7 +49,8 @@ from ..ir import (AffineOperator, Cone, ProxFunctionSpec, ProxKind,
 from ..ops import linop
 from ..ops.block import BlockMatrix, BlockVector
 from ..ops.prox.operator import create_prox_operator, create_rho_prox_operator
-from .objective import problem_objective
+from . import scenario
+from .objective import problem_objective, term_objective
 from .params import SolverKind, SolverParams
 from .status import Residuals, SolverState, SolverStatus
 
@@ -144,6 +156,9 @@ class SolverBase:
     def _has_external_stop(self) -> bool:
         return any(cb() for cb in self._stop_callbacks)
 
+    def _agree_stop(self, stop: bool) -> bool:
+        return stop
+
     def _rebuild_full(self):
         """Reconstruct the solver in place for a changed mode (adaptive_rho
         flip) or fixed rho, keeping the hooks the caller attached, which
@@ -208,7 +223,8 @@ class SolverBase:
                 self.status.num_iterations = iters
                 self.status.residuals = r
                 logger.info(self.status.log_line())
-            if conv or iters >= limit or (host and self._has_external_stop()):
+            if conv or iters >= limit or (
+                    host and self._agree_stop(self._has_external_stop())):
                 break
         if not host and self._checkpointer is not None:
             self._checkpointer.save(iters, state)
@@ -229,8 +245,71 @@ class SolverBase:
             logger.info(self.status.log_line())
 
 
+class _TermOps:
+    """Term operators built at first touch: a meshed solver touches only
+    the terms of its own bucket and of its own rows of the scenario stacks,
+    so the operators of the other ranks' terms never exist here."""
+
+    def __init__(self, solver, problem):
+        self._solver, self._problem = solver, problem
+
+    def __getitem__(self, i):
+        ops = self._solver.term_ops
+        if ops[i] is None:
+            ops[i] = self._solver._build_term_op(
+                self._problem, self._problem.terms[i],
+                self._solver.term_vars[i])
+        return ops[i]
+
+
+def device_bytes(*roots) -> int:
+    """Bytes of the distinct tensor storages reachable from ``roots``
+    through attributes, lists, tuples and dicts: what a set of operators
+    keeps on the device (operators upload at first apply, so read it after
+    a solve)."""
+    import types
+    seen, storages, todo = set(), {}, list(roots)
+    while todo:
+        o = todo.pop()
+        if id(o) in seen or o is None:
+            continue
+        seen.add(id(o))
+        if isinstance(o, torch.Tensor):
+            if o.layout == torch.sparse_csr:
+                todo += [o.crow_indices(), o.col_indices(), o.values()]
+            else:
+                st = o.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        elif isinstance(o, dict):
+            todo += list(o.values())
+        elif isinstance(o, (list, tuple, set)):
+            todo += list(o)
+        elif isinstance(o, (str, bytes, int, float, np.ndarray, np.generic,
+                            type, types.ModuleType, types.FunctionType,
+                            types.BuiltinFunctionType)):
+            continue
+        elif hasattr(o, "__dict__"):
+            todo += list(vars(o).values())
+    return sum(storages.values())
+
+
 class ProxADMMTwoBlockSolver(SolverBase):
-    """Two-block consensus ADMM."""
+    """Two-block consensus ADMM, on one device or sharded over the ranks of
+    a process group (``params.mesh``).
+
+    With a group, every rank constructs the solver on the same problem and
+    calls :meth:`solve` together.  Terms that fit the consensus template
+    stack (:mod:`.scenario`): rank r keeps its ``S / world`` rows of their
+    data and state.  The remaining terms are balanced into one bucket per
+    rank; a rank builds and applies the operators of its own bucket only,
+    and one ``all_reduce`` per iteration (the flat-packed x, with the
+    scenario fold's sums behind it) gives every rank the whole x.  z, u and
+    rho of the non-stacked variables are the same on every rank, and every
+    decision (the stop test, adaptive rho, an external stop) is taken from
+    all-reduced values, so all ranks run the same number of iterations.
+    Warm kernel state (the TV-1D PDAS dual) is threaded by the rank that
+    owns the term (the JAX package drops it on its meshed path).  A
+    checkpointer with a group raises ``NotImplementedError``."""
 
     def __init__(self, problem: ProxProblem, params: SolverParams):
         super().__init__(problem, params)
@@ -241,20 +320,137 @@ class ProxADMMTwoBlockSolver(SolverBase):
         # not depend on rho) and rho enters the term proxes as a tensor
         self.sqrt_rho = 1.0 if self.adaptive else float(np.sqrt(params.rho))
 
-        self._build_term_ops(problem)
+        self.mesh = params.mesh
+        self.n_dev, self.rank = 1, 0
+        self.n_collectives = 0   # collectives this solver has started
+        self.buckets: Optional[List[List[int]]] = None
+        self.scn_groups: List[scenario.ScenarioGroup] = []
+        stacked_terms: set = set()
+        tie_cons: set = set()
+        self.term_vars: List[List[str]] = [_term_vars(t) for t in problem.terms]
+        if self.mesh is None:
+            self._build_term_ops(problem)
+        else:
+            self.n_dev = dist.get_world_size(self.mesh)
+            self.rank = dist.get_rank(self.mesh)
+            # Scenario stacking: isomorphic terms tied to a shared variable
+            # by identity ZERO constraints stack along the group's ranks;
+            # the tie projection folds into an all-reduced average.
+            self.term_ops = [None] * len(problem.terms)
+            lazy = _TermOps(self, problem)
+            self.scn_groups, stacked_terms, tie_cons = \
+                scenario.detect_scenario_groups(
+                    problem, lazy, self.term_vars, self.n_dev, rank=self.rank,
+                    exchange=self._all_gather_object)
+            # Term sharding for the REMAINING terms: one bucket per rank
+            # (greedy LPT on the H nnz cost model).
+            rem = [i for i in range(len(problem.terms))
+                   if i not in stacked_terms]
+            self.buckets = self._partition_terms(self.n_dev, rem) if rem \
+                else None
+            own = set(self.buckets[self.rank]) if self.buckets else set()
+            for i in range(len(problem.terms)):
+                if i in own:
+                    lazy[i]
+                else:
+                    # another rank's term, or a stacked one whose data now
+                    # lives in its group's stacks
+                    self.term_ops[i] = None
+        self._scn_keys = {g.key for g in self.scn_groups}
+        self._tie_cons = tie_cons
+        self._folded_pvs = {pv for g in self.scn_groups for pv in g.pv_names}
+        # Joint fold weight per shared variable: several scenario groups may
+        # tie to the SAME shared var; the exact joint projection substitutes
+        # all their copies at once, m = (w_z + sum_g tot_g)/(1 + sum_g S_g),
+        # metric sqrt(1 + sum_g S_g)
+        self._shared_S: Dict[str, int] = {}
+        for g in self.scn_groups:
+            self._shared_S[g.shared] = self._shared_S.get(g.shared, 0) + g.S
+        self._proj_w = {sv: float(np.sqrt(S + 1.0))
+                        for sv, S in self._shared_S.items()}
+
         self._build_constr_prox(problem)
 
-        self.all_dims: Dict[str, int] = dict(self.z_dims)
-        for tvars in self.term_vars:
+        # State key sets: all_dims has the LOCAL dims (what this rank's
+        # state tensors hold: S/world rows of a stacked key), state_dims the
+        # GLOBAL ones.  Identical without scenario stacking.
+        self.all_dims: Dict[str, int] = {}
+        self.state_dims: Dict[str, int] = {}
+        for k, n in self.z_dims.items():
+            if k not in self._folded_pvs:
+                self.all_dims[k] = self.state_dims[k] = n
+        for ti, tvars in enumerate(self.term_vars):
+            if ti in stacked_terms:
+                continue
             for v in tvars:
-                self.all_dims[v] = problem.var_dims[v]
+                self.all_dims[v] = self.state_dims[v] = problem.var_dims[v]
+        for g in self.scn_groups:
+            self.all_dims[g.key] = len(g.rows) * g.d
+            self.state_dims[g.key] = g.S * g.d
+        # flat layout of the bucket path's all-reduce
+        self._rep_keys = sorted(k for k in self.all_dims
+                                if k not in self._scn_keys)
+        self._rep_offs, acc = {}, 0
+        for k in self._rep_keys:
+            self._rep_offs[k] = acc
+            acc += self.all_dims[k]
 
-        # warm-startable kernel state (TV-1D PDAS duals), one per term
+        # warm-startable kernel state (TV-1D PDAS duals), one per term this
+        # process applies
         ks = [op.kernel_state_init() if hasattr(op, "kernel_state_init")
               else None for op in self.term_ops]
         self._kstate0 = tuple(ks) if any(k is not None for k in ks) else None
 
         self._t_init = time.time() - t0
+
+    # -- the process group ------------------------------------------------------
+    def _all_reduce(self, t, op=None):
+        self.n_collectives += 1
+        dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=self.mesh)
+        return t
+
+    def _all_gather_object(self, obj) -> list:
+        self.n_collectives += 1
+        out = [None] * self.n_dev
+        dist.all_gather_object(out, obj, group=self.mesh)
+        return out
+
+    def _agree_stop(self, stop: bool) -> bool:
+        """An external stop is rank-local: with a group, every rank stops
+        when any rank's callback says so (one all-reduce per epoch under
+        ``drive="host"``)."""
+        if self.mesh is None:
+            return stop
+        flag = torch.tensor(float(stop), dtype=config.default_dtype(),
+                            device=config.device())
+        return bool(self._all_reduce(flag, dist.ReduceOp.MAX).item())
+
+    def attach_checkpointer(self, ckpt):
+        if self.mesh is not None or self.params.mesh is not None:
+            raise NotImplementedError(
+                "a checkpointer with a process group (mesh) is not supported")
+        super().attach_checkpointer(ckpt)
+
+    def _partition_terms(self, n_buckets: int,
+                         indices: Optional[List[int]] = None) -> List[List[int]]:
+        idx = range(len(self.problem.terms)) if indices is None else indices
+        costs = []
+        for i in idx:
+            term = self.problem.terms[i]
+            nnz = sum(op.nnz() for op in term.H.A.blocks.values())
+            # KKT-based operators pay an extra dense solve over their vars
+            tn = sum(self.problem.var_dims[v] for v in self.term_vars[i])
+            if term.spec.kind in (ProxKind.ZERO, ProxKind.AFFINE,
+                                  ProxKind.CONSTANT, ProxKind.SUM_SQUARE):
+                nnz += tn * tn
+            costs.append((nnz, i))
+        buckets: List[List[int]] = [[] for _ in range(n_buckets)]
+        loads = [0] * n_buckets
+        for cost, i in sorted(costs, reverse=True):
+            j = int(np.argmin(loads))
+            buckets[j].append(i)
+            loads[j] += cost
+        return buckets
 
     def _build_term_op(self, problem: ProxProblem, term, tvars):
         if self.adaptive:
@@ -269,15 +465,18 @@ class ProxADMMTwoBlockSolver(SolverBase):
     def _build_term_ops(self, problem: ProxProblem):
         """Per-term prox operators with A = sqrt(rho)*I over the term's
         variables (rho-parameterized in the unit metric when adaptive)."""
-        self.term_vars: List[List[str]] = [_term_vars(t) for t in problem.terms]
         self.term_ops = [self._build_term_op(problem, t, tv)
                          for t, tv in zip(problem.terms, self.term_vars)]
 
     def _build_constr_prox(self, problem: ProxProblem):
-        """Constraint projection operator over the constraint variables."""
+        """Constraint projection operator over the constraint variables,
+        EXCLUDING the folded tie constraints of scenario groups.  Folded
+        shared variables carry the metric weight sqrt(1 + sum_g S_g): the
+        exact reduction of the joint projection (``scenario`` docstring)."""
         Hc = BlockMatrix()
         gc = BlockVector()
-        self.z_dims: Dict[str, int] = {}
+        self.z_dims: Dict[str, int] = {}   # ALL constraint vars (eps scaling)
+        red_z_dims: Dict[str, int] = {}
         for i, con in enumerate(problem.constraints):
             if con.cone != Cone.ZERO:
                 raise ValueError(f"two-block ADMM supports ZERO cones only, "
@@ -285,13 +484,18 @@ class ProxADMMTwoBlockSolver(SolverBase):
             Ai, bi = _rekey_constraint(i, con.op)
             for (r, c), op in Ai.blocks.items():
                 self.z_dims[c] = op.n
+            if i in self._tie_cons:
+                continue
+            for (r, c), op in Ai.blocks.items():
                 Hc.insert(r, c, op)
+                red_z_dims[c] = op.n
             for r, vec in bi.items():
                 gc[r] = vec
-        Ac = BlockMatrix({(k, k): linop.scalar(self.sqrt_rho, n)
-                          for k, n in self.z_dims.items()})
+        Ac = BlockMatrix({(k, k): linop.scalar(
+            self.sqrt_rho * self._proj_w.get(k, 1.0), n)
+            for k, n in red_z_dims.items()})
         self.constr_prox = None
-        if self.z_dims:
+        if red_z_dims:
             self.constr_prox = create_prox_operator(
                 ProxFunctionSpec(kind=ProxKind.ZERO),
                 AffineOperator(Hc, gc), AffineOperator(Ac, BlockVector()))
@@ -301,12 +505,63 @@ class ProxADMMTwoBlockSolver(SolverBase):
     def _rebuild_operators(self, problem: ProxProblem, old: ProxProblem):
         """New data, same structure: rebuild each term operator whose data
         changed, and the constraint projection when the constraint data
-        changed (the JAX package keeps its projection there)."""
-        for i, (t, t_old) in enumerate(zip(problem.terms, old.terms)):
-            if not (_same_spec(t.spec, t_old.spec) and _same_affine(t.H, t_old.H)):
-                self.term_ops[i] = self._build_term_op(problem, t, self.term_vars[i])
+        changed (the JAX package keeps its projection there).  With a group
+        a rank rebuilds the changed terms of its own bucket and restacks
+        its own changed rows of the scenario stacks, nothing else; the
+        groups and the state layout stay.  ``last_rebuilt`` lists the terms
+        this rank rebuilt."""
+        changed = {i for i, (t, t_old) in enumerate(zip(problem.terms, old.terms))
+                   if not (_same_spec(t.spec, t_old.spec)
+                           and _same_affine(t.H, t_old.H))}
+        self.last_rebuilt = []
+        for i in sorted(changed):
+            if self.term_ops[i] is not None:
+                self.term_ops[i] = self._build_term_op(problem, problem.terms[i],
+                                                       self.term_vars[i])
+                self.last_rebuilt.append(i)
+        for g in self.scn_groups:
+            mine = [g.term_idx[r] for r in g.rows if g.term_idx[r] in changed]
+            if not mine:
+                continue
+            # the operators of the changed rows live only until their data
+            # is in the stacks again
+            lazy = _TermOps(self, problem)
+            scenario.refresh_group(g, lazy, changed)
+            for i in mine:
+                self.term_ops[i] = None
+            self.last_rebuilt += mine
         if not _same_constraints(problem, old):
             self._build_constr_prox(problem)
+
+    def objective_value(self, x: BlockVector):
+        """The objective at ``x``.  With a group each rank evaluates the
+        terms it owns (its bucket and its rows of the stacks), so no rank
+        uploads another's term data, and the sum is all-reduced."""
+        if self.mesh is None:
+            return problem_objective(self.problem, x)
+        total = torch.zeros((), dtype=config.default_dtype(),
+                            device=config.device())
+        for i in self.local_terms():
+            total = total + term_objective(self.problem.terms[i], x)
+        return self._all_reduce(total)
+
+    def local_terms(self) -> List[int]:
+        """The terms this process applies: all without a group, else its
+        bucket and its rows of the scenario stacks."""
+        if self.mesh is None:
+            return list(range(len(self.problem.terms)))
+        own = list(self.buckets[self.rank]) if self.buckets else []
+        for g in self.scn_groups:
+            own += [g.term_idx[r] for r in g.rows]
+        return sorted(own)
+
+    def operator_bytes(self) -> Dict[str, int]:
+        """Bytes this process keeps on the device, by what holds them: the
+        term operators it built, the scenario stacks, the constraint
+        projection (read after a solve: operators upload at first apply)."""
+        return {"term_ops": device_bytes(self.term_ops),
+                "stacks": sum(g.stacked_bytes() for g in self.scn_groups),
+                "constr_prox": device_bytes(self.constr_prox)}
 
     # -- loop state -----------------------------------------------------------
     def _unpack_state(self, state):
@@ -332,39 +587,116 @@ class ProxADMMTwoBlockSolver(SolverBase):
         # sqrt(rho) = 1 scales exactly, so the multiply is skipped
         return v if self.sqrt_rho == 1.0 else self.sqrt_rho * v
 
-    def _iter_body(self, state):
-        z, u, rho, ks = self._unpack_state(state)
-        zu = z - u
-        v = zu if self.adaptive else self._scaled(zu)
-        x = _zeros(self.all_dims)
-        ks_out = []
-        for i, op in enumerate(self.term_ops):
+    def _apply_terms(self, terms, v, rho, ks, dims):
+        """Sum of the prox applies of ``terms`` at ``v`` over ``dims``, and
+        the new kernel states (entries of other terms pass through)."""
+        x = _zeros(dims)
+        ks_out = list(ks) if ks is not None else None
+        for i in terms:
+            op = self.term_ops[i]
             k_i = ks[i] if ks is not None else None
             if k_i is not None:
                 # warm-startable kernel: thread its state (TV PDAS dual)
-                xi, k_i = op.apply_stateful(v, k_i, rho=rho)
+                xi, ks_out[i] = op.apply_stateful(v, k_i, rho=rho)
             elif self.adaptive:
                 xi = op.apply_rho(v, rho)
             else:
                 xi = op.apply(v)
             x = x + xi
-            ks_out.append(k_i)
+        return x, (tuple(ks_out) if ks is not None else None)
+
+    def _sharded_x_update(self, z, u, v, rho, ks):
+        """x-update with a group, and the fold's sums, in ONE all-reduce.
+
+        Bucket path: this rank applies the terms of its own bucket (none,
+        for an empty bucket: zeros) and packs the result flat over the
+        sorted non-stacked keys; the all-reduce combines the per-variable
+        contributions, so every rank gets the whole x.  Stacked scenarios:
+        one batched apply over this rank's rows, each with its rows of the
+        stacked data.  The z-update's fold needs the sum over ALL scenarios
+        of ``x_hat + u``, whose local part depends on this rank's rows
+        alone, so it rides in the same all-reduce.  Returns ``(x, new
+        kernel states, the groups' all-reduced sums)``."""
+        x, new_ks = _zeros(self.all_dims), ks
+        parts = []
+        rep_dims = {k: self.all_dims[k] for k in self._rep_keys}
+        if self.buckets is not None:
+            xb, new_ks = self._apply_terms(self.buckets[self.rank], v, rho, ks,
+                                           rep_dims)
+            parts.append(xb.pack(self._rep_keys)[0])
+        alpha = self.params.over_relaxation
+        zu = z - u
+        for g in self.scn_groups:
+            rows = len(g.rows)
+            xg = g.local_apply(zu[g.key].reshape(rows, g.d), rho,
+                               self.adaptive, self.sqrt_rho).reshape(-1)
+            x[g.key] = xg
+            xh = xg if alpha == 1.0 else alpha * xg + (1.0 - alpha) * z[g.key]
+            parts.append((xh + u[g.key]).reshape(rows, g.d).sum(dim=0))
+        flat = self._all_reduce(torch.cat(parts))
+        n_rep = 0
+        if self.buckets is not None:
+            n_rep = sum(rep_dims.values())
+            for k, val in BlockVector.unpack(flat, self._rep_offs, rep_dims).items():
+                x[k] = val
+        return x, new_ks, flat[n_rep:]
+
+    def _iter_body(self, state):
+        z, u, rho, ks = self._unpack_state(state)
+        zu = z - u
+        v = zu if self.adaptive else self._scaled(zu)
+        sums = None
+        if self.mesh is None:
+            x, new_ks = self._apply_terms(range(len(self.term_ops)), v, rho,
+                                          ks, self.all_dims)
+        else:
+            x, new_ks, sums = self._sharded_x_update(z, u, v, rho, ks)
         alpha = self.params.over_relaxation
         x_hat = x if alpha == 1.0 else alpha * x + (1.0 - alpha) * z
         xu = x_hat + u
-        z_new = self._z_update(xu)
+        z_new = self._z_update(xu, sums)
         u_new = u + x_hat - z_new
-        new_ks = tuple(ks_out) if ks is not None else None
         return self._pack_state(z_new, u_new, rho, new_ks), x
 
-    def _z_update(self, xu):
-        """Projection onto the constraint set."""
-        if self.constr_prox is None:
-            return xu
-        zp = self.constr_prox.apply(self._scaled(xu))
-        # variables untouched by constraints pass through unprojected
-        return BlockVector({k: (zp[k] if k in zp else xu[k])
-                            for k in self.all_dims})
+    def _z_update(self, xu, sums=None):
+        """Projection onto the constraint set.  With scenario groups, the
+        identity ties fold in closed form: the shared variable's projection
+        input is the all-reduced average of its scenarios (+ itself), with
+        metric weight sqrt(1 + sum_g S_g) in the reduced KKT (``scenario``
+        docstring); the stacked copies then broadcast back from the
+        projected shared variable.  ``sums``: the groups' sums over all
+        scenarios of ``xu``, ``d`` entries each, already all-reduced."""
+        if not self.scn_groups:
+            if self.constr_prox is None:
+                return xu
+            zp = self.constr_prox.apply(self._scaled(xu))
+            # variables untouched by constraints pass through unprojected
+            return BlockVector({k: (zp[k] if k in zp else xu[k])
+                                for k in self.all_dims})
+        red = BlockVector({k: v for k, v in xu.items()
+                           if k not in self._scn_keys})
+        # joint fold across ALL groups tied to each shared var:
+        # m = (w_z + sum_g tot_g) / (1 + sum_g S_g)
+        tots: Dict[str, torch.Tensor] = {}
+        off = 0
+        for g in self.scn_groups:
+            tot = sums[off:off + g.d]
+            off += g.d
+            tots[g.shared] = (tot if g.shared not in tots
+                              else tots[g.shared] + tot)
+        for sv, tot in tots.items():
+            red[sv] = (red[sv] + tot) / (self._shared_S[sv] + 1.0)
+        if self.constr_prox is not None:
+            scaled = BlockVector({
+                k: (self.sqrt_rho * self._proj_w.get(k, 1.0)) * v
+                for k, v in red.items()})
+            zp = self.constr_prox.apply(scaled)
+            red = BlockVector({k: (zp[k] if k in zp else red[k])
+                               for k in red.keys()})
+        z_new = BlockVector({k: red[k] for k in self._rep_keys})
+        for g in self.scn_groups:
+            z_new[g.key] = red[g.shared].expand(len(g.rows), g.d).reshape(-1)
+        return z_new
 
     @staticmethod
     def _norm(bv: BlockVector):
@@ -375,17 +707,37 @@ class ProxADMMTwoBlockSolver(SolverBase):
             total = torch.zeros((), dtype=config.default_dtype(), device=config.device())
         return torch.sqrt(total)
 
+    def _norms(self, bvs):
+        """The norms of several block vectors.  With a group they come out
+        of ONE all-reduce: a rank contributes the squares of its rows of
+        the stacked keys in full and those of the replicated keys divided
+        by the world size (they count once), so every rank reads bitwise
+        the same totals and takes the same decisions from them."""
+        if self.mesh is None:
+            return [self._norm(bv) for bv in bvs]
+        zero = torch.zeros((), dtype=config.default_dtype(), device=config.device())
+        parts = []
+        for bv in bvs:
+            rep, loc = zero, zero
+            for k, v in bv.items():
+                if k in self._scn_keys:
+                    loc = loc + torch.sum(v * v)
+                else:
+                    rep = rep + torch.sum(v * v)
+            parts.append(loc + rep / self.n_dev)
+        return list(torch.sqrt(self._all_reduce(torch.stack(parts))))
+
     def _residuals(self, state, x, z_prev):
         z, u, rho, _ks = self._unpack_state(state)
         if rho is None:
             rho = self.params.rho
         abs_tol, rel_tol = self.params.abs_tol, self.params.rel_tol
         sqrt_n = float(np.sqrt(max(self.n, 1)))
-        r_norm = self._norm(x - z)
-        s_norm = rho * self._norm(z - z_prev)
-        eps_p = abs_tol * sqrt_n + rel_tol * torch.maximum(self._norm(x),
-                                                           self._norm(z))
-        eps_d = abs_tol * sqrt_n + rel_tol * rho * self._norm(u)
+        n_r, n_s, n_x, n_z, n_u = self._norms([x - z, z - z_prev, x, z, u])
+        r_norm = n_r
+        s_norm = rho * n_s
+        eps_p = abs_tol * sqrt_n + rel_tol * torch.maximum(n_x, n_z)
+        eps_d = abs_tol * sqrt_n + rel_tol * rho * n_u
         return torch.stack([r_norm, s_norm, eps_p, eps_d])
 
     def _epoch(self, state):
@@ -425,7 +777,7 @@ class ProxADMMTwoBlockSolver(SolverBase):
         z = old_state[0]
         if set(z.keys()) != set(self.all_dims) or any(
                 tuple(z[k].shape) != (n,) for k, n in self.all_dims.items()):
-            return None  # state layout changed
+            return None  # state layout changed (e.g. scenario stacking)
         u = old_state[1]
         rho = old_state[2] if self.adaptive else None
         if not self.adaptive:
@@ -436,19 +788,41 @@ class ProxADMMTwoBlockSolver(SolverBase):
         # duals live in changed)
         return self._pack_state(z, u, rho, self._kstate0)
 
+    def _unstack_x(self, x: BlockVector) -> BlockVector:
+        """Map stacked scenario keys back onto the original per-term
+        variable names: the ranks' rows are all-gathered, so every rank
+        returns the same full vector."""
+        if not self.scn_groups:
+            return x
+        out = BlockVector({k: v for k, v in x.items()
+                           if k not in self._scn_keys})
+        for g in self.scn_groups:
+            parts = [torch.empty_like(x[g.key]) for _ in range(self.n_dev)]
+            self.n_collectives += 1
+            dist.all_gather(parts, x[g.key].contiguous(), group=self.mesh)
+            W = torch.cat(parts).reshape(g.S, g.d)
+            for row, pv in enumerate(g.pv_names):
+                out[pv] = W[row]
+        return out
+
     def solve(self) -> BlockVector:
         t0 = time.time()
         # iteratively certified inner kernels (TV-1D) certify one decade
         # tighter than the outer rel_tol, as in the JAX package
         config.set_prox_inner_tol(config.prox_inner_tol_for(self.params.rel_tol))
         if (self.adaptive != self.params.adaptive_rho
+                or self.mesh is not self.params.mesh
                 or (not self.adaptive and self.params.rho != self._init_rho)):
-            # mode or fixed rho changed on a cached solver: the state layout,
-            # the prox parameterization and the sqrt(rho) metric differ
+            # mode, group or fixed rho changed on a cached solver: the state
+            # layout, the prox parameterization and the sqrt(rho) metric
+            # differ
             self._rebuild_full()
+        if self.mesh is not None and self._checkpointer is not None:
+            raise NotImplementedError(
+                "a checkpointer with a process group (mesh) is not supported")
         state, x, iters, r, conv = self._run(self._init_state())
         self._finish(state, iters, r, conv, self._t_init, time.time() - t0)
-        return x
+        return self._unstack_x(x)
 
 
 class ProxADMMSolver(SolverBase):
@@ -463,12 +837,19 @@ class ProxADMMSolver(SolverBase):
         if params.adaptive_rho:
             raise ValueError("adaptive_rho is only supported by the "
                              "two-block solver (PROX_ADMM_TWO_BLOCK)")
+        self._reject_mesh(params)
         t0 = time.time()
         self.sqrt_rho = float(np.sqrt(params.rho))
         self._init_rho = params.rho
         self._build_constraints(problem)
         self._build_term_ops(problem)
         self._t_init = time.time() - t0
+
+    @staticmethod
+    def _reject_mesh(params: SolverParams):
+        if params.mesh is not None:
+            raise ValueError("term sharding (mesh) is only supported by the "
+                             "two-block solver (PROX_ADMM_TWO_BLOCK)")
 
     def _build_constraints(self, problem: ProxProblem):
         """Global constraint operator, sqrt(rho)-scaled."""
@@ -600,6 +981,8 @@ class ProxADMMSolver(SolverBase):
     def solve(self) -> BlockVector:
         t0 = time.time()
         config.set_prox_inner_tol(config.prox_inner_tol_for(self.params.rel_tol))
+        # new params on a kept solver: a group is refused as at construction
+        self._reject_mesh(self.params)
         if self.params.rho != self._init_rho:
             # rho is baked into the scaled constraint system and the cached
             # KKT factorizations
@@ -615,10 +998,13 @@ class ProxADMMSolver(SolverBase):
 
 def create_solver(problem: ProxProblem, params: SolverParams):
     if params.solver == SolverKind.PROX_ADMM:
-        if params.adaptive_rho:
-            # The Gauss-Seidel sweep's cached factorizations bake in rho:
-            # solve the same prox-affine problem by the mathematically
-            # equivalent two-block consensus splitting, whose proxes are
+        if params.mesh is not None or params.adaptive_rho:
+            # The Gauss-Seidel sweep is sequential (each term's prox
+            # consumes the previous term's update), so it cannot shard over
+            # terms, and its cached factorizations bake in rho: solve the
+            # same prox-affine problem by the mathematically equivalent
+            # two-block consensus splitting, whose x-updates are independent
+            # (term buckets over the group's ranks) and whose proxes are
             # rho-parameterized.
             return ProxADMMTwoBlockSolver(problem, params)
         return ProxADMMSolver(problem, params)

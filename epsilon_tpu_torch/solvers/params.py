@@ -49,7 +49,9 @@ class SolverParams:
     verbose: bool = False
     # 'device' or 'host': one loop in the port, see the class docstring
     drive: str = "device"
-    # term sharding over several devices; None = one device
+    # term sharding and scenario stacking over the ranks of a
+    # ``torch.distributed`` process group (two-block solver; every rank
+    # solves the same problem and calls solve() together); None = one device
     mesh: object = None
 
     def __post_init__(self):
@@ -57,6 +59,3 @@ class SolverParams:
             self.solver = SolverKind(self.solver)
         if self.drive not in ("device", "host"):
             raise ValueError(f"drive must be 'device' or 'host', got {self.drive!r}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "term sharding over a mesh is not yet ported")

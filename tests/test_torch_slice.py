@@ -188,17 +188,6 @@ def test_single_prox_fast_path_matches_jax():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()),
-                                    dict(mesh=object(), adaptive_rho=True),
-                                    dict(mesh=object(), solver="prox_admm")])
-def test_unported_options_raise(kwargs):
-    """A mesh (term sharding) is the one solver option that still raises."""
-    A, b, lam = workload(20, 10)
-    _, pt = lasso(et, A, b, lam)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pt.solve(**kwargs)
-
-
 def test_port_imports_no_jax():
     root = Path(et.__file__).resolve().parent
     for f in root.rglob("*.py"):
