@@ -42,7 +42,9 @@ Phases, in order; any failure exits non-zero:
    K1 runs every iteration): a solve to rel_tol 1e-5 checked in f64 numpy
    on the stacked problem and against a numpy f64 consensus iteration, the
    set-up timed in pieces, bench.py's steady re-solves of 500 iterations,
-   and the K1 launch count.
+   and the K1 launch count; then the port's ``parallel.entry()`` (one
+   epoch of a 4 x 32 x 16 consensus lasso as a pure function of data and
+   state) once on the card against the consensus solver's own epoch.
 7. The problem library: every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes (full width), except the fixed ``LIBRARY_LEFT_OUT``
    list, through ``problems.benchmark`` (``Problem.solve``) in f32 at the
@@ -81,13 +83,33 @@ Phases, in order; any failure exits non-zero:
    (b)'s problem.  (d) The sharded consensus solve of phase 6's data, K1 on
    every rank's 50 blocks (the streaming path, at the shape phase 5 holds
    to the plain version), for 500 iterations against phase 6's z.
+   (e) Wide scenarios: 64 blocks of 200 x 2000 (fewer rows than features;
+   102.4 MB of A, a quarter a rank) with NORM_1 on z at lambda 0.1 through
+   ``Problem.solve(mesh=group)``: every term keeps its factored KKT chain
+   and the 64 stack as one group, 16 rows a rank; against the same solve in
+   this process (same iteration count, x within 1e-4 relative).  (f) One
+   consensus family of 8 per operator kind stacked since (TV-1D with its
+   warm dual at d = 10^4, the epigraph, matrix, per-slice and
+   two-argument modes, sparse and Kronecker blocks) with a sum of squares
+   on z, each against its solve in this process the same way (the matrix
+   and per-slice families to convergence; the others, the costliest a
+   call, stop short of it at 10-60 iterations; the nuclear-norm family's x
+   within 1e-3, the bound of its f32 solution and the card's SVDs).
+   (g) (e) stopped after three epochs under ``drive="host"`` with a
+   checkpointer, resumed by a new solver on the
+   four ranks and then on two ranks (a second launch): both reach (e)'s
+   iteration total and x within 1e-6 relative.
 
 Depth cut when phase 9 was added, no kernel or check with it: the timed warm
 re-solves of phases 3 and 4 run 500 and 100 iterations (2000 and 200
-before).  On an H100 the script takes about 410-435 s, of which phase 7
-takes about 210 s (its rows' host-side build and set-up at reference size)
-and phase 9 about 100 s; phases 3, 4 and 6 together hold under 2 s of
-steady iterations, so no cut there brings the whole under 300 s.
+before); when (e)-(g) were added, phase 9 (a)'s warm re-solves run 50
+iterations (100 before).
+On an H100 the script takes about 420-520 s, of which phase 7 takes about
+170-240 s (its rows' host-side build and set-up at reference size) and
+phase 9 about 130-150 s (the one-process references of (e) and (f) about
+35-45, the four ranks about 75, the two that resume (g) about 15); phases 3, 4
+and 6 together hold under 2 s of steady iterations, so no cut there
+brings the whole under 300 s.
 
 Each record of the ``kernels`` line carries, beside the measured times,
 ``bound_ms``: the least time the card could take, the larger of the bytes
@@ -200,9 +222,21 @@ RESUME_ATOL = 1e-5
 # Phase 9: ranks, the hard limit on the workers' run, and (b)'s x against
 # the one-process solve, relative to max |x|.
 MESH_WORLD = 4
-# about three times what the ranks took on an H100 (94-98 s)
-MESH_TIMEOUT_S = 300
+# about twice what the ranks took on an H100 with parts (e)-(g)
+MESH_TIMEOUT_S = 400
 MESH_X_RTOL = 1e-4
+# Phase 9 (f): the nuclear-norm family against its solve in this process.
+# Its f32 solution is good to about 1.6e-5 (f32 against f64 on the CPU, the
+# same problem) and the card's SVDs and batched products round in another
+# order for a stack than for one matrix: 1.43e-4 apart at convergence on an
+# H100 (the other families 5e-7 to 3e-5).  Held to 1e-3.
+MESH_F_SPECTRAL_RTOL = 1e-3
+# Phase 9 (g): a resumed solve against the uninterrupted one, relative to
+# max |x| (f32; on the same four ranks the two are the same operations).
+MESH_RESUME_RTOL = 1e-6
+# Phase 6: entry()'s epoch against the consensus solver's own (the same
+# operations on the same inputs).
+ENTRY_ATOL = 1e-6
 # K1's shape on one rank of phase 9 (d): a quarter of the consensus row's
 # 200 blocks.  Phase 5 holds the kernel to its plain version there.
 K1_RANK_SHAPE = (200 // MESH_WORLD, 200)
@@ -677,6 +711,23 @@ def phase_consensus(lu):
         raise AssertionError(f"consensus: local_update took {lu.last_plan}, not the ring path")
     log(f"[6] local_update launches in the main path: {launches} ({iters_run} iterations), "
         f"path {lu.last_plan.path}")
+
+    # (d) entry(): one epoch as a pure function of (data, state)
+    from epsilon_tpu_torch.parallel import dryrun, entry
+    fn, (data, state) = entry()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stepped = fn(data, state)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    own = consensus_lasso_solver(*dryrun._consensus_data(4, 32, 16), lam=0.1, rho=1.0)
+    epoch, _, _ = own._epoch(own.init_state())
+    err = max(float((a - b_).abs().max()) for a, b_ in zip(stepped[:3], epoch[:3]))
+    log(f"[6] entry(): one epoch of {own.epoch_iterations} iterations on "
+        f"{tuple(data['Atb'].shape)} blocks in {step_ms:.3f} ms (first call); max|step - the "
+        f"solver's own epoch| over x, u, z {err:.2e} (tol {ENTRY_ATOL:g})")
+    if not (err <= ENTRY_ATOL and all(bool(torch.all(torch.isfinite(t))) for t in stepped[:3])):
+        raise AssertionError(f"entry(): the step differs from the solver's epoch by {err}")
     return launches, (A, b, lam), z, z_steady
 
 
@@ -973,16 +1024,18 @@ def phase_surface(ep, fixed_iters, x_ref):
             f"{dt_cpu:.3f} s on the CPU, compile included")
 
 
-def run_mesh_workers(mw, out_dir, world=MESH_WORLD, timeout=MESH_TIMEOUT_S):
-    """Run ``world`` ranks of ``tools/mesh_worker.py`` under one hard limit
-    (a rank that exits non-zero, or is killed at the limit, raises) and
-    return the ranks' ``(json, arrays)`` results."""
-    mw.spawn_ranks("run", world, timeout, out_dir)
+def run_mesh_workers(mw, out_dir, world=MESH_WORLD, timeout=MESH_TIMEOUT_S, mode="run"):
+    """Run ``world`` ranks of ``tools/mesh_worker.py`` (``mode`` "run", or
+    "resume" for (g) on another number of ranks) under one hard limit (a
+    rank that exits non-zero, or is killed at the limit, raises) and return
+    the ranks' ``(json, arrays)`` results."""
+    mw.spawn_ranks(mode, world, timeout, out_dir)
+    stem = "rank" if mode == "run" else "resume"
     out = []
     for rank in range(world):
-        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+        with open(os.path.join(out_dir, f"{stem}{rank}.json")) as f:
             meta = json.load(f)
-        with np.load(os.path.join(out_dir, f"rank{rank}.npz")) as f:
+        with np.load(os.path.join(out_dir, f"{stem}{rank}.npz")) as f:
             out.append((meta, {k: f[k] for k in f.files}))
     return out
 
@@ -1005,6 +1058,122 @@ def _checked_lasso_x(tag, meta, xv, A, b, lam, f_ref):
     return kkt, gap
 
 
+def mesh_kind_references(mw):
+    """(e)'s and (f)'s solves in this process, on the card, before the
+    ranks start: ``(e, {family: f})``, each with its iterations, x and ms
+    per iteration."""
+    import epsilon_tpu_torch as ep
+    from epsilon_tpu_torch.solvers import ProxADMMTwoBlockSolver, SolverParams
+    A, b = mw.consensus_blocks(*mw.FULL["wide"])
+    t0 = time.perf_counter()
+    prob, z, xs = mw.consensus_problem(ep, A, b, mw.LAM, first_id=mw.WIDE_IDS)
+    prob.solve(warm_start=True, **mw.WIDE)
+    torch.cuda.synchronize()
+    st = prob.solver_status
+    # no warm re-solve: the 64 ties' projection makes an iteration in one
+    # process slow, so its ms per iteration is the first solve's
+    e = dict(iterations=st.num_iterations, status=prob.status, x=mw._values(z, xs),
+             wall_s=time.perf_counter() - t0, setup_s=st.timing.init_usec / 1e6,
+             solve_s=st.timing.solve_usec / 1e6,
+             ms_per_iter=st.timing.solve_usec / 1e3 / st.num_iterations)
+    del prob, z, xs
+    f = {}
+    for family in mw.FULL["kinds"]:
+        solver = ProxADMMTwoBlockSolver(mw.kind_problem(family, mw.FULL), SolverParams(
+            max_iterations=mw.FULL["kind_iters"][family], **mw.KINDS))
+        x = solver.solve()
+        torch.cuda.synchronize()
+        f[family] = dict(iterations=solver.status.num_iterations, x=mw.flat_x(x),
+                         ms_per_iter=(solver.status.timing.solve_usec / 1e3
+                                      / solver.status.num_iterations))
+    torch.cuda.empty_cache()
+    return e, f
+
+
+def _rel_err(x, ref):
+    return float(np.abs(x - ref).max() / np.abs(ref).max())
+
+
+def check_mesh_kinds(mw, ranks, resumed, e_ref, f_refs):
+    """Phase 9 (e)-(g) against the references; returns the failed parts."""
+    failed = []
+    metas = [m for m, _ in ranks]
+    world = len(ranks)
+    # (e) the wide family: the chain kept, one group, the one-process solve
+    S, m, n = mw.FULL["wide"]
+    e0 = metas[0]["e"]
+    _same_on_all_ranks(ranks, "e")
+    err = _rel_err(ranks[0][1]["e_x"], e_ref["x"])
+    # per row: L (m x n), the Schur pivot's inverse (m x m) and the offset
+    # (m), in the solver dtype; LU pivots beside them where the solve mode
+    # is triangular (the CPU's)
+    from epsilon_tpu_torch import config
+    item = torch.finfo(config.default_dtype()).bits // 8
+    want_bytes = (S // world) * ((m * n + m * m + m) * item
+                                 + (0 if config.use_explicit_inverse() else m * 4))
+    stacked = [m_["e"]["bytes"]["stacks"] for m_ in metas]
+    med, lo, hi = e0["steady"]["ms_per_iter"]
+    log(f"[9e] wide scenarios, {S}x{m}x{n} through {e0['route']}: signature {e0['signature']}, "
+        f"chain {e0['chain']}; one group of {e0['groups'][0]['S']}, rows per rank "
+        f"{[m_['e']['groups'][0]['rows'] for m_ in metas]}, {e0['bucketed_terms']} bucketed term(s); "
+        f"{e0['status']} in {e0['iterations']} iterations (one process: {e_ref['status']} in "
+        f"{e_ref['iterations']}); max|x - x_one|/max|x_one| {err:.2e} (tol {MESH_X_RTOL:g}); "
+        f"wall {e0['wall_s']:.2f} s (set-up {e0['setup_s']:.2f} s, first solve "
+        f"{e0['solve_s']:.2f} s; one process {e_ref['wall_s']:.2f} s, set-up "
+        f"{e_ref['setup_s']:.2f} s); warm re-solves of {mw.FULL['steady_iters']['e']} "
+        f"iterations: {med:.4f} ms/iter (min {lo:.4f}, max {hi:.4f}; one process, its first solve: "
+        f"{e_ref['ms_per_iter']:.4f}), {e0['steady']['collectives_per_iter']:.2f} collectives "
+        f"and {e0['steady']['device_ops_per_iter']} device operations (rank 0) per iteration; "
+        f"stacked bytes per rank {stacked} (expected {want_bytes}); term-operator bytes "
+        f"{[m_['e']['bytes']['term_ops'] for m_ in metas]}")
+    if not (e0["status"] == "optimal" and e0["signature"] == "kkt_chain"
+            and [m_["e"]["groups"][0]["rows"] for m_ in metas]
+            == [[r * S // world, (r + 1) * S // world] for r in range(world)]
+            and e0["iterations"] == e_ref["iterations"] and err <= MESH_X_RTOL
+            and all(s_ == want_bytes for s_ in stacked)):
+        failed.append("9e")
+    # (f) one family per kind
+    for family, f0 in metas[0]["f"].items():
+        _same_on_all_ranks_arrays(ranks, f"f_{family}_x")
+        ref = f_refs[family]
+        err = _rel_err(ranks[0][1][f"f_{family}_x"], ref["x"])
+        tol = MESH_F_SPECTRAL_RTOL if family == "matrix" else MESH_X_RTOL
+        log(f"[9f] {family} (d = {f0['d']}, {f0['mode']}, {f0['rows']} rows a rank"
+            + (f", warm states {f0['state_rows']} rows" if f0["state_rows"] else "")
+            + f"): {f0['status']} in {f0['iterations']} iterations (one process "
+            f"{ref['iterations']}); max|x - x_one|/max|x_one| {err:.2e} (tol {tol:g}); "
+            f"{f0['ms_per_iter']:.4f} ms/iter (one process {ref['ms_per_iter']:.4f}); set-up "
+            f"{f0['setup_s']:.2f} s; stacked bytes a rank {f0['stacked_bytes']}")
+        if not (f0["iterations"] == ref["iterations"] and err <= tol):
+            failed.append(f"9f {family}")
+    # (g) the checkpoint, resumed on the same four ranks and on two
+    g0 = metas[0]["g"]
+    _same_on_all_ranks_arrays(ranks, "g_x")
+    err4 = _rel_err(ranks[0][1]["g_x"], ranks[0][1]["e_x"])
+    r_meta = [m_ for m_, _ in resumed]
+    _same_on_all_ranks_arrays(resumed, "g_x")
+    err2 = _rel_err(resumed[0][1]["g_x"], ranks[0][1]["e_x"])
+    log(f"[9g] (e) stopped after {g0['cut_iterations']} iterations with a checkpointer "
+        f"({g0['cut_s']:.2f} s; files {g0['files']}); resumed on {world} ranks: "
+        f"{g0['status']} after {g0['iterations']} iterations in all ({g0['resumed_epochs']} "
+        f"epochs resumed, {g0['resume_s']:.2f} s), max|x - x_e|/max|x_e| {err4:.2e}; on "
+        f"{len(resumed)} ranks (rows {[m_['rows'] for m_ in r_meta]}): {r_meta[0]['status']} after "
+        f"{r_meta[0]['iterations']} ({r_meta[0]['resumed_epochs']} epochs, "
+        f"{r_meta[0]['resume_s']:.2f} s), {err2:.2e} (tol {MESH_RESUME_RTOL:g}; (e): "
+        f"{e0['iterations']} iterations)")
+    if not (g0["cut_iterations"] == 10 * mw.CKPT_EPOCHS
+            and g0["iterations"] == r_meta[0]["iterations"] == e0["iterations"]
+            and err4 <= MESH_RESUME_RTOL and err2 <= MESH_RESUME_RTOL):
+        failed.append("9g")
+    return failed
+
+
+def _same_on_all_ranks_arrays(ranks, name):
+    for _, arrays in ranks[1:]:
+        if not np.array_equal(arrays[name], ranks[0][1][name]):
+            raise AssertionError(f"[9] {name}: the ranks returned different values")
+
+
 def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
     """Phase 9; returns K1's launch count on rank 0 in (d), all on the
     streaming path at ``K1_RANK_SHAPE``."""
@@ -1022,6 +1191,9 @@ def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
     one_s = time.perf_counter() - t0
     x_one = x_one["x"].cpu().numpy().astype(np.float64)
     one_bytes = ref.operator_bytes()
+    t0 = time.perf_counter()
+    e_ref, f_refs = mesh_kind_references(mw)
+    log(f"[9e] [9f] the one-process references in {time.perf_counter() - t0:.1f} s")
     log(f"[9b] one process: hetero n={n}, {n_groups} groups ({len(ref.term_ops)} terms): "
         f"{ref.status.state.value} in {ref.status.num_iterations} iterations, {one_s:.2f} s "
         f"(set-up {ref.status.timing.init_usec / 1e6:.2f} s, solve "
@@ -1044,8 +1216,13 @@ def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
         ranks = run_mesh_workers(mw, td)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = run_mesh_workers(mw, td, world=MESH_WORLD // 2, mode="resume")
+        resume_s = time.perf_counter() - t0
+    log(f"[9g] {MESH_WORLD // 2} ranks resumed (e)'s checkpoint in {resume_s:.1f} s")
     metas = [m for m, _ in ranks]
-    log(f"[9] {MESH_WORLD} ranks finished in {time.perf_counter() - t0:.1f} s; backend "
+    log(f"[9] {MESH_WORLD} ranks finished in {ranks_s:.1f} s; backend "
         f"{metas[0]['backend']}, cards {[m['card'] for m in metas]} of "
         f"{torch.cuda.device_count()}; {card}")
     if len({m["backend"] for m in metas}) != 1:
@@ -1141,8 +1318,9 @@ def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
                     and m_["d"]["k1_path"] == "stream"
                     and tuple(m_["d"]["k1_shape"]) == K1_RANK_SHAPE for m_ in metas)):
         failed.append("9d")
+    failed += check_mesh_kinds(mw, ranks, resumed, e_ref, f_refs)
     log("[9] seconds per part on rank 0: "
-        + ", ".join(f"({k}) {metas[0][f'{k}_seconds']:.1f}" for k in "abcd"))
+        + ", ".join(f"({k}) {metas[0][f'{k}_seconds']:.1f}" for k in "abcdefg"))
     if failed:
         raise AssertionError(f"[9] failed: {failed}")
     return d0["k1_launches"]

@@ -124,24 +124,12 @@ def meshed_state_from_numpy(solver, z: Dict[str, np.ndarray],
 def meshed_state_to_numpy(solver, state):
     """The inverse of :func:`meshed_state_from_numpy`: ``(z, u, rho)`` in
     the global layout as numpy (``rho`` None unless adaptive), the ranks'
-    rows of the stacked keys all-gathered.  Every rank calls it together."""
-    import torch
-    import torch.distributed as dist
-
-    stacked = {g.key for g in solver.scn_groups}
-
-    def whole(bv):
-        out = {}
-        for k, v in bv.items():
-            if k in stacked:
-                parts = [torch.empty_like(v) for _ in range(solver.n_dev)]
-                dist.all_gather(parts, v.contiguous(), group=solver.mesh)
-                v = torch.cat(parts)
-            out[k] = v.detach().cpu().numpy()
-        return out
-
-    z, u, rho, _ = solver._unpack_state(state)
-    return whole(z), whole(u), None if rho is None else float(rho)
+    rows of the stacked keys all-gathered (``solver.global_state``).  Every
+    rank calls it together."""
+    z, u, rho, _ = solver._unpack_state(solver.global_state(state))
+    return ({k: v.numpy() for k, v in z.items()},
+            {k: v.numpy() for k, v in u.items()},
+            None if rho is None else float(rho))
 
 
 def nblock_state_from_numpy(u: Dict[str, np.ndarray], ys):

@@ -63,7 +63,9 @@ class ProxOperator:
     - :meth:`stacked_fn` — ``fn(data, V, rho=None) -> X`` over those arrays
       with a leading ``(S, ...)`` axis; it keeps nothing of this operator's
       own data alive, so the operator can be dropped once its arrays are
-      stacked.
+      stacked.  Where :meth:`stacked_state_init` gives a kernel's warm
+      state for one row, the stack threads it: ``fn(data, V, rho, state)
+      -> (X, state)`` with ``state`` one row per row of the stack.
     """
 
     def apply(self, v: BlockVector) -> BlockVector:
@@ -78,6 +80,9 @@ class ProxOperator:
     def stacked_fn(self, var: str):
         raise NotImplementedError
 
+    def stacked_state_init(self, var: str):
+        return None
+
 
 def _np_sig(a) -> tuple:
     """Shape and dtype of a data array, for a signature."""
@@ -89,20 +94,119 @@ def _batched_matvec(M, V):
     return torch.bmm(M, V.unsqueeze(-1)).squeeze(-1)
 
 
-def _stack_block(op):
-    """(signature, data arrays, batched apply) of one linear block of a
-    stackable operator: a scalar (by value, no data), a diagonal or a dense
-    matrix (stacked data); None for any other structure."""
+class _Part:
+    """One linear block of a stackable operator, batched over the leading
+    axis of its stacked data: ``apply(data, V)`` and ``apply_t(data, V)``
+    (the transpose) take ``V`` of shape ``(S, k, n)`` (k vectors per row
+    of the stack) and return ``(S, k, m)``; ``data`` holds the block's own
+    stacked arrays alone.  ``sig`` names the structure (scalars by value),
+    ``arrays`` are the per-term data in a fixed order."""
+
+    def __init__(self, sig, arrays, apply, apply_t):
+        self.sig, self.arrays = sig, list(arrays)
+        self.apply, self.apply_t = apply, apply_t
+
+
+def _sparse_apply(m: int, transpose: bool):
+    """Batched sparse product from the stacked COO arrays ``(values, rows,
+    cols)``, one pattern per row of the stack (so the patterns may differ
+    from row to row): gather the inputs, scatter-add the products into
+    ``m`` outputs; the transpose swaps rows and columns."""
+    def fn(data, V):
+        vals, r, c = data
+        if transpose:
+            r, c = c, r
+        S, k = V.shape[0], V.shape[1]
+        prod = vals[:, None, :] * V.gather(2, c[:, None, :].expand(S, k, -1))
+        out = V.new_zeros((S, k, m))
+        return out.scatter_add_(2, r[:, None, :].expand(S, k, -1), prod)
+    return fn
+
+
+def _kron_apply(A: "_Part", B: "_Part", nA: int, shapes, trans: bool):
+    """``(A (x) B) vec(X)`` = vec(B X A^T) over a stack, with the children
+    batched: the k vectors and the columns of X fold into the child's k."""
+    (am, an), (bm, bn) = shapes
+    if trans:
+        (am, an), (bm, bn) = (an, am), (bn, bm)
+
+    def fn(data, V):
+        a_data, b_data = data[:nA], data[nA:]
+        ap = A.apply_t if trans else A.apply
+        bp = B.apply_t if trans else B.apply
+        S, k = V.shape[0], V.shape[1]
+        Xt = V.reshape(S, k * an, bn)                 # rows: columns of X
+        W = bp(b_data, Xt).reshape(S, k, an, bm)      # (B X)^T per vector
+        Wt = W.transpose(2, 3).reshape(S, k * bm, an)  # rows of B X
+        Y = ap(a_data, Wt).reshape(S, k, bm, am)      # B X A^T per vector
+        return Y.transpose(2, 3).reshape(S, k, am * bm)
+    return fn
+
+
+def _stack_block(op) -> Optional[_Part]:
+    """The :class:`_Part` of one linear block: a scalar (by value, no data),
+    a diagonal, a dense matrix, a sparse matrix (applied densely where the
+    port densifies it, else as a gather-scatter product with the pattern
+    stacked beside the values: the JAX package lifts a BCOO's indices as
+    data too, so patterns of equal nnz stack in both), a Kronecker product
+    (its two factors' parts), or a cached factor applied by the configured
+    solve mode (``config.FACTOR_SOLVE_MODE``); None for any other
+    structure."""
     sv = op.scalar_value()
     if sv is not None:
-        return ("scalar", float(sv)), [], lambda data, V: V if sv == 1.0 else sv * V
+        f = (lambda data, V: V) if sv == 1.0 else (lambda data, V: sv * V)
+        return _Part(("scalar", op.n, float(sv)), [], f, f)
     if isinstance(op, linop.DiagonalOp):
-        return (("diag",) + _np_sig(op.d), [op.d],
-                lambda data, V: data[0] * V)
-    if isinstance(op, linop.DenseOp):
-        return (("dense",) + _np_sig(op.A), [op.A],
-                lambda data, V: _batched_matvec(data[0], V))
+        f = lambda data, V: data[0][:, None, :] * V
+        return _Part(("diag",) + _np_sig(op.d), [op.d], f, f)
+    if isinstance(op, linop.SparseOp) and not op.densified():
+        coo = op.A.tocoo()
+        m, n = op.shape
+        rows, cols = coo.row.astype(np.int64), coo.col.astype(np.int64)
+        return _Part(("sparse", op.shape, int(coo.nnz), str(coo.data.dtype)),
+                     [coo.data, rows, cols], _sparse_apply(m, False),
+                     _sparse_apply(n, True))
+    if isinstance(op, (linop.DenseOp, linop.SparseOp)):
+        A = op.as_dense().astype(linop._dtype(), copy=False)
+        return _Part(("dense",) + _np_sig(A), [A],
+                     lambda data, V: V @ data[0].transpose(1, 2),
+                     lambda data, V: V @ data[0])
+    if isinstance(op, linop.KronOp):
+        a, b = _stack_block(op.A), _stack_block(op.B)
+        if a is None or b is None:
+            return None
+        shapes, nA = (op.A.shape, op.B.shape), len(a.arrays)
+        return _Part(("kron", a.sig, b.sig), a.arrays + b.arrays,
+                     _kron_apply(a, b, nA, shapes, False),
+                     _kron_apply(a, b, nA, shapes, True))
+    if isinstance(op, (linop.CholFactorOp, linop.LuFactorOp)):
+        return _stack_factor(op)
     return None
+
+
+def _stack_factor(op) -> _Part:
+    """A cached factor ``M^{-1}`` over a stack: the explicit inverse where
+    the solve mode says so (the sym_packed storage of one factor has no
+    batched form; the product is the same), else batched triangular
+    solves."""
+    n = op.shape[0]
+    if config.use_explicit_inverse():
+        inv = op._host_inv()
+        return _Part(("inverse",) + _np_sig(inv), [inv],
+                     lambda data, V: V @ data[0].transpose(1, 2),
+                     lambda data, V: V @ data[0])
+    if isinstance(op, linop.CholFactorOp):
+        def chol(data, V):
+            return torch.cholesky_solve(V.transpose(1, 2), data[0]).transpose(1, 2)
+        return _Part(("cholesky", n), [op.L], chol, chol)
+
+    def lu(adjoint):
+        def fn(data, V):
+            return torch.linalg.lu_solve(data[0], data[1], V.transpose(1, 2),
+                                         adjoint=adjoint).transpose(1, 2)
+        return fn
+    return _Part(("lu", n, op.transposed), [op.lu, (op.piv + 1).astype(np.int32)],
+                 lu(op.transposed), lu(not op.transposed))
 
 
 # ---------------------------------------------------------------------------
@@ -283,94 +387,197 @@ class VectorProxOperator(ProxOperator):
 
     # -- scenario stacking ---------------------------------------------------
     def _stack_parts(self, var: str):
-        """The pieces of the stacked apply, or None outside the plain vector
-        mode (one argument, no epigraph, no matrix or per-slice kernel, no
-        warm kernel state) or when B, C or D is not one scalar, diagonal or
-        dense block between ``var`` and the argument."""
+        """``(B, C, D)`` of the stacked apply: B and C as lists of
+        ``(argument index, part)``, D a list of one part or None.  None when
+        a block does not map between ``var`` and the arguments, when a block
+        does not stack (:func:`_stack_block`), or for a kernel with
+        data-dependent host control flow (TV-1D's PDAS) per slice, where
+        its rows would have to loop twice."""
         spec, entry = self.spec, self.entry
-        if (spec.epigraph or entry.matrix or entry.nargs != 1
-                or self.n_args != 1 or spec.axis is not None
-                or entry.stateful_prox is not None):
+        if entry.stateful_prox is not None and (
+                spec.axis is not None or self.n_args != (2 if spec.epigraph else 1)):
             return None
-        a0 = arg_key(0)
-        mats = [(self.B, (a0, var)), (self.C, (var, a0))]
-        if self.D is not None:
-            mats.append((self.D, (var, var)))
-        blocks = []
-        for M, key in mats:
-            if list(M.blocks) != [key]:
-                return None
-            part = _stack_block(M.blocks[key])
-            if part is None:
-                return None
-            blocks.append(part)
-        if set(self.g.keys()) - {a0}:
+        args = {arg_key(i): i for i in range(self.n_args)}
+
+        def parts(M, arg_of):
+            out = []
+            for key in sorted(M.blocks):
+                i = arg_of(key)
+                part = None if i is None else _stack_block(M.blocks[key])
+                if part is None:
+                    return None
+                out.append((i, part))
+            return out
+
+        B = parts(self.B, lambda k: args.get(k[0]) if k[1] == var else None)
+        C = parts(self.C, lambda k: args.get(k[1]) if k[0] == var else None)
+        D = None if self.D is None else parts(
+            self.D, lambda k: 0 if k == (var, var) else None)
+        if (B is None or not C or (self.D is not None and D is None)
+                or set(self.g.keys()) - set(args)):
             return None
-        return blocks
+        return B, C, D
 
     def stack_signature(self, var: str):
-        blocks = self._stack_parts(var)
-        if blocks is None:
+        parts = self._stack_parts(var)
+        if parts is None:
             return None
+        B, C, D = parts
         spec = self.spec
         params = tuple(sorted(
             (k, (_np_sig(v), np.asarray(v).tobytes()) if hasattr(v, "shape")
              else v) for k, v in (spec.scaled_zone_params or {}).items()))
         lam = (_np_sig(self.lam) if isinstance(self.lam, np.ndarray)
                else float(self.lam))
-        g = self.g.data.get(arg_key(0))
-        return ("vector", spec.kind.value, spec.k, params, lam,
-                None if g is None else tuple(np.shape(g)),
-                self.arg_dims[0], tuple(b[0] for b in blocks))
+        g = tuple((k, tuple(np.shape(v))) for k, v in sorted(self.g.items()))
+        return ("vector", spec.kind.value, spec.k, params, lam, spec.epigraph,
+                spec.axis, tuple(tuple(a) for a in spec.arg_sizes),
+                tuple(self.arg_dims), g,
+                tuple((i, p.sig) for i, p in B), tuple((i, p.sig) for i, p in C),
+                None if D is None else D[0][1].sig, self._threads_state())
 
     def stack_data(self, var: str) -> List:
-        data = [a for b in self._stack_parts(var) for a in b[1]]
+        B, C, D = self._stack_parts(var)
+        data = [a for _, p in B + C + (D or []) for a in p.arrays]
         if isinstance(self.lam, np.ndarray):
             data.append(self.lam)
-        g = self.g.data.get(arg_key(0))
-        if g is not None:
-            data.append(g)
-        return data
+        return data + [v for _, v in sorted(self.g.items())]
+
+    def stacked_state_init(self, var: str):
+        """The cold warm-start state of one row of a stack, or None for a
+        kernel without one (:meth:`kernel_state_init`)."""
+        return self.kernel_state_init()
+
+    def _stacked_kernel(self):
+        """The kernel over a stack: ``k(U, lam) -> Y`` with ``U`` and ``Y``
+        one ``(S, dim)`` tensor per argument.  Every mode but TV-1D runs once
+        over the stack (its kernels broadcast over leading axes, as the
+        per-slice mode already uses them); TV-1D's PDAS has host control
+        flow that depends on the data, so it loops over the rows and threads
+        each row's warm dual: ``k(U, lam, state) -> (Y, state)`` (its
+        epigraph, a bisection over PDAS, loops the same way)."""
+        spec, entry, p = self.spec, self.entry, self._params()
+        shape = tuple(spec.arg_sizes[0]) if spec.arg_sizes else None
+        axis = spec.axis
+
+        def slices(U0):
+            V = linop.jmat(U0, shape)
+            V = V.transpose(-1, -2) if axis == 0 else V
+            return V.reshape(-1, V.shape[-1]), V.shape
+
+        def unslice(X, shp):
+            X = X.reshape(shp)
+            return linop.jvec(X.transpose(-1, -2) if axis == 0 else X)
+
+        if entry.stateful_prox is not None and spec.epigraph:
+            epi = entry.epi or epigraph_via_bisection(spec.kind)
+
+            def k(U, lam):
+                rows = [epi(u, t[0], **p) for u, t in zip(U[0], U[-1])]
+                return [torch.stack([r[0] for r in rows]),
+                        torch.stack([r[1] for r in rows]).reshape(-1, 1)]
+            return k
+        if entry.stateful_prox is not None:
+            def k(U, lam, state=None):
+                if state is None:
+                    return [torch.stack([entry.prox(u, lam, **p) for u in U[0]])]
+                rows = [entry.stateful_prox(u, lam, st, **p)
+                        for u, st in zip(U[0], state)]
+                return ([torch.stack([r[0] for r in rows])],
+                        torch.stack([r[1] for r in rows]))
+            return k
+        if spec.epigraph:
+            epi = entry.epi or epigraph_via_bisection(spec.kind)
+            if entry.matrix:
+                def k(U, lam):
+                    X, t = epi(linop.jmat(U[0], shape), U[-1][:, 0], **p)
+                    return [linop.jvec(X), t.reshape(-1, 1)]
+            elif entry.nargs == 2:
+                def k(U, lam):
+                    x, y, t = epi((U[0], U[1]), U[-1][:, 0], **p)
+                    return [x, y, t.reshape(-1, 1)]
+            elif axis is not None:
+                def k(U, lam):
+                    rows, shp = slices(U[0])
+                    X, t = epi(rows, U[-1].reshape(-1), **p)
+                    return [unslice(X, shp), t.reshape(U[-1].shape)]
+            elif entry.elementwise_epi:
+                def k(U, lam):
+                    return list(epi(U[0], U[-1], **p))
+            else:
+                def k(U, lam):
+                    x, t = epi(U[0], U[-1][:, 0], **p)
+                    return [x, t.reshape(-1, 1)]
+            return k
+        prox = entry.prox
+        if entry.matrix:
+            return lambda U, lam: [linop.jvec(prox(linop.jmat(U[0], shape), lam, **p))]
+        if entry.nargs == 2:
+            return lambda U, lam: list(prox((U[0], U[1]), lam, **p))
+        if axis is not None and not entry.elementwise:
+            def k(U, lam):
+                rows, shp = slices(U[0])
+                return [unslice(prox(rows, lam, **p), shp)]
+            return k
+        return lambda U, lam: [prox(U[0], lam, **p)]
 
     def stacked_fn(self, var: str):
-        blocks = self._stack_parts(var)
-        counts = [len(b[1]) for b in blocks]
-        applies = [b[2] for b in blocks]
+        """``fn(data, V, rho=None, state=None)``: the applies of a stack,
+        ``x = C (k(B v + g) - g) + D v`` per row, with ``(X, new state)``
+        returned when a state is threaded."""
+        B, C, D = self._stack_parts(var)
+        kernel = self._stacked_kernel()
         lam0 = None if isinstance(self.lam, np.ndarray) else float(self.lam)
-        has_g = arg_key(0) in self.g.data
-        prox, params = self.entry.prox, self._params()
+        arg_of = {arg_key(i): i for i in range(self.n_args)}
+        g_args = [arg_of[k] for k, _ in sorted(self.g.items())]
+        dims = list(self.arg_dims)
+        # C maps each argument's output back; D (argument None) reads v
+        post = C + [(None, p) for _, p in (D or [])]
+        counts = [len(p.arrays) for _, p in B + post]
 
-        def fn(data, V, rho=None):
-            pos, parts = 0, []
+        def fn(data, V, rho=None, state=None):
+            chunks, pos = [], 0
             for n in counts:
-                parts.append(data[pos:pos + n])
+                chunks.append(data[pos:pos + n])
                 pos += n
             lam = lam0
             if lam is None:
-                lam = data[pos]
-                pos += 1
+                lam, pos = data[pos], pos + 1
             if rho is not None:
                 lam = lam / rho
-            u = applies[0](parts[0], V)
-            if has_g:
-                u = u + data[pos]
-            y = prox(u, lam, **params)
-            if has_g:
-                y = y - data[pos]
-            x = applies[1](parts[1], y)
-            if len(applies) == 3:
-                x = x + applies[2](parts[2], V)
-            return x
+            g = dict(zip(g_args, data[pos:]))
+            U = [None] * len(dims)
+            for (i, p), dd in zip(B, chunks):
+                t = p.apply(dd, V.unsqueeze(1)).squeeze(1)
+                U[i] = t if U[i] is None else U[i] + t
+            for i, gi in g.items():
+                U[i] = gi if U[i] is None else U[i] + gi
+            U = [V.new_zeros((V.shape[0], dims[i])) if u is None else u
+                 for i, u in enumerate(U)]
+            if state is None:
+                Y = kernel(U, lam)
+            else:
+                Y, state = kernel(U, lam, state)
+            for i, gi in g.items():
+                Y[i] = Y[i] - gi
+            X = None
+            for (i, p), dd in zip(post, chunks[len(B):]):
+                t = p.apply(dd, (V if i is None else Y[i]).unsqueeze(1)).squeeze(1)
+                X = t if X is None else X + t
+            return X if state is None else (X, state)
         return fn
 
     # -- warm-startable (stateful) kernels ---------------------------------
+    def _threads_state(self) -> bool:
+        return not (self.entry.stateful_prox is None or self.spec.epigraph
+                    or self.elementwise or self.spec.axis is not None
+                    or self.n_args != 1)
+
     def kernel_state_init(self):
         """Cold state for kernels that warm-start across ADMM sweeps (TV-1D:
         the PDAS dual), or None where this operator's mode cannot thread it
         (epigraph, diagonal metric, axis batching, two arguments)."""
-        if (self.entry.stateful_prox is None or self.spec.epigraph
-                or self.elementwise or self.spec.axis is not None
-                or self.n_args != 1):
+        if not self._threads_state():
             return None
         return self.entry.state_init(self.arg_dims[0], config.default_dtype())
 
@@ -530,27 +737,102 @@ class _KKTProxOperator(ProxOperator):
                             keys=self.var_keys).select(self.var_keys)
         return _descale_solution(x, self._descale)
 
-    # -- scenario stacking: the collapsed solve ``x = w (S v + c)`` ----------
-    # Every KKT operator over one variable that collapsed applies alike, so
-    # the signature names the apply path and not the class: the kind and
-    # the height of H went into S and c, which are stacked data.
+    # -- scenario stacking ----------------------------------------------------
+    # Every KKT operator over one variable applies alike (the class only
+    # shaped the system), so the signatures name the apply path: the
+    # collapsed solve ``x = w (S v + c)``, whose S and c are stacked data
+    # (two families of different H heights share it), or the factored
+    # substitution chain, whose structure (elimination order, each block's
+    # key, kind and shape, scalars by value) is the signature and whose
+    # factor values and right-hand-side constants are stacked data.
+    def _chain_parts(self, var: str):
+        """``(steps, needed, rhs keys)`` of the stacked chain: per pivot
+        ``(key, dim, D^{-1} part, [(row key, L part)])``; None when a block
+        does not stack."""
+        chol = self.chol
+        steps = []
+        for pivot, D_inv, L in chol._steps:
+            d = _stack_block(D_inv)
+            ls = [(r, _stack_block(op)) for r, op in L.items()]
+            if d is None or any(part is None for _, part in ls):
+                return None
+            steps.append((pivot, chol._dims[pivot], d, ls))
+        return steps, chol._needed([var]), sorted(self.rhs0.keys())
+
     def stack_signature(self, var: str):
+        if list(self.var_keys) != [var]:
+            return None
+        w = float(self._descale.get(var, 1.0))
         c = self._collapsed
-        if c is None or c.in_keys != [var] or c.out_keys != [var]:
-            return None   # the factored substitution chain does not stack
-        return ("collapsed_kkt", float(self._descale.get(var, 1.0)),
-                _np_sig(c.S), _np_sig(c.c))
+        if c is not None:
+            if c.in_keys != [var] or c.out_keys != [var]:
+                return None
+            return ("collapsed_kkt", w, _np_sig(c.S), _np_sig(c.c))
+        parts = self._chain_parts(var)
+        if parts is None:
+            return None
+        steps, needed, rhs = parts
+        # the private variable's name differs from term to term
+        key = lambda k: None if k == var else k
+        return ("kkt_chain", w,
+                tuple((key(k), n, d.sig, tuple((key(r), p.sig) for r, p in ls))
+                      for k, n, d, ls in steps),
+                tuple(sorted(needed - {var})),
+                tuple((key(k), tuple(np.shape(self.rhs0[k]))) for k in rhs))
 
     def stack_data(self, var: str) -> List:
-        return [self._collapsed.S, self._collapsed.c]
+        if self._collapsed is not None:
+            return [self._collapsed.S, self._collapsed.c]
+        steps, _, rhs = self._chain_parts(var)
+        data = [a for _, _, d, ls in steps
+                for part in [d] + [p for _, p in ls] for a in part.arrays]
+        return data + [np.asarray(self.rhs0[k]) for k in rhs]
 
     def stacked_fn(self, var: str):
         w = float(self._descale.get(var, 1.0))
+        if self._collapsed is not None:
+            def collapsed(data, V, rho=None):
+                y = _batched_matvec(data[0], V) + data[1]
+                return y if w == 1.0 else w * y
+            return collapsed
+        steps, needed, rhs = self._chain_parts(var)
+        layout = [(k, n, d, ls, [len(d.arrays)] + [len(p.arrays) for _, p in ls])
+                  for k, n, d, ls in steps]
 
-        def fn(data, V, rho=None):
-            y = _batched_matvec(data[0], V) + data[1]
-            return y if w == 1.0 else w * y
-        return fn
+        def chain(data, V, rho=None):
+            """:meth:`BlockCholesky.solve` at ``rhs0 + v`` over the stack:
+            forward substitution, the pivots' solves, back substitution of
+            the blocks ``var`` depends on."""
+            pos, blocks = 0, []
+            for _, _, _, _, counts in layout:
+                per = []
+                for n in counts:
+                    per.append(data[pos:pos + n])
+                    pos += n
+                blocks.append(per)
+            work = dict(zip(rhs, data[pos:]))
+            work[var] = work[var] + V if var in work else V
+            mv = lambda part, dd, X: part.apply(dd, X.unsqueeze(1)).squeeze(1)
+            y = {}
+            for (k, n, _, ls, _), per in zip(layout, blocks):
+                yp = work.get(k)
+                if yp is None:
+                    yp = V.new_zeros((V.shape[0], n))
+                y[k] = yp
+                for (r, p), dd in zip(ls, per[1:]):
+                    upd = mv(p, dd, yp)
+                    work[r] = work[r] - upd if r in work else -upd
+            x = {}
+            for (k, _, d, ls, _), per in reversed(list(zip(layout, blocks))):
+                if k not in needed:
+                    continue
+                xp = mv(d, per[0], y[k])
+                for (r, p), dd in zip(ls, per[1:]):
+                    if r in x:
+                        xp = xp - p.apply_t(dd, x[r].unsqueeze(1)).squeeze(1)
+                x[k] = xp
+            return x[var] if w == 1.0 else w * x[var]
+        return chain
 
 
 class ZeroProxOperator(_KKTProxOperator):

@@ -128,16 +128,18 @@ class ConsensusADMM:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
-    def _local_step(self, x, u, z, rho, residuals: bool):
-        """One sweep over the rank's blocks.  With ``residuals``, also the
+    def _local_step(self, x, u, z, rho, residuals: bool, data=None):
+        """One sweep over the rank's blocks (with ``data`` in place of the
+        solver's own, when given).  With ``residuals``, also the
         all-reduced (||x - z||^2, ||x||^2, ||u||^2) of the sweep."""
+        data = self.data if data is None else data
         if self.local_update is not None:
-            args = (self.data, x, u, z) + ((rho,) if self.adaptive_rho else ())
+            args = (data, x, u, z) + ((rho,) if self.adaptive_rho else ())
             x, xu_local = self.local_update(*args)
         else:
             v = z[None, :] - u
-            x = (self.local_prox(v, self.data, rho) if self.adaptive_rho
-                 else self.local_prox(v, self.data))
+            x = (self.local_prox(v, data, rho) if self.adaptive_rho
+                 else self.local_prox(v, data))
             xu_local = torch.sum(x + u, dim=0)
         alpha = self.over_relaxation
         if alpha != 1.0:
@@ -188,6 +190,17 @@ class ConsensusADMM:
                 rho = rho * factor
                 u = u / factor
         return (x, u, z, rho), (r_norm, s_norm), conv
+
+    def epoch_step(self, data, state):
+        """``epoch_iterations`` sweeps from ``state = (x, u, z, rho)`` over
+        ``data``: the epoch as a pure function of its inputs, with no read
+        back to the host (the residuals, which only decide when to stop,
+        are left out; rho moves only under adaptive rho, which reads
+        them)."""
+        x, u, z, rho = state
+        for _ in range(self.epoch_iterations):
+            x, u, z, _ = self._local_step(x, u, z, rho, residuals=False, data=data)
+        return (x, u, z, rho)
 
     def init_state(self):
         dtype, dev = config.default_dtype(), config.device()

@@ -143,6 +143,13 @@ class SolverBase:
         and saves once at the end."""
         self._checkpointer = ckpt
 
+    def _save_checkpoint(self, step: int, state, periodic: bool):
+        """A periodic save (every ``every_epochs`` calls) or a final one."""
+        if periodic:
+            self._checkpointer.maybe_save(step, state)
+        else:
+            self._checkpointer.save(step, state)
+
     def _resume_state(self, state):
         """(state, start_iters) from the latest checkpoint, if any."""
         if self._checkpointer is None:
@@ -218,7 +225,7 @@ class SolverBase:
             series.append(r)
             conv = r.r_norm <= r.epsilon_primal and r.s_norm <= r.epsilon_dual
             if host and self._checkpointer is not None:
-                self._checkpointer.maybe_save(iters, state)
+                self._save_checkpoint(iters, state, periodic=True)
             if p.verbose and (iters % p.log_iterations < epoch_iters):
                 self.status.num_iterations = iters
                 self.status.residuals = r
@@ -227,7 +234,7 @@ class SolverBase:
                     host and self._agree_stop(self._has_external_stop())):
                 break
         if not host and self._checkpointer is not None:
-            self._checkpointer.save(iters, state)
+            self._save_checkpoint(iters, state, periodic=False)
         self.status.series = series
         return state, out, iters, r, conv
 
@@ -308,8 +315,11 @@ class ProxADMMTwoBlockSolver(SolverBase):
     decision (the stop test, adaptive rho, an external stop) is taken from
     all-reduced values, so all ranks run the same number of iterations.
     Warm kernel state (the TV-1D PDAS dual) is threaded by the rank that
-    owns the term (the JAX package drops it on its meshed path).  A
-    checkpointer with a group raises ``NotImplementedError``."""
+    owns the term, or holds its rows of the stack (the JAX package drops it
+    on its meshed path).  A checkpoint of a meshed solve holds the state in
+    its global layout (:meth:`global_state`): rank 0 writes it, and every
+    rank restores its own part, so a solve resumes on another number of
+    ranks whenever the groups are the same."""
 
     def __init__(self, problem: ProxProblem, params: SolverParams):
         super().__init__(problem, params)
@@ -396,10 +406,16 @@ class ProxADMMTwoBlockSolver(SolverBase):
             acc += self.all_dims[k]
 
         # warm-startable kernel state (TV-1D PDAS duals), one per term this
-        # process applies
+        # process applies and then one per scenario group (this rank's rows)
         ks = [op.kernel_state_init() if hasattr(op, "kernel_state_init")
               else None for op in self.term_ops]
-        self._kstate0 = tuple(ks) if any(k is not None for k in ks) else None
+        ks += [g.state0 for g in self.scn_groups]
+        threads = any(k is not None for k in ks)
+        if self.mesh is not None:
+            # the state's layout is the same on every rank, so that every
+            # rank packs and checkpoints the same structure
+            threads = any(self._all_gather_object(threads))
+        self._kstate0 = tuple(ks) if threads else None
 
         self._t_init = time.time() - t0
 
@@ -425,11 +441,96 @@ class ProxADMMTwoBlockSolver(SolverBase):
                             device=config.device())
         return bool(self._all_reduce(flag, dist.ReduceOp.MAX).item())
 
-    def attach_checkpointer(self, ckpt):
-        if self.mesh is not None or self.params.mesh is not None:
-            raise NotImplementedError(
-                "a checkpointer with a process group (mesh) is not supported")
-        super().attach_checkpointer(ckpt)
+    # -- the global layout (checkpoints, interop) ---------------------------------
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' rows of a stacked tensor, concatenated in stack order."""
+        parts = [torch.empty_like(t) for _ in range(self.n_dev)]
+        self.n_collectives += 1
+        dist.all_gather(parts, t.contiguous(), group=self.mesh)
+        return torch.cat(parts)
+
+    def global_state(self, state):
+        """The loop state in its global layout, on the host: the stacked keys
+        and the groups' warm kernel states with every rank's rows in stack
+        order, and the warm state of each bucket term from the rank that
+        owns it.  It does not depend on the number of ranks, so a state
+        saved at one world size restores at another whenever the groups are
+        the same.  Every rank calls it together and gets the same."""
+        if self.mesh is None:
+            return state
+        z, u, rho, ks = self._unpack_state(state)
+
+        def whole(bv):
+            return BlockVector({k: (self._gather_rows(v) if k in self._scn_keys
+                                    else v).detach().cpu() for k, v in bv.items()})
+
+        ks_g = None
+        if ks is not None:
+            n = len(self.term_ops)
+            owned = {}
+            for part in self._all_gather_object(
+                    {i: k.detach().cpu() for i, k in enumerate(ks[:n])
+                     if k is not None}):
+                owned.update(part)
+            ks_g = tuple(owned.get(i) for i in range(n)) + tuple(
+                None if k is None else self._gather_rows(k).cpu()
+                for k in ks[n:])
+        return self._pack_state(whole(z), whole(u),
+                                None if rho is None else rho.detach().cpu(), ks_g)
+
+    def local_state(self, glob):
+        """The inverse of :meth:`global_state` on this rank: its rows of the
+        stacked keys and of the groups' kernel states, the warm state of the
+        terms of its own bucket, on the configured device."""
+        if self.mesh is None:
+            return glob
+        dev, dt = config.device(), config.default_dtype()
+        z, u, rho, ks = self._unpack_state(glob)
+        rows = {g.key: slice(g.rows.start * g.d, g.rows.stop * g.d)
+                for g in self.scn_groups}
+
+        def local(bv):
+            return BlockVector({k: (v[rows[k]] if k in rows else v).to(dev, dt)
+                                for k, v in bv.items()})
+
+        ks_l = None
+        if ks is not None:
+            n = len(self.term_ops)
+            ks_l = tuple(None if mine is None else ks[i].to(dev, dt)
+                         for i, mine in enumerate(self._kstate0[:n]))
+            ks_l += tuple(None if k is None else
+                          k[g.rows.start:g.rows.stop].to(dev, dt)
+                          for g, k in zip(self.scn_groups, ks[n:]))
+        return self._pack_state(local(z), local(u),
+                                None if rho is None else rho.to(dev, dt), ks_l)
+
+    def _save_checkpoint(self, step: int, state, periodic: bool):
+        """With a group every rank takes part: the state is gathered into its
+        global layout, rank 0 alone writes it, and a barrier follows."""
+        if self.mesh is None:
+            return super()._save_checkpoint(step, state, periodic)
+        if periodic and not self._checkpointer.tick():
+            return
+        glob = self.global_state(state)
+        if self.rank == 0:
+            self._checkpointer.save(step, glob)
+        self.n_collectives += 1
+        dist.barrier(group=self.mesh)
+
+    def _resume_state(self, state):
+        """With a group, rank 0 decides whether the latest checkpoint
+        restores (it exists, belongs to this problem's global layout, its
+        shapes fit) and every rank follows that one decision; then every
+        rank reads the same file and keeps its own part."""
+        if self.mesh is None or self._checkpointer is None:
+            return super()._resume_state(state)
+        like = self.global_state(state)
+        step = self._checkpointer.check(like) if self.rank == 0 else None
+        step = self._all_gather_object(step)[0]
+        if step is None:
+            return state, 0
+        logger.info("resuming from checkpoint at iteration %d", step)
+        return self.local_state(self._checkpointer.load(step, like)), step
 
     def _partition_terms(self, n_buckets: int,
                          indices: Optional[List[int]] = None) -> List[List[int]]:
@@ -624,16 +725,23 @@ class ProxADMMTwoBlockSolver(SolverBase):
             xb, new_ks = self._apply_terms(self.buckets[self.rank], v, rho, ks,
                                            rep_dims)
             parts.append(xb.pack(self._rep_keys)[0])
+        new_ks = list(new_ks) if new_ks is not None else None
         alpha = self.params.over_relaxation
         zu = z - u
-        for g in self.scn_groups:
+        for gi, g in enumerate(self.scn_groups):
             rows = len(g.rows)
+            j = len(self.term_ops) + gi
+            st = ks[j] if ks is not None else None
             xg = g.local_apply(zu[g.key].reshape(rows, g.d), rho,
-                               self.adaptive, self.sqrt_rho).reshape(-1)
+                               self.adaptive, self.sqrt_rho, st)
+            if st is not None:
+                xg, new_ks[j] = xg
+            xg = xg.reshape(-1)
             x[g.key] = xg
             xh = xg if alpha == 1.0 else alpha * xg + (1.0 - alpha) * z[g.key]
             parts.append((xh + u[g.key]).reshape(rows, g.d).sum(dim=0))
         flat = self._all_reduce(torch.cat(parts))
+        new_ks = tuple(new_ks) if new_ks is not None else None
         n_rep = 0
         if self.buckets is not None:
             n_rep = sum(rep_dims.values())
@@ -797,10 +905,7 @@ class ProxADMMTwoBlockSolver(SolverBase):
         out = BlockVector({k: v for k, v in x.items()
                            if k not in self._scn_keys})
         for g in self.scn_groups:
-            parts = [torch.empty_like(x[g.key]) for _ in range(self.n_dev)]
-            self.n_collectives += 1
-            dist.all_gather(parts, x[g.key].contiguous(), group=self.mesh)
-            W = torch.cat(parts).reshape(g.S, g.d)
+            W = self._gather_rows(x[g.key]).reshape(g.S, g.d)
             for row, pv in enumerate(g.pv_names):
                 out[pv] = W[row]
         return out
@@ -817,9 +922,6 @@ class ProxADMMTwoBlockSolver(SolverBase):
             # layout, the prox parameterization and the sqrt(rho) metric
             # differ
             self._rebuild_full()
-        if self.mesh is not None and self._checkpointer is not None:
-            raise NotImplementedError(
-                "a checkpointer with a process group (mesh) is not supported")
         state, x, iters, r, conv = self._run(self._init_state())
         self._finish(state, iters, r, conv, self._t_init, time.time() - t0)
         return self._unstack_x(x)

@@ -31,20 +31,22 @@ Isomorphism is decided by the operators' structural signatures
 shapes and dtypes of every data array).  Two terms stack only on equal
 signatures, and everything a signature leaves out is per-term data that is
 stacked, so no term can inherit another's constants.  (The JAX package
-decides by jaxpr equality of the traced applies with lifted constants; an
-operator whose signature is None stacks there and goes to the bucket path
-here.)
+decides by jaxpr equality of the traced applies with lifted constants;
+every operator kind it stacks answers a signature here, so both packages
+form the same groups.  A stack of a kernel with a warm state, TV-1D's PDAS
+dual, threads one state a row: ``ScenarioGroup.state0``.)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import config
 from ..ir import Cone, ProxProblem
 from ..ops import linop
 
@@ -64,19 +66,38 @@ class ScenarioGroup:
     signature: Tuple         # the members' common structural signature
     tie_idx: List[int]
     rows: range              # this rank's rows of the stack
-    fn: Callable             # stacked apply (data, V, rho) -> X
+    fn: Callable             # stacked apply (data, V, rho[, state]) -> X
     stacks: List[torch.Tensor]   # this rank's rows of every data stack
+    # this rank's rows of the cold warm-start state of a kernel that
+    # threads one (TV-1D's PDAS dual), else None
+    state0: Optional[torch.Tensor] = None
 
-    def local_apply(self, V, rho, adaptive: bool, sqrt_rho: float):
+    def local_apply(self, V, rho, adaptive: bool, sqrt_rho: float,
+                    state=None):
         """The prox of every scenario of this rank at the rows of ``V``
-        (``(S_local, d)``), each with ITS rows of the stacked data."""
-        if adaptive:
+        (``(S_local, d)``), each with ITS rows of the stacked data; with a
+        warm state, ``(X, new state)``, each row threading its own."""
+        if not adaptive:
+            V, rho = (V if sqrt_rho == 1.0 else sqrt_rho * V), None
+        if state is None:
             return self.fn(self.stacks, V, rho)
-        return self.fn(self.stacks, V if sqrt_rho == 1.0 else sqrt_rho * V)
+        return self.fn(self.stacks, V, rho, state)
 
     def stacked_bytes(self) -> int:
         """Bytes of stacked term data this rank holds."""
         return sum(t.numel() * t.element_size() for t in self.stacks)
+
+
+def stack_tensor(a) -> torch.Tensor:
+    """One data array of a stack row as a tensor on the device: floating
+    arrays in the solver dtype, index arrays (sparse patterns, LU pivots)
+    as they are."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.kind == "f":
+        return linop.to_tensor(a)
+    return torch.as_tensor(a, device=config.device())
 
 
 def _row_data(group: ScenarioGroup, term_ops, r: int) -> List[torch.Tensor]:
@@ -85,8 +106,7 @@ def _row_data(group: ScenarioGroup, term_ops, r: int) -> List[torch.Tensor]:
     op, pv = term_ops[group.term_idx[r]], group.pv_names[r]
     if op.stack_signature(pv) != group.signature:
         raise ValueError("scenario group structure changed under update")
-    return [linop.to_tensor(a) if isinstance(a, np.ndarray) else a
-            for a in op.stack_data(pv)]
+    return [stack_tensor(a) for a in op.stack_data(pv)]
 
 
 def collect_group_stacks(group: ScenarioGroup, term_ops) -> List[torch.Tensor]:
@@ -222,16 +242,18 @@ def detect_scenario_groups(problem: ProxProblem, term_ops, term_vars,
         members.sort()  # deterministic stack order by term index
         per = S // n_devices
         rows = range(rank * per, (rank + 1) * per)
+        op0, pv0 = term_ops[members[rows.start][0]], members[rows.start][1]
         group = ScenarioGroup(
             key=f"{SCN_PREFIX}{gi}", shared=sv,
             term_idx=[m[0] for m in members],
             pv_names=[m[1] for m in members],
             d=d, S=S, signature=sig,
             tie_idx=[m[2] for m in members], rows=rows,
-            fn=term_ops[members[rows.start][0]].stacked_fn(
-                members[rows.start][1]),
-            stacks=[])
+            fn=op0.stacked_fn(pv0), stacks=[])
         group.stacks = collect_group_stacks(group, term_ops)
+        st0 = op0.stacked_state_init(pv0)
+        if st0 is not None:
+            group.state0 = st0.expand((per,) + tuple(st0.shape)).clone()
         groups.append(group)
         stacked_terms.update(m[0] for m in members)
         tie_constraints.update(m[2] for m in members)

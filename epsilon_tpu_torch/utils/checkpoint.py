@@ -15,6 +15,11 @@ A checkpoint is one file, ``step_<iterations>.pt``: the state's leaves as
 CPU tensors (``torch.save``) beside the state's fingerprint, written under
 a temporary name and renamed, so a reader never sees half a file; ``keep``
 bounds how many stay.  A restored state is moved to the configured device.
+
+A solver sharded over a process group saves its state in the global layout
+(``ProxADMMTwoBlockSolver.global_state``) from rank 0 alone, and every rank
+reads the same file back (``check`` on rank 0, ``load`` everywhere): the
+JAX package's elastic recovery, which also resumes at another world size.
 """
 
 from __future__ import annotations
@@ -99,11 +104,16 @@ class SolverCheckpointer:
         return os.path.join(self.directory, f"step_{int(step)}.pt")
 
     # -- saving --------------------------------------------------------------
+    def tick(self) -> bool:
+        """Count one epoch; True when an ``every_epochs`` boundary is
+        crossed (a save is due)."""
+        self._count += 1
+        return self._count % self.every_epochs == 0
+
     def maybe_save(self, step: int, state) -> bool:
         """Save if an ``every_epochs`` boundary was crossed; returns whether
         a save happened.  ``step`` is the solver's iteration count."""
-        self._count += 1
-        if self._count % self.every_epochs:
+        if not self.tick():
             return False
         self.save(step, state)
         return True
@@ -124,44 +134,62 @@ class SolverCheckpointer:
         steps = self._steps()
         return steps[-1] if steps else None
 
-    def restore(self, like_state):
-        """Restore the latest checkpoint into the structure of
-        ``like_state`` (a freshly initialized solver state), on the
-        configured device.  Returns ``(state, step)``, or ``(None, 0)`` when
-        no checkpoint exists or the stored leaves don't match the state's
-        structure (e.g. the problem changed shape — start fresh rather than
-        resume wrongly)."""
+    def _read(self, step: int):
+        out = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        return out["leaves"], out["fingerprint"]
+
+    def check(self, like_state) -> Optional[int]:
+        """The latest step whose checkpoint restores into the structure of
+        ``like_state``, or None when there is none, it cannot be read, it
+        belongs to a different problem (state fingerprint) or its leaves'
+        shapes differ (start fresh rather than resume wrongly)."""
         step = self.latest_step()
         if step is None:
-            return None, 0
+            return None
         like_leaves, desc = [], []
         _flatten(like_state, "", like_leaves, desc)
         try:
-            out = torch.load(self._path(step), map_location="cpu",
-                             weights_only=True)
-            leaves, fp = out["leaves"], out["fingerprint"]
+            leaves, fp = self._read(step)
         except Exception as e:
             logger.warning(
                 "checkpoint restore from %s step %s failed (%s: %s); "
                 "starting from iteration 0", self.directory, step,
                 type(e).__name__, e)
-            return None, 0
+            return None
         if fp != _state_fingerprint(like_state):
             logger.warning(
                 "checkpoint at %s step %s belongs to a different problem "
                 "(state fingerprint mismatch); starting from iteration 0",
                 self.directory, step)
-            return None, 0
+            return None
         if len(leaves) != len(like_leaves) or any(
                 a.shape != b.shape for a, b in zip(leaves, like_leaves)):
             logger.warning(
                 "checkpoint at %s step %s has mismatched leaf shapes; "
                 "starting from iteration 0", self.directory, step)
+            return None
+        return step
+
+    def load(self, step: int, like_state, device=None):
+        """The checkpoint of ``step`` (which :meth:`check` passed) in the
+        structure and dtypes of ``like_state``, on ``device`` (the host
+        when None)."""
+        like_leaves, desc = [], []
+        _flatten(like_state, "", like_leaves, desc)
+        leaves, _ = self._read(step)
+        return _unflatten(like_state, iter(
+            [a.to(device=device or "cpu", dtype=b.dtype)
+             for a, b in zip(leaves, like_leaves)]))
+
+    def restore(self, like_state):
+        """Restore the latest checkpoint into the structure of
+        ``like_state`` (a freshly initialized solver state), on the
+        configured device.  Returns ``(state, step)``, or ``(None, 0)`` when
+        :meth:`check` finds nothing to restore."""
+        step = self.check(like_state)
+        if step is None:
             return None, 0
-        dev = config.device()
-        moved = iter([a.to(device=dev, dtype=b.dtype)
-                      for a, b in zip(leaves, like_leaves)])
-        return _unflatten(like_state, moved), int(step)
+        return self.load(step, like_state, config.device()), int(step)
 
     def close(self):
         """Nothing is held open between calls; kept for the interface."""

@@ -292,3 +292,28 @@ def test_parallel_imports_no_jax():
             "for k in sys.modules)")
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root, timeout=120)
+
+
+def test_entry_step_matches_jax_entry(mode):
+    """``epsilon_tpu_torch.parallel.entry()`` against ``__graft_entry__.entry()``
+    (one consensus epoch, S=4, m=32, n=16, seed 0), in both solve modes.
+    The JAX package keeps the float32 data's factors in float32 where the
+    port forms them in the solver dtype (float64 here), so the two entries'
+    data agree to float32 rounding (rtol 1e-5); the two step functions run
+    on the SAME data and initial state agree to rtol 1e-10, and leave rho
+    where it was."""
+    import jax.numpy as jnp
+    import __graft_entry__ as graft
+    from epsilon_tpu_torch.parallel import entry
+    jfn, (jdata, jstate0) = graft.entry()
+    tfn, (data, state) = entry()
+    assert set(data) == set(jdata) == ({"L", "Atb"} if mode == "triangular"
+                                       else {"Finv", "Atb"})
+    for k, v in data.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(jdata[k]), rtol=1e-5, atol=1e-6)
+    tstate = tfn(data, state)
+    jstate = jfn({k: jnp.asarray(v.numpy()) for k, v in data.items()}, jstate0)
+    for got, want in zip(tstate[:3], jstate[:3]):
+        assert got.shape == np.shape(want)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=1e-13)
+    assert float(tstate[3]) == float(jstate[3]) == 1.0

@@ -5,16 +5,22 @@ as many devices of its virtual CPU mesh and against the port in one
 process: every test of ``tests/test_scenario.py``, with its 8 devices read
 as 4 ranks.
 
-One launch of ``tests/torch_mesh_worker.py`` at world 2 and three at world
-4 run all the cases of that size (module-scoped fixtures); each test reads
-its own case.
+One launch of ``tests/torch_mesh_worker.py`` at world 2, beside four at
+world 4, runs all the cases of that size (a module-scoped fixture); each
+test reads its own case.
 
 Tolerances (``torch_mesh_launch``): the same iteration count, the residual
 series to rtol 1e-6, x to atol 1e-7 / rtol 1e-5.  The stacked apply is one
 batched product where one process applies term by term, and the fold sums
 the scenarios in another order: no iteration count moved in these cases.
+The TV-1D family (``consensus8_tv``) threads each row's warm PDAS dual,
+which the JAX package's meshed solve does not (it starts PDAS cold); both
+certify each prox to the inner tolerance ``prox_inner_tol_for(1e-6)`` =
+1e-7, and x is held to the JAX meshed solve at that atol.
 """
 
+import concurrent.futures
+import functools
 import logging
 
 import numpy as np
@@ -49,10 +55,13 @@ SOLVES = {
     "scenario_norm2": (_consensus(kind="NORM_2"), TIGHT),
     "scenario_norm2_adaptive": (_consensus(kind="NORM_2"), ADAPTIVE),
 }
+# the kinds stacked since the first meshed slice, one problem each
+SOLVES.update({name: ((lambda P, name=name: mc.problems(P)[name]()), params)
+               for name, params in mc.KIND_SOLVES.items()})
 
 WORLD_2 = ["scenario_device", "scenario_host", "scenario_adaptive",
-           "two_family", "scenario_norm2"]
-# World 4 goes in three launches of about 35 s each when run alone (four
+           "two_family", "scenario_norm2"] + list(mc.KIND_SOLVES)
+# World 4 goes in four launches of about 35 s each when run alone (four
 # gloo ranks take about 12 ms an iteration here), so that a loaded machine
 # stays well inside a launch's hard timeout of 120 s.
 WORLD_4_LAUNCHES = [
@@ -60,13 +69,9 @@ WORLD_4_LAUNCHES = [
     ["scenario_memory", "scenario_update", "scenario_adaptive", "scenario_norm2",
      "scenario_norm2_adaptive"],
     ["scenario_indivisible", "two_family", "frontend_consensus", "interop_state"],
+    list(mc.KIND_SOLVES),
 ]
 WORLD_4 = [name for launch in WORLD_4_LAUNCHES for name in launch]
-
-
-@pytest.fixture(scope="module")
-def world2():
-    return ml.run_workers(2, WORLD_2)
 
 
 def _jax_interrupted_solve():
@@ -94,20 +99,20 @@ def jax_interrupted():
 
 
 @pytest.fixture(scope="module")
-def world4(jax_interrupted, tmp_path_factory):
+def ranks(jax_interrupted, tmp_path_factory):
+    """``{world: the ranks' results}``: the world-2 launch runs beside the
+    world-4 launches, which run one after the other (a thread waits for
+    it; the ranks are processes)."""
     path = str(tmp_path_factory.mktemp("mesh") / "jax_state.npz")
     np.savez(path, **jax_interrupted[0])
-    ranks = [{} for _ in range(4)]
-    for cases in WORLD_4_LAUNCHES:
-        for merged, got in zip(ranks, ml.run_workers(
-                4, cases, extra_env={"EPSILON_MESH_STATE": path})):
-            merged.update(got)
-    return ranks
-
-
-@pytest.fixture
-def ranks(world2, world4):
-    return {2: world2, 4: world4}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        world2 = pool.submit(ml.run_workers, 2, WORLD_2)
+        world4 = [{} for _ in range(4)]
+        for cases in WORLD_4_LAUNCHES:
+            for merged, got in zip(world4, ml.run_workers(
+                    4, cases, extra_env={"EPSILON_MESH_STATE": path})):
+                merged.update(got)
+        return {2: world2.result(), 4: world4}
 
 
 def _cases():
@@ -132,7 +137,7 @@ def test_meshed_matches_jax_meshed(ranks, world, case):
     got = ml.assert_ranks_agree(ranks[world], case)
     make, params = SOLVES[case]
     js, xj = ml.jax_solve(make, world, **params)
-    ml.assert_matches(got, js, xj)
+    ml.assert_matches(got, js, xj)   # for consensus8_tv X_ATOL is PDAS's 1e-7
     assert _groups(got) == {g.key: (list(g.term_idx), g.shared)
                             for g in js.scn_groups}
     if js.buckets is None:
@@ -141,12 +146,19 @@ def test_meshed_matches_jax_meshed(ranks, world, case):
         assert ml.buckets_of(got, world) == js.buckets
 
 
+@functools.lru_cache(maxsize=None)
+def _one_process(case):
+    """The port's solve of a case in this process (the same at every world
+    size, so solved once)."""
+    make, params = SOLVES[case]
+    return ml.port_solve(make, **params)
+
+
 @pytest.mark.parametrize("world,case", list(_cases()))
 def test_meshed_matches_one_process(ranks, world, case):
     """Port over ``world`` gloo ranks == port in one process."""
     got = ml.assert_ranks_agree(ranks[world], case)
-    make, params = SOLVES[case]
-    ts, xt = ml.port_solve(make, **params)
+    ts, xt = _one_process(case)
     ml.assert_matches(got, ts, {k: v.numpy() for k, v in xt.items()})
     np.testing.assert_allclose(float(got["objective"]),
                                float(ts.objective_value(xt)), rtol=1e-9)
@@ -198,6 +210,23 @@ def test_scenario_data_memory_is_sharded(ranks):
     # what is left in term operators is the bucket's NORM_1 term: no dense
     # data
     assert sum(int(g["term_op_bytes"]) for g in per_rank) < d * d * 8
+    # every kind stacked since: 1/world of the data of the 8 members' stacks
+    # (pattern arrays and LU pivots included) and of the state a rank, and
+    # for TV-1D its rows of the warm duals
+    from epsilon_tpu_torch.solvers.scenario import stack_tensor
+    for name in NEW_KINDS:
+        prob, solver = _port_ops(name)
+        total = sum(stack_tensor(a).numel() * stack_tensor(a).element_size()
+                    for i in range(8)
+                    for a in solver.term_ops[i].stack_data(solver.term_vars[i][0]))
+        d = prob.var_dims[solver.term_vars[0][0]]
+        for world in (2, 4):
+            for g in (r[name] for r in ranks[world]):
+                assert int(g["stack_bytes"]) * world == total, name
+                assert int(g["all_dim"]) * world == 8 * d
+                assert int(g["state_dim"]) == 8 * d
+                assert int(g["state_rows"]) == (8 // world if name == "consensus8_tv" else -1)
+                assert int(g["term_op_bytes"]) < d * d * 8
 
 
 def test_scenario_update_problem_keeps_layout(ranks):
@@ -344,6 +373,15 @@ def test_interop_stacked_state_rows():
     np.testing.assert_array_equal(np.concatenate([p[1] for p in parts]), u["scn:0"])
 
 
+# The problems whose families stack an operator of each kind this module
+# did not stack before (the factored KKT chain, TV-1D with its warm dual,
+# the epigraph, matrix, per-slice and two-argument modes, sparse and
+# Kronecker blocks).  TV-1D's epigraph (``family_tv_epigraph``) is held to
+# the JAX package's groups and to separate applies, not solved meshed.
+NEW_KINDS = ["consensus8_wide", "consensus8_tv"] + [
+    f"family_{f}" for f in mc.FAMILIES]
+
+
 def _detect(prob, solver, world, rank=0):
     """``detect_scenario_groups`` as rank ``rank`` of ``world`` runs it, in
     one process: the exchange hands back every rank's share of the
@@ -371,11 +409,15 @@ def _port_ops(name, adaptive=False):
     return prob, solver
 
 
-@pytest.mark.parametrize("adaptive", [False, True])
-@pytest.mark.parametrize("world", [2, 4, 8])
-@pytest.mark.parametrize("name", ["consensus8", "consensus8_via_y",
-                                  "consensus8_32_16", "consensus6",
-                                  "consensus12", "two_family", "hetero16"])
+# (TV-1D's epigraph at world 4 alone: the JAX package traces its bisection
+# over PDAS for seconds a candidate)
+@pytest.mark.parametrize("name,world,adaptive", [
+    pytest.param(name, world, adaptive, id=f"{name}-{world}-{adaptive}")
+    for name in ["consensus8", "consensus8_via_y", "consensus8_32_16", "consensus6",
+                 "consensus12", "two_family", "hetero16"] + NEW_KINDS
+    + ["family_tv_epigraph"]
+    for world in ([4] if name == "family_tv_epigraph" else [2, 4, 8])
+    for adaptive in (False, True)])
 def test_detect_scenario_groups_equals_jax(name, world, adaptive):
     """The same groups as the JAX package on each problem of
     ``tests/test_scenario.py``: term_idx, pv_names, shared, tie_idx, S, d."""
@@ -486,6 +528,20 @@ def test_signatures_equal_on_data_alone():
             != _op().stack_signature("v"))
 
 
+def _members(case):
+    """``(operators, private variables, d, adaptive)`` of the terms a stack
+    would hold: three operators of ``_op`` (a dict of its arguments), or the
+    first four private terms of a problem of ``torch_mesh_cases`` (a name,
+    with ``:adaptive`` for the rho-parameterized operators)."""
+    if isinstance(case, dict):
+        return ([_op(seed=s, **case) for s in range(3)], ["v"] * 3,
+                case.get("n", 6), bool(case.get("adaptive")))
+    name, _, mode = case.partition(":")
+    prob, solver = _port_ops(name, adaptive=mode == "adaptive")
+    pvs = [solver.term_vars[i][0] for i in range(4)]
+    return (solver.term_ops[:4], pvs, prob.var_dims[pvs[0]], mode == "adaptive")
+
+
 @pytest.mark.parametrize("kw", [
     dict(kind="SUM_SQUARE"), dict(kind="SUM_SQUARE", rho=2.0),
     dict(kind="SUM_SQUARE", adaptive=True),
@@ -494,35 +550,74 @@ def test_signatures_equal_on_data_alone():
     dict(kind="NORM_1", alpha=0.3), dict(kind="NORM_INF", alpha=0.3),
     dict(kind="SUM_LARGEST", alpha=0.3, k=2), dict(kind="MAX", alpha=0.3),
     dict(kind="AFFINE", alpha=0.3, n=1, adaptive=True),
-], ids=lambda kw: "-".join(str(v) for v in kw.values()))
-def test_stacked_apply_equals_separate_applies(kw):
+    dict(kind="AFFINE", alpha=0.3, n=1), dict(kind="TOTAL_VARIATION_1D", alpha=0.1),
+] + [f"{name}:{mode}" for name in NEW_KINDS + ["family_tv_epigraph"]
+       for mode in ("fixed", "adaptive")]
+    + ["consensus8_wide:inverse"],
+    ids=lambda kw: kw if isinstance(kw, str) else "-".join(str(v) for v in kw.values()))
+def test_stacked_apply_equals_separate_applies(kw, monkeypatch):
     """The stacked apply on (S, d) inputs computes what S separate applies
-    would, from the stacked data alone."""
+    would, from the stacked data alone, threading each row's warm kernel
+    state where the kernel has one (rtol 1e-12).  ``:inverse`` applies the
+    chain's factors as explicit inverses, the card's solve mode."""
     import torch
-    from epsilon_tpu_torch.ops import linop
+    from epsilon_tpu_torch import config
     from epsilon_tpu_torch.ops.block import BlockVector
-    ops = [_op(seed=s, **kw) for s in range(3)]
-    sig = ops[0].stack_signature("v")
-    assert sig is not None and all(o.stack_signature("v") == sig for o in ops)
-    d = kw.get("n", 6)
-    V = torch.as_tensor(np.random.RandomState(9).randn(3, d))
-    rho = torch.tensor(1.7, dtype=torch.float64) if kw.get("adaptive") else None
-    data = [torch.stack([
-        linop.to_tensor(a) if isinstance(a, np.ndarray) else a
-        for a in col]) for col in zip(*[o.stack_data("v") for o in ops])]
+    from epsilon_tpu_torch.solvers.scenario import stack_tensor
+    if isinstance(kw, str) and kw.endswith(":inverse"):
+        monkeypatch.setattr(config, "FACTOR_SOLVE_MODE", "inverse")
+    ops, pvs, d, adaptive = _members(kw)
+    if isinstance(kw, str) and kw.endswith(":inverse"):
+        assert ops[0].stack_signature(pvs[0])[2][-1][2][0] == "inverse"
+    sig = ops[0].stack_signature(pvs[0])
+    assert sig is not None and all(
+        o.stack_signature(pv) == sig for o, pv in zip(ops, pvs))
+    S = len(ops)
+    V = torch.as_tensor(np.random.RandomState(9).randn(S, d))
+    rho = torch.tensor(1.7, dtype=torch.float64) if adaptive else None
+    data = [torch.stack([stack_tensor(a) for a in col])
+            for col in zip(*[o.stack_data(pv) for o, pv in zip(ops, pvs)])]
     # the LAST operator's function over everyone's data: nothing of its own
     # data may leak into the others' rows
-    got = ops[-1].stacked_fn("v")(data, V, rho)
-    for s, op in enumerate(ops):
-        v = BlockVector({"v": V[s]})
-        want = op.apply_rho(v, rho) if rho is not None else op.apply(v)
-        np.testing.assert_allclose(got[s].numpy(), want["v"].numpy(),
+    fn = ops[-1].stacked_fn(pvs[-1])
+    st0 = ops[-1].stacked_state_init(pvs[-1])
+    if st0 is None:
+        got, got_st = fn(data, V, rho), None
+    else:
+        got, got_st = fn(data, V, rho, torch.stack([st0] * S))
+    for s, (op, pv) in enumerate(zip(ops, pvs)):
+        v = BlockVector({pv: V[s]})
+        if st0 is not None:
+            want, want_st = op.apply_stateful(v, op.kernel_state_init(), rho=rho)
+            np.testing.assert_allclose(got_st[s].numpy(), want_st.numpy(),
+                                       rtol=1e-12, atol=1e-13)
+        else:
+            want = op.apply_rho(v, rho) if rho is not None else op.apply(v)
+        np.testing.assert_allclose(got[s].numpy(), want[pv].numpy(),
                                    rtol=1e-12, atol=1e-13)
 
 
 def test_unstackable_operators_answer_none():
-    """TV-1D (warm kernel state) and a KKT operator that kept its factored
-    substitution chain answer None and go to the buckets."""
-    assert _op(kind="TOTAL_VARIATION_1D", alpha=0.1).stack_signature("v") is None
-    affine = _op(kind="AFFINE", alpha=0.3, n=1)
-    assert affine._collapsed is None and affine.stack_signature("v") is None
+    """TV-1D (warm kernel state) and KKT operators that kept their factored
+    substitution chain went to the buckets before; now they stack: equal
+    signatures on equal structure (the data aside), another signature on
+    another structure (a scalar, a shape, the metric, the pivots' kinds)."""
+    def sigs(**kw):
+        return [_op(seed=s, **kw).stack_signature("v") for s in (1, 2)]
+
+    tv = sigs(kind="TOTAL_VARIATION_1D", alpha=0.1)
+    assert tv[0] is not None and tv[0] == tv[1]
+    for other in (dict(alpha=0.2), dict(alpha=0.1, n=7), dict(alpha=0.1, rho=2.0)):
+        assert _op(kind="TOTAL_VARIATION_1D", **other).stack_signature("v") != tv[0]
+    affine = sigs(kind="AFFINE", alpha=0.3, n=1)
+    assert _op(kind="AFFINE", alpha=0.3, n=1)._collapsed is None
+    assert affine[0] is not None and affine[0] == affine[1]
+    assert _op(kind="AFFINE", alpha=0.3, n=1, rho=2.0).stack_signature("v") != affine[0]
+    wide = sigs(kind="SUM_SQUARE", m=4, n=40)
+    assert _op(kind="SUM_SQUARE", m=4, n=40)._collapsed is None
+    assert wide[0] is not None and wide[0] == wide[1]
+    for other in (dict(m=5), dict(m=4, rho=2.0)):
+        assert _op(kind="SUM_SQUARE", n=40, **other).stack_signature("v") != wide[0]
+    # alpha scales H inside the factor: data, as in the JAX package's trace
+    assert _op(kind="SUM_SQUARE", m=4, n=40, alpha=0.3).stack_signature("v") == wide[0]
+    assert wide[0] != affine[0] != tv[0]

@@ -49,21 +49,29 @@ def _data_20_10():
 
 
 WORLD_2 = ["multi_term", "lasso_device", "lasso_host", "adaptive_rho",
-           "tv_warm_state", "stop_callback"]
+           "tv_warm_state", "stop_callback",
+           "ckpt_host", "ckpt_device", "ckpt_from_world4"]
 WORLD_4 = ["multi_term", "more_ranks_than_terms", "bucket_balancing",
            "nblock_rewrite", "bucket_memory", "bucket_update",
-           "checkpointer_raises", "tv_warm_state", "stop_callback",
-           "frontend_prox_admm"]
+           "tv_warm_state", "stop_callback",
+           "frontend_prox_admm",
+           "ckpt_host", "ckpt_device", "ckpt_other_problem", "ckpt_world4_save"]
 
 
 @pytest.fixture(scope="module")
-def world2():
-    return ml.run_workers(2, WORLD_2)
+def ckpt_dir(tmp_path_factory):
+    """Where the world-4 launch leaves a checkpoint for the world-2 one."""
+    return str(tmp_path_factory.mktemp("mesh_ckpt"))
 
 
 @pytest.fixture(scope="module")
-def world4():
-    return ml.run_workers(4, WORLD_4)
+def world4(ckpt_dir):
+    return ml.run_workers(4, WORLD_4, extra_env={"EPSILON_MESH_CKPT": ckpt_dir})
+
+
+@pytest.fixture(scope="module")
+def world2(world4, ckpt_dir):
+    return ml.run_workers(2, WORLD_2, extra_env={"EPSILON_MESH_CKPT": ckpt_dir})
 
 
 @pytest.fixture
@@ -225,8 +233,91 @@ def test_stop_callback_on_one_rank_stops_all(ranks, world):
     assert str(got["state"]) == "max_iterations_reached"
 
 
-def test_checkpointer_with_group_raises(ranks):
-    assert all(bool(r["checkpointer_raises"]["raised"]) for r in ranks[4])
+# -- checkpoints with a group (tests/torch_mesh_worker.py ``ckpt_*``) -------------
+#
+# The problem: the consensus lasso's stacked group of 8, a TV-1D term with
+# its warm dual in a bucket, the replicated keys z and v; an interrupted
+# solve stops after five whole epochs.  A resumed solve restores the state
+# exactly and runs the same operations as the uninterrupted one, so the two
+# agree to rounding: the same iteration total, series and x at rtol 1e-12.
+
+def _uninterrupted(got):
+    return {k[len("full_x:"):]: v for k, v in got.items() if k.startswith("full_x:")}
+
+
+@pytest.mark.parametrize("drive", ["host", "device"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_checkpoint_resume_equals_uninterrupted(ranks, world, drive):
+    got = ml.assert_ranks_agree(ranks[world], f"ckpt_{drive}")
+    assert int(got["iters"]) == int(got["full_iters"])
+    assert str(got["state"]) == "optimal"
+    full = got["full_series"]
+    # the resumed solve's series is the uninterrupted one's after the cut
+    np.testing.assert_allclose(got["series"], full[-len(got["series"]):], rtol=1e-12)
+    assert len(got["series"]) == len(full) - 5
+    for k, v in _uninterrupted(got).items():
+        np.testing.assert_allclose(got[f"x:{k}"], v, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_checkpoint_only_rank0_writes(ranks, world):
+    """Rank 0 writes every checkpoint (host drive: one a epoch of both
+    solves, 5 + 17; device drive: one at the end of each), the others
+    none, and the directory holds whole files alone."""
+    for rank, r in enumerate(ranks[world]):
+        assert int(r["ckpt_host"]["saves"]) == (22 if rank == 0 else 0)
+        assert int(r["ckpt_device"]["saves"]) == (2 if rank == 0 else 0)
+    assert list(ranks[world][0]["ckpt_host"]["files"]) == ["step_210.pt", "step_220.pt"]
+    assert list(ranks[world][0]["ckpt_device"]["files"]) == ["step_220.pt", "step_50.pt"]
+
+
+def test_checkpoint_resume_at_another_world_size(ranks):
+    """A checkpoint written by 4 ranks (the global layout) resumes on 2: the
+    groups are the same, the buckets differ; the iteration total and x are
+    the uninterrupted world-2 solve's."""
+    assert [int(r["ckpt_world4_save"]["saves"]) for r in ranks[4]] == [5, 0, 0, 0]
+    got = ml.assert_ranks_agree(ranks[2], "ckpt_from_world4")
+    ref = ranks[2][0]["ckpt_host"]
+    assert ml.buckets_of(got, 2) != ml.buckets_of(ranks[4][0]["ckpt_host"], 4)
+    assert int(got["iters"]) == int(ref["full_iters"])
+    np.testing.assert_allclose(got["series"], ref["full_series"][5:], rtol=1e-9)
+    for k, v in _uninterrupted(ref).items():
+        np.testing.assert_allclose(got[f"x:{k}"], v, rtol=1e-9, atol=1e-12)
+
+
+def test_checkpoint_of_other_problem_starts_every_rank_fresh(ranks):
+    """Rank 0 sees a checkpoint of another problem and the other ranks one of
+    this problem: rank 0's decision (start fresh) holds for every rank, so
+    the solve is the uninterrupted one."""
+    got = ml.assert_ranks_agree(ranks[4], "ckpt_other_problem")
+    ref = ranks[4][0]["ckpt_host"]
+    assert int(got["iters"]) == int(ref["full_iters"])
+    np.testing.assert_array_equal(got["series"], ref["full_series"])
+
+
+def test_checkpointed_meshed_solve_matches_jax(ranks, tmp_path):
+    """The JAX package's meshed solve on 4 devices with its (orbax)
+    checkpointer, cut after the same five epochs and resumed, against the
+    port's: the iteration total, the resumed series and x, under the meshed
+    tolerances of ``torch_mesh_launch``."""
+    import jax
+    from jax.sharding import Mesh
+    from epsilon_tpu.solvers import ProxADMMTwoBlockSolver, SolverParams
+    from epsilon_tpu.utils.checkpoint import SolverCheckpointer
+    mesh = Mesh(np.array(jax.devices()[:4]), ("terms",))
+    params = dict(rel_tol=1e-4, abs_tol=1e-6, drive="host")
+
+    def run(max_iterations):
+        js = ProxADMMTwoBlockSolver(
+            mc.make_consensus_lasso(mc.ns("epsilon_tpu"), *mc.consensus_data(), tv=True),
+            SolverParams(mesh=mesh, max_iterations=max_iterations, **params))
+        js.attach_checkpointer(SolverCheckpointer(str(tmp_path), every_epochs=1))
+        return js, js.solve()
+
+    run(50)
+    js, xj = run(4000)
+    got = ml.assert_ranks_agree(ranks[4], "ckpt_host")
+    ml.assert_matches(got, js, xj)
 
 
 def test_problem_solve_prox_admm_with_group_matches_jax(ranks):

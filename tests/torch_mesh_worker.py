@@ -5,7 +5,9 @@ torch.distributed with gloo on the CPU, float64.  Loads the port alone.
 Usage: python torch_mesh_worker.py <rank> <world> <init_file> <out_prefix> <case,case,...>
 
 Runs the named cases in order (every rank the same list) and writes one
-``<out_prefix>.<rank>.npz`` with the entries ``<case>/<name>``.
+``<out_prefix>.<rank>.npz`` with the entries ``<case>/<name>``.  Files a
+case writes (checkpoints) go beside the results, in the launch's directory,
+or under ``EPSILON_MESH_CKPT`` when a checkpoint must outlive the launch.
 """
 
 import logging
@@ -21,9 +23,11 @@ from epsilon_tpu_torch import config
 from epsilon_tpu_torch.parallel import block_mesh, initialize_distributed
 from epsilon_tpu_torch.solvers import (ProxADMMSolver, ProxADMMTwoBlockSolver,
                                        SolverParams, create_solver)
+from epsilon_tpu_torch.utils.checkpoint import SolverCheckpointer
 
 P = mc.ns("epsilon_tpu_torch")
 TIGHT = dict(rel_tol=1e-6, abs_tol=1e-8, max_iterations=4000)
+WORKDIR = None   # the launch's directory, set by main()
 
 
 def series(solver):
@@ -167,17 +171,6 @@ def case_stop_callback(group):
     return solved(solver, x)
 
 
-def case_checkpointer_raises(group):
-    solver = ProxADMMTwoBlockSolver(mc.make_multi_term_problem(P),
-                                    SolverParams(mesh=group))
-    try:
-        solver.attach_checkpointer(object())
-        raised = False
-    except NotImplementedError:
-        raised = True
-    return {"raised": raised}
-
-
 # -- scenario stacking (tests/test_scenario.py) --------------------------------
 
 def _consensus(group, drive="device", **kw):
@@ -278,6 +271,108 @@ def case_mesh_flip(group):
     out["n_groups_after"] = len(solver.scn_groups)
     out["iters_after"] = solver.status.num_iterations
     return out
+
+
+# -- the kinds stacked since the first meshed slice ---------------------------------
+
+def _kind_case(name):
+    def case(group):
+        solver, x = solve(group, mc.problems(P)[name](), **mc.KIND_SOLVES[name])
+        g = solver.scn_groups[0]
+        b = solver.operator_bytes()
+        st = (solver._kstate0[len(solver.term_ops)]
+              if solver._kstate0 is not None else None)
+        return solved(solver, x, {
+            "stack_bytes": np.array(b["stacks"]),
+            "term_op_bytes": np.array(b["term_ops"]),
+            "all_dim": solver.all_dims[g.key], "state_dim": solver.state_dims[g.key],
+            "state_rows": -1 if st is None else st.shape[0]})
+    return case
+
+
+for _name in mc.KIND_SOLVES:
+    globals()[f"case_{_name}"] = _kind_case(_name)
+
+
+# -- checkpoints with a group -----------------------------------------------------
+
+# A stacked group of 8, a TV-1D bucket term with its warm dual, and the
+# replicated keys z and v; it converges in 220 iterations, CUT stops the
+# interrupted solve after five whole epochs.
+CKPT = dict(rel_tol=1e-4, abs_tol=1e-6, max_iterations=4000)
+CUT = 50
+
+
+def _ckpt_problem():
+    return mc.make_consensus_lasso(P, *mc.consensus_data(), tv=True)
+
+
+class _Counting(SolverCheckpointer):
+    """A checkpointer that counts the files it writes."""
+    saves = 0
+
+    def save(self, step, state):
+        self.saves += 1
+        super().save(step, state)
+
+
+def _ckpt_solve(group, directory, drive, **kw):
+    solver = ProxADMMTwoBlockSolver(_ckpt_problem(), SolverParams(
+        mesh=group, drive=drive, **dict(CKPT, **kw)))
+    ckpt = _Counting(directory, every_epochs=1)
+    solver.attach_checkpointer(ckpt)
+    x = solver.solve()
+    return solver, x, ckpt.saves
+
+
+def _ckpt_case(drive):
+    """Uninterrupted, then cut after CUT iterations with a checkpointer and
+    resumed by a fresh solver from the same directory."""
+    def case(group):
+        full, x_full = solve(group, _ckpt_problem(), drive=drive, **CKPT)
+        d = os.path.join(WORKDIR, f"ckpt_{drive}")
+        _, _, saves = _ckpt_solve(group, d, drive, max_iterations=CUT)
+        solver, x, more = _ckpt_solve(group, d, drive)
+        out = solved(solver, x, {
+            "full_iters": full.status.num_iterations, "full_series": series(full),
+            "saves": saves + more,
+            "files": np.array(sorted(os.listdir(d)))})
+        out.update({f"full_x:{k}": v.numpy() for k, v in x_full.items()})
+        return out
+    return case
+
+
+case_ckpt_host = _ckpt_case("host")
+case_ckpt_device = _ckpt_case("device")
+
+
+def case_ckpt_world4_save(group):
+    """An interrupted solve whose checkpoint another launch resumes."""
+    _, _, saves = _ckpt_solve(group, os.environ["EPSILON_MESH_CKPT"], "host",
+                              max_iterations=CUT)
+    return {"saves": saves}
+
+
+def case_ckpt_from_world4(group):
+    solver, x, saves = _ckpt_solve(group, os.environ["EPSILON_MESH_CKPT"], "host")
+    return solved(solver, x, {"saves": saves})
+
+
+def case_ckpt_other_problem(group):
+    """Rank 0 finds a checkpoint of another problem, the other ranks one of
+    this problem (``ckpt_host``'s): rank 0's decision holds for all, so
+    every rank starts fresh."""
+    if dist.get_rank(group) == 0:
+        d = os.path.join(WORKDIR, "other_problem")
+        other = ProxADMMTwoBlockSolver(
+            mc.make_consensus_lasso(P, *mc.consensus_data(S=6)),
+            SolverParams(drive="device", max_iterations=20))
+        other.attach_checkpointer(SolverCheckpointer(d))
+        other.solve()
+    else:
+        d = os.path.join(WORKDIR, "ckpt_host")
+    solver, x, saves = _ckpt_solve(group, d, "host")
+    return solved(solver, x)
 
 
 # -- through the frontend --------------------------------------------------------
@@ -392,8 +487,10 @@ CASES = {k[len("case_"):]: v for k, v in globals().items()
 
 
 def main():
+    global WORKDIR
     rank, world, init_file, out_prefix = (int(sys.argv[1]), int(sys.argv[2]),
                                           sys.argv[3], sys.argv[4])
+    WORKDIR = os.path.dirname(out_prefix)
     names = sys.argv[5].split(",")
     logging.basicConfig(level=logging.WARNING)
     torch.set_num_threads(1)

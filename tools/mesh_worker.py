@@ -1,6 +1,7 @@
 """One rank of the meshed paths that ``chip_smoke.py`` drives in its phase 9.
 
     python3 tools/mesh_worker.py run <rank> <world> <rendezvous_file> <out_dir>
+    python3 tools/mesh_worker.py resume <rank> <world> <rendezvous_file> <out_dir>
     python3 tools/mesh_worker.py probe [world]
 
 The second form starts ``world`` (4) ranks of itself and prints two
@@ -30,6 +31,20 @@ caller holds the results to its references.
 (d) The sharded consensus solve (``consensus_lasso_solver(..., group=)``,
     the fused local-update kernel on every rank's blocks) for 500
     iterations.
+(e) Wide scenarios: 64 blocks of 200 x 2000 (fewer rows than features,
+    ``consensus_blocks``' generator, seed 0, f32) with NORM_1 on z at
+    lambda 0.1, through ``Problem.solve(mesh=group)``: every SUM_SQUARE term
+    keeps its factored KKT chain (the collapsed solve would not be smaller)
+    and the 64 stack as one group.
+(f) One consensus family per operator kind stacked since (``FAMILIES``,
+    ``tests/torch_mesh_cases.make_family_problem`` at the sizes of
+    ``FULL["kinds"]``), 8 scenarios, at most ``FULL["kind_iters"]``
+    iterations each.
+(g) (e)'s problem stopped after ``CKPT_EPOCHS`` epochs under
+    ``drive="host"`` with a checkpointer in ``<out_dir>/ckpt``, and resumed
+    by a new solver on the same ranks; the ``resume`` form resumes the same
+    checkpoint on another number of ranks (it writes ``resume<r>.json`` and
+    ``.npz``).
 """
 
 import functools
@@ -49,10 +64,21 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-# steady_iters: (a)'s and (b)'s warm re-solves, whole epochs of 50; (b) runs
-# at 45-55 ms per iteration on four ranks of one card, so its are the shorter
+# steady_iters: (a)'s, (b)'s and (e)'s warm re-solves, whole epochs of 50
+# (the device drive rounds a count down to whole epochs, and up to one)
+# kind_iters: (f)'s iteration caps; the matrix and per-slice families run
+# to convergence (about 70 iterations in f32 on the CPU), the others stop
+# sooner, short of it where a call costs most (TV-1D's PDAS, the
+# two-argument and exp epigraph Newton loops)
 FULL = dict(consensus=(200, 2500, 200), hetero=(2048, 64), flagship=(2000, 1000),
-            consensus_iters=500, steady_iters=dict(a=100, b=50))
+            consensus_iters=500, steady_iters=dict(a=50, b=50, e=50),
+            wide=(64, 200, 2000), kind_S=8,
+            kinds=dict(tv=10000, epigraph=10000, epigraph_elementwise=10000,
+                       matrix=(64, 64), slices=(100, 100), two_arg=10000,
+                       sparse=10000, kron=(100, 100)),
+            kind_iters=dict(tv=10, epigraph=60, epigraph_elementwise=10,
+                            matrix=200, slices=200, two_arg=10, sparse=20,
+                            kron=20))
 LAM, RHO = 0.1, 1.0
 SOLVE = dict(rel_tol=1e-3, abs_tol=1e-6, rho=1.0)
 # (a): the general two-block splitting gives the NORM_1 term one copy among
@@ -63,6 +89,12 @@ SOLVE = dict(rel_tol=1e-3, abs_tol=1e-6, rho=1.0)
 # 3e-7 (1,090); the gate is 1e-2 (``probe`` prints the ladder).
 TIGHT = dict(rel_tol=3e-7, abs_tol=1e-9, rho=RHO, max_iterations=5000)
 STEADY_REPS = 3
+# (e) and (g): the wide family's solve (about 110 iterations); (f): each
+# family's, with its cap from ``kind_iters``
+WIDE = dict(rel_tol=1e-3, abs_tol=1e-6, rho=RHO, max_iterations=3000)
+KINDS = dict(rel_tol=1e-3, abs_tol=1e-6, rho=RHO)
+CKPT_EPOCHS = 3
+WIDE_IDS = 10 ** 6    # (e)'s variables count their ids from here
 
 
 def workload(m, n, seed=0):
@@ -82,9 +114,15 @@ def consensus_blocks(S, m, n):
     return make_blocks(S, m, n)
 
 
-def consensus_problem(ep, A, b, lam):
+def consensus_problem(ep, A, b, lam, first_id=None):
     """sum_i 1/2 ||A_i x_i - b_i||^2 + lam ||z||_1  s.t.  x_i = z, with the
-    modeling API: ``(problem, z, [x_i])``."""
+    modeling API: ``(problem, z, [x_i])``.  With ``first_id`` the variables'
+    ids count from it, so that two processes compile the same variable
+    names (a checkpoint's state carries them)."""
+    if first_id is not None:
+        import itertools
+        from epsilon_tpu_torch.frontend import expression
+        expression._COUNTER = itertools.count(first_id)
     S, _, n = A.shape
     z = ep.Variable(n)
     xs = [ep.Variable(n) for _ in range(S)]
@@ -93,6 +131,30 @@ def consensus_problem(ep, A, b, lam):
         obj = obj + 0.5 * ep.sum_squares(ep._wrap(A[i].astype(np.float64)) * x
                                          - b[i].astype(np.float64))
     return ep.Problem(ep.Minimize(obj), [x == z for x in xs]), z, xs
+
+
+def mesh_cases():
+    """``tests/torch_mesh_cases.py`` (the meshed tests' problems, built with
+    the port's IR): ``(module, IR namespace)``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tests"))
+    import torch_mesh_cases as mc
+    return mc, mc.ns("epsilon_tpu_torch")
+
+
+def kind_problem(family, sizes):
+    """(f)'s problem of one family, with a sum of squares on z: strongly
+    convex, so the meshed and the one-process solve, which round in
+    another order, cannot drift apart along a flat direction (with NORM_1
+    on z the per-slice family's did by 3e-2 in f32)."""
+    mc, P = mesh_cases()
+    return mc.make_family_problem(P, family, S=sizes["kind_S"],
+                                  size=sizes["kinds"][family], shared="SUM_SQUARE")
+
+
+def flat_x(x):
+    """A solution's blocks, in sorted key order, as one f64 array."""
+    return np.concatenate([x[k].detach().cpu().numpy().astype(np.float64).ravel()
+                           for k in sorted(x.keys())])
 
 
 def hetero_problem(n, n_groups, seed=0):
@@ -343,6 +405,115 @@ def part_d(ep, group, sizes, device_type, out, arrays):
     arrays["d_z"] = res.z.cpu().numpy().astype(np.float64)
 
 
+def _values(z, xs):
+    return np.concatenate([np.asarray(v.value, dtype=np.float64).ravel()
+                           for v in [z] + xs])
+
+
+def part_e(ep, group, sizes, device_type, out, arrays):
+    S, m, n = sizes["wide"]
+    world = dist.get_world_size(group)
+    A, b = consensus_blocks(S, m, n)
+    t0 = time.perf_counter()
+    prob, z, xs = consensus_problem(ep, A, b, LAM, first_id=WIDE_IDS)
+    obj = prob.solve(mesh=group, warm_start=True, **WIDE)
+    _sync()
+    wall = time.perf_counter() - t0
+    st = prob.solver_status
+    solver = cached_solver(prob)
+    assert len(solver.scn_groups) == 1 and solver.scn_groups[0].S == S, \
+        f"(e) expected one group of {S}, got {[g.S for g in solver.scn_groups]}"
+    g = solver.scn_groups[0]
+    assert len(g.rows) == S // world and all(s_.shape[0] == S // world for s_ in g.stacks)
+    # a fresh operator of one member: the factored chain is kept
+    i = g.term_idx[g.rows.start]
+    op = solver._build_term_op(solver.problem, solver.problem.terms[i], solver.term_vars[i])
+    assert op._collapsed is None and g.signature[0] == "kkt_chain", "(e) chain not kept"
+    assert _on_device(solver, device_type), "(e) state or stacks off the device"
+    out["e"] = dict(
+        route="Problem.solve(mesh=group)", status=prob.status, objective=obj,
+        iterations=st.num_iterations, wall_s=wall,
+        setup_s=st.timing.init_usec / 1e6, solve_s=st.timing.solve_usec / 1e6,
+        groups=[dict(key=g.key, S=g.S, d=g.d, rows=[g.rows.start, g.rows.stop])],
+        signature=g.signature[0], chain=[[k, nk, part.sig[0]] for k, nk, part, _ in
+                                         op._chain_parts(solver.term_vars[i][0])[0]],
+        bucketed_terms=sum(len(bkt) for bkt in (solver.buckets or [])),
+        bytes=solver.operator_bytes(), x_digest=_digest([_values(z, xs)]))
+    arrays["e_x"] = _values(z, xs)
+
+    def resolve(**kw):
+        prob.solve(mesh=group, warm_start=True, **dict(WIDE, **kw))
+        return prob.solver_status
+    out["e"]["steady"] = _steady(resolve, sizes["steady_iters"]["e"], solver,
+                                 dist.get_rank(group) == 0)
+    # (g) reads the compiled problem and the variables back
+    out["_e_problem"] = (prob, z, xs, solver.problem)
+
+
+def part_f(ep, group, sizes, device_type, out, arrays):
+    from epsilon_tpu_torch.solvers import ProxADMMTwoBlockSolver, SolverParams
+    world = dist.get_world_size(group)
+    out["f"] = {}
+    for family in sizes["kinds"]:
+        prob = kind_problem(family, sizes)
+        t0 = time.perf_counter()
+        solver = ProxADMMTwoBlockSolver(prob, SolverParams(
+            mesh=group, max_iterations=sizes["kind_iters"][family], **KINDS))
+        x = solver.solve()
+        _sync()
+        wall = time.perf_counter() - t0
+        assert [g_.S for g_ in solver.scn_groups] == [sizes["kind_S"]], \
+            f"(f) {family}: groups {[g_.S for g_ in solver.scn_groups]}"
+        g = solver.scn_groups[0]
+        st = solver._kstate0[len(solver.term_ops)] if solver._kstate0 else None
+        out["f"][family] = dict(
+            status=solver.status.state.value, iterations=solver.status.num_iterations,
+            wall_s=wall, setup_s=solver.status.timing.init_usec / 1e6,
+            ms_per_iter=solver.status.timing.solve_usec / 1e3 / solver.status.num_iterations,
+            d=g.d, rows=len(g.rows), mode=[str(v) for v in g.signature[:2]],
+            state_rows=None if st is None else int(st.shape[0]),
+            stacked_bytes=g.stacked_bytes(), world=world)
+        arrays[f"f_{family}_x"] = flat_x(x)
+
+
+def _wide_solver(group, problem, ckpt_dir, every_epochs, **kw):
+    from epsilon_tpu_torch.solvers import ProxADMMTwoBlockSolver, SolverParams
+    from epsilon_tpu_torch.utils.checkpoint import SolverCheckpointer
+    solver = ProxADMMTwoBlockSolver(problem, SolverParams(
+        mesh=group, drive="host", **dict(WIDE, **kw)))
+    solver.attach_checkpointer(SolverCheckpointer(ckpt_dir, every_epochs=every_epochs))
+    return solver
+
+
+def _resumed(ep, group, problem, ckpt_dir, prob, z, xs):
+    """A new solver resumes (e)'s checkpoint (and saves no more)."""
+    from epsilon_tpu_torch.frontend.solve import _set_solution
+    solver = _wide_solver(group, problem, ckpt_dir, every_epochs=10 ** 9)
+    t0 = time.perf_counter()
+    x = solver.solve()
+    _sync()
+    _set_solution(prob, x, problem)
+    return solver, time.perf_counter() - t0, _values(z, xs)
+
+
+def part_g(ep, group, sizes, device_type, out, arrays):
+    prob, z, xs, problem = out.pop("_e_problem")
+    ckpt_dir = os.path.join(out["out_dir"], "ckpt")
+    cut = _wide_solver(group, problem, ckpt_dir, every_epochs=1,
+                       max_iterations=CKPT_EPOCHS * 10)
+    t0 = time.perf_counter()
+    cut.solve()
+    _sync()
+    cut_s = time.perf_counter() - t0
+    solver, resume_s, xv = _resumed(ep, group, problem, ckpt_dir, prob, z, xs)
+    out["g"] = dict(cut_iterations=cut.status.num_iterations, cut_s=cut_s,
+                    iterations=solver.status.num_iterations,
+                    resumed_epochs=len(solver.status.series),
+                    status=solver.status.state.value, resume_s=resume_s,
+                    files=sorted(os.listdir(ckpt_dir)))
+    arrays["g_x"] = xv
+
+
 def start(rank, world, init_file, device):
     """Join the process group: ``(ep, group, backend)``."""
     import epsilon_tpu_torch as ep
@@ -359,14 +530,18 @@ def finish(group):
     dist.destroy_process_group()
 
 
-def run(rank, world, init_file, out_dir, device="cuda", sizes=FULL):
+PARTS = (("a", part_a), ("b", part_b), ("c", part_c), ("d", part_d),
+         ("e", part_e), ("f", part_f), ("g", part_g))
+
+
+def run(rank, world, init_file, out_dir, device="cuda", sizes=FULL, parts=PARTS):
     from epsilon_tpu_torch import config
     ep, group, backend = start(rank, world, init_file, device)
     device_type = config.device().type
-    out = dict(rank=rank, world=world, backend=backend,
+    out = dict(rank=rank, world=world, backend=backend, out_dir=out_dir,
                card=(torch.cuda.current_device() if device_type == "cuda" else None))
     arrays = {}
-    for name, part in (("a", part_a), ("b", part_b), ("c", part_c), ("d", part_d)):
+    for name, part in parts:
         t0 = time.perf_counter()
         part(ep, group, sizes, device_type, out, arrays)
         out[f"{name}_seconds"] = time.perf_counter() - t0
@@ -375,6 +550,26 @@ def run(rank, world, init_file, out_dir, device="cuda", sizes=FULL):
     Path(out_dir).mkdir(parents=True, exist_ok=True)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=float)
+    finish(group)
+
+
+def run_resume(rank, world, init_file, out_dir, device="cuda", sizes=FULL):
+    """(g) on ``world`` ranks: (e)'s problem, built again, resumes the
+    checkpoint in ``<out_dir>/ckpt``."""
+    ep, group, backend = start(rank, world, init_file, device)
+    A, b = consensus_blocks(*sizes["wide"])
+    prob, z, xs = consensus_problem(ep, A, b, LAM, first_id=WIDE_IDS)
+    from epsilon_tpu_torch.compiler import compiler
+    problem = compiler.compile_problem(prob.expression_problem())
+    solver, resume_s, xv = _resumed(ep, group, problem, os.path.join(out_dir, "ckpt"),
+                                    prob, z, xs)
+    g = solver.scn_groups[0]
+    out = dict(rank=rank, world=world, backend=backend, iterations=solver.status.num_iterations,
+               resumed_epochs=len(solver.status.series), status=solver.status.state.value,
+               resume_s=resume_s, rows=[g.rows.start, g.rows.stop])
+    np.savez(os.path.join(out_dir, f"resume{rank}.npz"), g_x=xv)
+    with open(os.path.join(out_dir, f"resume{rank}.json"), "w") as f:
         json.dump(out, f, default=float)
     finish(group)
 
@@ -426,8 +621,8 @@ def run_probe(rank, world, init_file, device="cuda", sizes=FULL):
 
 
 def spawn_ranks(mode, world, timeout, out_dir=None):
-    """Start ``world`` ranks of this file (``mode`` "run" with ``out_dir``,
-    or "probe-rank") and wait for them under one hard limit of ``timeout``
+    """Start ``world`` ranks of this file (``mode`` "run" or "resume" with
+    ``out_dir``, or "probe-rank") and wait for them under one hard limit of ``timeout``
     seconds.  A rank that exits non-zero, or any rank still running at the
     limit (all are then killed), raises."""
     # the ranks rendezvous through a file and talk over the loopback
@@ -468,6 +663,8 @@ if __name__ == "__main__":
                                      sys.argv[4])
     if mode == "probe-rank":
         run_probe(rank, world, rendezvous)
+    elif mode == "resume":
+        run_resume(rank, world, rendezvous, sys.argv[5])
     else:
         run(rank, world, rendezvous, sys.argv[5])
     sys.stdout.flush()
