@@ -1,8 +1,9 @@
 """Build a kernel source of ``csrc/`` into a shared library for ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  It is
-compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/lib<name>_<sha>.so``, named by the source's hash so that an
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface (it may
+include the shared ``csrc/*.cuh`` headers).  It is compiled with ``nvcc``
+for ``sm_90a`` at first use into ``build/kernels/lib<name>_<sha>.so``,
+named by the hash of the source, the headers and the flags, so that an
 edit rebuilds.  Separate sources build independently, so callers may start
 several builds at once.
 """
@@ -32,18 +33,23 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str):
-    """Compile ``csrc/<name>.cu`` for sm_90a into a shared library under
-    ``build/kernels/``.  Returns ``(path, seconds, compiler_log)``; seconds
-    is 0 when the library was already built."""
+def build(name: str, flags=()):
+    """Compile ``csrc/<name>.cu`` for sm_90a, with the extra nvcc ``flags``,
+    into a shared library under ``build/kernels/``.  Returns ``(path,
+    seconds, compiler_log)``; seconds is 0 when the library was already
+    built."""
     src = _CSRC / f"{name}.cu"
-    out = _BUILD_DIR / f"lib{name}_{hashlib.sha1(src.read_bytes()).hexdigest()[:12]}.so"
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(flags).encode())
+    out = _BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
     if out.exists():
         return out, 0.0, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags,
            "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import epi_neg_log
 from .util import (as_tensor_like, newton_safeguarded, pwl_root,
                    solve_w_log_w, where_batch)
 
@@ -207,6 +208,16 @@ def eval_sum_neg_log(x):
 
 
 def epi_sum_neg_log(v, s):
+    """Projection of every row's (v, s) onto {(x, t): -sum log x_i <= t}:
+    the plain version (:func:`epi_sum_neg_log_reference`) on a CPU tensor,
+    one launch of the ``epi_neg_log`` kernel on a CUDA tensor; any other
+    device raises."""
+    if v.device.type == "cpu":
+        return epi_sum_neg_log_reference(v, s)
+    return epi_neg_log.epi_rows(v, s)
+
+
+def epi_sum_neg_log_reference(v, s):
     """Projection onto {(x, t): -sum log x_i <= t} by implicit Newton on
     the epigraph's lambda."""
     from .newton_epi import make_epigraph

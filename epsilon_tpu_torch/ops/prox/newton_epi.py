@@ -18,10 +18,12 @@ from typing import Callable, Optional
 
 import torch
 
+from ..kernels import lse_rows
 from .util import as_tensor_like, where_batch
 
 __all__ = ["newton_epigraph", "implicit_newton_epigraph", "make_epigraph",
-           "lse_metric_solve", "epi_log_sum_exp", "epi_sum_kl_div"]
+           "lse_metric_solve", "epi_log_sum_exp", "epi_log_sum_exp_reference",
+           "epi_sum_kl_div"]
 
 
 def _domain_eps(dtype):
@@ -182,10 +184,20 @@ def lse_metric_solve(x, lam, r):
 
 
 def epi_log_sum_exp(v, s):
-    from .vector import eval_log_sum_exp, prox_log_sum_exp
+    """Project every row's (v, s) onto {(x, t): logsumexp(x) <= t}: the
+    plain version (:func:`epi_log_sum_exp_reference`) on a CPU tensor, one
+    launch of the ``lse_rows`` kernel on a CUDA tensor; any other device
+    raises."""
+    if v.device.type == "cpu":
+        return epi_log_sum_exp_reference(v, s)
+    return lse_rows.epi_rows(v, s)
+
+
+def epi_log_sum_exp_reference(v, s):
+    from .vector import eval_log_sum_exp, prox_log_sum_exp_reference
     epi = make_epigraph(eval_log_sum_exp, lambda x: torch.softmax(x, dim=-1),
                         metric_solve=lse_metric_solve,
-                        prox=lambda vv, lam: prox_log_sum_exp(vv, lam[..., 0]))
+                        prox=lambda vv, lam: prox_log_sum_exp_reference(vv, lam[..., 0]))
     return epi(v, s)
 
 

@@ -21,6 +21,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ...ir import ProxKind
+from ..kernels import epi_sum_square
 from . import elementwise as ew
 from . import matrix as mx
 from . import newton_epi as ne
@@ -62,6 +63,16 @@ def _scaled_zone_entry(defaults):
 
 
 def _epi_sum_square(v, s):
+    """Project every row's (v, s) onto {(x, t): ||x||^2 <= t}: the plain
+    version (:func:`_epi_sum_square_reference`) on a CPU tensor, one launch
+    of the ``epi_sum_square`` kernel on a CUDA tensor; any other device
+    raises."""
+    if v.device.type == "cpu":
+        return _epi_sum_square_reference(v, s)
+    return epi_sum_square.epi_rows(v, s)
+
+
+def _epi_sum_square_reference(v, s):
     """Project (v, s) onto {(x, t): ||x||^2 <= t}: lam >= max(0, -s) solves
     the cubic (s + lam)(1 + 2 lam)^2 = ||v||^2, then x = v/(1+2 lam),
     t = s + lam; increasing on the bracket, so safeguarded Newton."""

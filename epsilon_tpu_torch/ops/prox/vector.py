@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import lse_rows
 from .util import (as_tensor_like, newton_safeguarded, pwl_root,
                    solve_w_log_w, where_batch)
 
@@ -154,6 +155,15 @@ def project_soc_rows(X, t, beta=1.0):
 
 
 def prox_log_sum_exp(v, lam):
+    """``prox_{lam LSE}`` of every row: the plain version
+    (:func:`prox_log_sum_exp_reference`) on a CPU tensor, one launch of the
+    ``lse_rows`` kernel on a CUDA tensor; any other device raises."""
+    if v.device.type == "cpu":
+        return prox_log_sum_exp_reference(v, lam)
+    return lse_rows.prox_rows(v, lam)
+
+
+def prox_log_sum_exp_reference(v, lam):
     """Moreau-dual solve, robust for all lam: prox(v) = v - q with
     ``q_i + log q_i = v_i + log lam - 1 - nu`` (``q = solve_w_log_w``),
     closed by the monotone scalar condition sum_i q_i = lam, solved with

@@ -1,6 +1,8 @@
-"""CUDA-only tests of the port: the sym_packed (K2) and local_update (K1)
-kernels against their plain PyTorch versions, the factor apply, a small
-lasso and a small consensus lasso on the card.  They skip
+"""CUDA-only tests of the port: the sym_packed (K2), local_update (K1) and
+per-row loop (K3 lse_rows, K4 epi_sum_square, K5 epi_neg_log) kernels
+against their plain PyTorch versions, the factor apply, a small lasso, a
+small consensus lasso and the rows whose epigraphs K3 and K4 carry on the
+card.  They skip
 without a CUDA device.  This file imports neither JAX nor the JAX package,
 so it also runs where JAX is absent:
 
@@ -334,3 +336,127 @@ def test_eval_prox_on_the_card(cuda, rs):
     et.eval_prox(et.norm1(x), {x: v}, lam=0.5)
     np.testing.assert_allclose(x.value.ravel(), np.sign(v) * np.maximum(np.abs(v) - 0.5, 0),
                                atol=1e-6)
+
+
+# -- the per-row loop kernels (K3 lse_rows, K4 epi_sum_square, K5 epi_neg_log) --
+
+def _row_inputs(kind, shape, seed, dtype, device):
+    """``(v, p)``: v from a seed, p the per-row lam (log-uniform 1e-3..1e3)
+    or s, about a third of the rows inactive, some bounds negative, row 0
+    active; a quarter of K5's rows leave its domain."""
+    rng = np.random.RandomState(seed)
+    v = rng.standard_normal(shape) * 2.0
+    u = rng.uniform(-1.0, 1.0, shape[:-1])
+    u.reshape(-1)[0] = -0.5
+    if kind == "lse_prox":
+        p = 10.0 ** (3.0 * u)
+    elif kind == "lse_epi":
+        m = v.max(axis=-1, keepdims=True)
+        p = (m + np.log(np.exp(v - m).sum(axis=-1, keepdims=True)))[..., 0] + 3.0 * u - 1.0
+    elif kind == "sum_square":
+        p = (v * v).sum(axis=-1) * (1.25 * u + 0.25)
+    else:
+        v = np.abs(v) + 0.05
+        v[rng.rand(*shape[:-1]) < 0.25, 0] *= -1.0
+        p = -np.log(np.abs(v)).sum(axis=-1) + 3.0 * u - 1.0
+    return (torch.as_tensor(v, dtype=dtype, device=device),
+            torch.as_tensor(p, dtype=dtype, device=device))
+
+
+def _row_kernels():
+    from epsilon_tpu_torch.ops.kernels import epi_neg_log, epi_sum_square, lse_rows
+    from epsilon_tpu_torch.ops.prox import elementwise, newton_epi, registry, vector
+    return {
+        "lse_prox": (lse_rows, "prox_launches", vector.prox_log_sum_exp,
+                     vector.prox_log_sum_exp_reference),
+        "lse_epi": (lse_rows, "epi_launches", newton_epi.epi_log_sum_exp,
+                    newton_epi.epi_log_sum_exp_reference),
+        "sum_square": (epi_sum_square, "launches", registry._epi_sum_square,
+                       registry._epi_sum_square_reference),
+        "neg_log": (epi_neg_log, "launches", elementwise.epi_sum_neg_log,
+                    elementwise.epi_sum_neg_log_reference),
+    }
+
+
+# Relative to max(1, max |plain result|): the kernels sum a row in another
+# order than torch.sum, and their loops converge, so kernel and plain
+# version differ by rounding times the conditioning of the root.
+ROW_KERNEL_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,shape", [
+    ("lse_prox", (10000, 10)), ("lse_prox", (64, 1)), ("lse_prox", (64, 31)),
+    ("lse_prox", (64, 33)), ("lse_prox", (3, 8, 257)),
+    ("lse_epi", (100, 20)), ("lse_epi", (16, 1)), ("lse_epi", (16, 31)),
+    ("lse_epi", (16, 33)), ("lse_epi", (2, 4, 257)),
+    ("sum_square", (200,)), ("sum_square", (8, 1)), ("sum_square", (8, 31)),
+    ("sum_square", (8, 33)), ("sum_square", (2, 4, 257)),
+    ("neg_log", (10,)), ("neg_log", (8, 1)), ("neg_log", (8, 31)),
+    ("neg_log", (8, 33)), ("neg_log", (2, 4, 257)),
+])
+def test_row_kernel_matches_plain_version(cuda, kind, shape, dtype):
+    """Each per-row loop kernel through its dispatch (one launch) against
+    its plain version on the same CUDA tensors; bitwise repeatable."""
+    module, counter, dispatch, plain = _row_kernels()[kind]
+    v, p = _row_inputs(kind, shape, seed=sum(shape), dtype=dtype, device=cuda)
+    if len(shape) == 1:
+        p = p.reshape(())
+    before = getattr(module, counter)
+    got = dispatch(v, p)
+    assert getattr(module, counter) == before + 1
+    again, want = dispatch(v, p), plain(v, p)
+    got, again, want = [o if isinstance(o, tuple) else (o,) for o in (got, again, want)]
+    scale = max(1.0, max(w.abs().max().item() for w in want))
+    for a, b, w in zip(got, again, want):
+        assert a.shape == w.shape and a.dtype == w.dtype and a.device == w.device
+        assert torch.equal(a, b)
+        assert torch.isfinite(a).all()
+        assert (a - w).abs().max().item() <= ROW_KERNEL_RTOL[dtype] * scale
+
+
+def test_row_kernel_scalar_forms(cuda):
+    """lam as a host number, a 0-d CUDA tensor and a per-row tensor give
+    the same rows as the plain version; a bound on another device raises."""
+    from epsilon_tpu_torch.ops.kernels import lse_rows
+    from epsilon_tpu_torch.ops.prox import vector
+    v, lam = _row_inputs("lse_prox", (32, 12), 3, torch.float64, cuda)
+    for p in (0.7, torch.tensor(0.7, dtype=torch.float64, device=cuda), lam,
+              lam.to(torch.float32)):
+        got = vector.prox_log_sum_exp(v, p)
+        want = vector.prox_log_sum_exp_reference(v, p if not isinstance(p, torch.Tensor)
+                                                 else p.to(v.dtype))
+        assert (got - want).abs().max().item() <= 1e-10 * max(1.0, want.abs().max().item())
+    with pytest.raises(ValueError):
+        lse_rows.epi_rows(v, torch.zeros(32, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("row,kwargs", [
+    ("max_softmax", dict(m=6, k=3, n=4)),       # the LOG_SUM_EXP epigraph per row
+    ("oneclass_svm", dict(m=30, n=5)),          # the SUM_SQUARE epigraph
+])
+def test_loop_kernel_rows_on_card_match_cpu_port(cuda, monkeypatch, row, kwargs):
+    """A row whose epigraph is a per-row loop kernel, at the small size of
+    the CPU library tests, through Problem.solve on the card in f64 (the
+    kernel launched) against the port on the CPU in f64: objective within
+    1e-6 relative and the same iteration count, or one epoch of 50 apart
+    (the kernels sum in another order, which can move the stopping test
+    across an epoch's boundary)."""
+    from epsilon_tpu_torch.ops.kernels import epi_sum_square, lse_rows
+    from epsilon_tpu_torch.problems import benchmark
+    monkeypatch.setattr(config, "default_dtype", lambda: torch.float64)
+    monkeypatch.setattr(config, "default_np_dtype", lambda: np.dtype(np.float64))
+    inst = next(p for p in benchmark.PROBLEMS_REFERENCE() if p.name == row)
+    inst = benchmark.ProblemInstance(row, inst.create, kwargs)
+    before = lse_rows.epi_launches + epi_sum_square.launches
+    prob = inst.create_problem()
+    obj_gpu = prob.solve(rel_tol=1e-3)
+    iters_gpu = prob.solver_status.num_iterations
+    assert prob.status == "optimal"
+    assert lse_rows.epi_launches + epi_sum_square.launches >= before + iters_gpu
+    config.set_device("cpu")
+    prob_cpu = inst.create_problem()
+    obj_cpu = prob_cpu.solve(rel_tol=1e-3)
+    assert prob_cpu.status == "optimal"
+    assert abs(iters_gpu - prob_cpu.solver_status.num_iterations) <= 50
+    np.testing.assert_allclose(obj_gpu, obj_cpu, rtol=1e-6)

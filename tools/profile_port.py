@@ -245,6 +245,8 @@ def profile_steady(tag, solve, iters):
     for e in rows[:10]:
         print(f"{tag}:   {e.key[:60]} x{e.count}: "
               f"{e.self_device_time_total / iters:.2f} us/iter")
+    for e in sorted(rows, key=lambda e: -e.count)[:12]:
+        print(f"{tag}:   by count: {e.key[:60]} {e.count / iters:.1f}/iter")
     host = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CPU and e.key in (
