@@ -51,7 +51,14 @@ Phases, in order; any failure exits non-zero:
    plain PyTorch versions on the card, at the shapes phase 7 gives them
    and at widths 1, 31, 33 and 257, in f32 and f64, with active and
    inactive rows: error, bitwise repeatability, and device times of kernel
-   and plain version at the main path's shape.
+   and plain version at the main path's shape.  K3 and K5 stop their loops
+   once the state repeats: there, and on rows whose Lambert arguments fall
+   where the solve can settle into a 3-cycle and on rows with NaN, inf and
+   values <= 0, each is held bitwise to its full-count build (the same
+   kernel with the exit compiled out) and its step counts to the loops'
+   counts; at the main path's shape in f32 the two are timed in turns
+   (exit, full, full, exit, 5 rounds of 20 calls a reading; median and
+   min-max), beside the bound of the steps this run took.
 7. The problem library: every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes (full width), through ``problems.benchmark``
    (``Problem.solve``) in f32 at the harness's parameters, the rows of
@@ -113,8 +120,11 @@ Depth cut when phase 9 was added, no kernel or check with it: the timed warm
 re-solves of phases 3 and 4 run 500 and 100 iterations (2000 and 200
 before); when (e)-(g) were added, phase 9 (a)'s warm re-solves run 50
 iterations (100 before).
-On an H100 the script takes about 560-610 s, of which phase 7a takes about
-45-57 s, phase 7 about 300-315 s (``max_gaussian``'s 50,000 iterations,
+On an H100 the script takes about 550-715 s (the host sets most of the
+spread), of which the build takes about 11 s (``lse_rows.cu``'s 16
+kernels: each entry per dtype, row in registers or not, with and without
+the exit), phase 7a about 45 s,
+phase 7 about 310-380 s (``max_gaussian``'s 50,000 iterations,
 215-250 s in the second process; beside it the other rows' host-side build and
 set-up at reference size and ``infinite_push``'s 19,860 iterations) and
 phase 9 about 130-150 s (the one-process references of (e) and (f) about
@@ -806,7 +816,9 @@ def row_kernels():
     """The per-row loop kernels of phase 7a (K3 (a), K3 (b), K4, K5), each
     as ``name -> dict``: its module and launch-count attribute, the kernel
     entry and its plain version (the same call signature ``(v, p)``, ``p``
-    the per-row ``lam`` or ``s``), the JAX function it stands for, the
+    the per-row ``lam`` or ``s``), the full-count build of a kernel whose
+    loops exit when their state repeats (else None), the JAX function it
+    stands for, the
     main path's shape (rows, n) in phase 7, and the length of the
     kernel's dependent chain in operations for those rows (see
     ``row_chain_ops``)."""
@@ -815,24 +827,24 @@ def row_kernels():
     return {
         "lse_prox_rows": dict(
             module=lse_rows, counter="prox_launches", kernel=lse_rows.prox_rows,
-            plain=vector.prox_log_sum_exp_reference, param="lam",
+            plain=vector.prox_log_sum_exp_reference, param="lam", full=lse_rows.prox_rows_full,
             source="epsilon_tpu_torch/csrc/lse_rows.cu",
             replaces="epsilon_tpu/ops/prox/vector.py:153", main=(10000, 10), row="mnist"),
         "lse_epi_rows": dict(
             module=lse_rows, counter="epi_launches", kernel=lse_rows.epi_rows,
-            plain=newton_epi.epi_log_sum_exp_reference, param="s",
+            plain=newton_epi.epi_log_sum_exp_reference, param="s", full=lse_rows.epi_rows_full,
             source="epsilon_tpu_torch/csrc/lse_rows.cu",
             replaces="epsilon_tpu/ops/prox/newton_epi.py:224", main=(100, 20),
             row="max_softmax"),
         "epi_sum_square_rows": dict(
             module=epi_sum_square, counter="launches", kernel=epi_sum_square.epi_rows,
-            plain=registry._epi_sum_square_reference, param="s",
+            plain=registry._epi_sum_square_reference, param="s", full=None,
             source="epsilon_tpu_torch/csrc/epi_sum_square.cu",
             replaces="epsilon_tpu/ops/prox/registry.py:65", main=(1, 200),
             row="oneclass_svm"),
         "epi_neg_log_rows": dict(
             module=epi_neg_log, counter="launches", kernel=epi_neg_log.epi_rows,
-            plain=elementwise.epi_sum_neg_log_reference, param="s",
+            plain=elementwise.epi_sum_neg_log_reference, param="s", full=epi_neg_log.epi_rows_full,
             source="epsilon_tpu_torch/csrc/epi_neg_log.cu",
             replaces="epsilon_tpu/ops/prox/elementwise.py:231", main=(1, 10),
             row="max_gaussian"),
@@ -873,6 +885,67 @@ def row_flops(name, rows, n):
     return rows * n * 25 * 12
 
 
+def row_chain_taken(name, steps):
+    """``row_chain_ops`` per row for the steps this run's rows took
+    (``steps``: the kernel's step counts, rows x 4 as numpy): a Lambert
+    step 7 operations on the chain, a pass of the prox 10 (its warp sum),
+    and in K3 (b) each prox 60 more, in K5 each step 33.  With the full
+    counts it is ``row_chain_ops``."""
+    lam, nu, chain = (steps[:, j].astype(np.int64) for j in range(3))
+    if name == "lse_prox_rows":
+        return 7 * chain + 10 * (nu + 2)
+    if name == "lse_epi_rows":
+        return 7 * chain + 10 * (nu + 2 * (lam + 1)) + 60 * (lam + 1)
+    return 33 * (lam + 1)
+
+
+def steps_out_of_counts(kernel, steps, full_steps, n):
+    """Rows (a numpy bool array) whose step counts leave their loops' counts.
+
+    ``steps`` and ``full_steps`` are the counts (rows x 4, numpy) of
+    ``kernel`` (``"lse_prox_rows"``, ``"lse_epi_rows"`` or
+    ``"epi_neg_log_rows"``) and of its full-count build on the same rows
+    of width ``n``.  The full-count build runs 24 steps on lam, 25 on nu a
+    prox and 30 a Lambert solve (0 on an inactive row), the exit 1-24 on
+    lam, 1-25 on nu a prox and at most 30 a solve; a lane solves its
+    elements one after another, so a pass's chain holds up to 30 steps an
+    element of the lane, and a prox has 28 passes, 27 on the chain."""
+    steps = np.asarray(steps, dtype=np.int64).reshape(-1, 4)
+    full = np.asarray(full_steps, dtype=np.int64).reshape(-1, 4)
+    per_lane = -(-n // 32)
+    if kernel == "lse_prox_rows":
+        active = np.ones(len(full), dtype=bool)
+        lam_ok = steps[:, 0] == 0
+        proxes, full_proxes, full_lam = 1, 1, 0
+    else:
+        active = full[:, 0] != 0
+        lam_ok = np.where(active, (steps[:, 0] >= 1) & (steps[:, 0] <= 24), steps[:, 0] == 0)
+        proxes, full_proxes, full_lam = steps[:, 0] + 1, 25, 24
+    if kernel == "epi_neg_log_rows":
+        want_full = np.array([24, 0, 0, 0])
+        ok = lam_ok & (steps[:, 1:] == 0).all(axis=1)
+    else:
+        want_full = np.array([full_lam, 25 * full_proxes, 27 * 30 * per_lane * full_proxes,
+                              28 * 30 * n * full_proxes])
+        nu, chain, elements = steps[:, 1], steps[:, 2], steps[:, 3]
+        ok = lam_ok & np.where(active, (nu >= proxes) & (nu <= 25 * proxes)
+                               & (chain <= 30 * per_lane * (nu + 2 * proxes))
+                               & (elements <= 30 * n * (nu + 3 * proxes)) & (elements >= chain),
+                               (steps == 0).all(axis=1))
+    return ~ok | (full != np.where(active[:, None], want_full[None], 0)).any(axis=1)
+
+
+def row_flops_taken(name, steps, n):
+    """``row_flops`` for the steps this run's rows took: 8 a Lambert step
+    of an element."""
+    lam, elements = steps[:, 0].astype(np.int64), steps[:, 3].astype(np.int64)
+    if name == "lse_prox_rows":
+        return int(8 * elements.sum())
+    if name == "lse_epi_rows":
+        return int(8 * elements.sum() + (n * (lam + 1) * 30).sum())
+    return int((n * (lam + 1) * 12).sum())
+
+
 def row_inputs(name, rows, n, dtype, seed, dev):
     """``(v, p)`` for kernel ``name``: v from a seed; ``p`` the per-row lam
     (log-uniform over 1e-3..1e3) or s, placed so that about a third of the
@@ -899,13 +972,81 @@ def row_inputs(name, rows, n, dtype, seed, dev):
     return as_t(v), as_t(p)
 
 
+def band_inputs(name, rows, n, dtype, seed, dev):
+    """LOG_SUM_EXP rows whose Lambert arguments at the solution fall in
+    [-2.1, -0.5], where a solve can settle into a 3-cycle: q = W(e^c) drawn
+    over [0.11, 0.40] (c = q + log q).  The prox's rows v = q + log q + 1 -
+    log lam with lam = sum q (so nu = 0); the epigraph's v = x + q and s =
+    LSE(x) - lam with x = log(q / lam) + a shift, whose projection is
+    (x, s + lam)."""
+    rng = np.random.RandomState(seed)
+    q = rng.uniform(0.11, 0.40, (rows, n))
+    lam = q.sum(axis=1)
+    if name == "lse_prox_rows":
+        v, p = q + np.log(q) + 1.0 - np.log(lam)[:, None], lam
+    else:
+        x = np.log(q / lam[:, None]) + rng.uniform(-2.0, 2.0, (rows, 1))
+        m = x.max(axis=1)
+        v, p = x + q, m + np.log(np.exp(x - m[:, None]).sum(axis=1)) - lam
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return as_t(v), as_t(p)
+
+
+def special_inputs(name, rows, n, dtype, seed, dev):
+    """``row_inputs`` with rows holding a NaN, +inf, -inf, 0, -0 and a
+    negative value (K5's domain test), and rows whose bound is NaN, +inf,
+    -inf or 0 (rows >= 10)."""
+    v, p = (a.cpu().numpy() for a in row_inputs(name, rows, n, torch.float64, seed, "cpu"))
+    values = (np.nan, np.inf, -np.inf, 0.0, -0.0, -1.5)
+    for r, value in enumerate(values):
+        v[r, r % n] = value
+    for r, value in enumerate((np.nan, np.inf, -np.inf, 0.0)):
+        p[len(values) + r] = value
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return as_t(v), as_t(p)
+
+
+def same_bits(a, b):
+    """Bitwise equality of two tensors (NaN payloads and signed zeros
+    included): ``torch.equal`` on their integer views."""
+    ints = {4: torch.int32, 8: torch.int64}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.element_size()]), b.view(ints[b.element_size()])))
+
+
+def exit_check(name, k, v, p, label):
+    """The kernel against its full-count build on (v, p): bitwise equal
+    results, the same as without counting steps, and step counts within the
+    loops' counts.  Returns ``(steps, full_steps)`` as numpy, rows x 4."""
+    batch = tuple(v.shape[:-1])
+    steps = torch.zeros(batch + (4,), dtype=torch.int32, device=v.device)
+    full_steps = torch.zeros_like(steps)
+    plain_out = k["kernel"](v, p)
+    out = k["kernel"](v, p, steps=steps)
+    full = k["full"](v, p, steps=full_steps)
+    torch.cuda.synchronize()
+    out, full, plain_out = [o if isinstance(o, tuple) else (o,) for o in (out, full, plain_out)]
+    if not all(same_bits(a, b) and same_bits(a, c) for a, b, c in zip(out, full, plain_out)):
+        raise AssertionError(f"{name} {label}: the kernel differs from its full-count build")
+    steps, full_steps = (a.cpu().numpy().reshape(-1, 4) for a in (steps, full_steps))
+    bad = np.flatnonzero(steps_out_of_counts(name, steps, full_steps, v.shape[-1]))[:3]
+    if len(bad):
+        raise AssertionError(f"{name} {label}: step counts out of their loops' counts in rows "
+                             f"{bad.tolist()}: {steps[bad].tolist()}, full count "
+                             f"{full_steps[bad].tolist()}")
+    return steps, full_steps
+
+
 def phase_row_kernels(card):
     """Phase 7a: K3 (a), K3 (b), K4 and K5 against their plain versions on
     the card, at the main path's shapes and at odd widths, f32 and f64,
-    with active and inactive rows; bitwise repeatability; device times of
-    the kernel and the plain version at the main path's shape in f32.
-    Returns the ``kernels`` records (their launches are set after phase
-    7)."""
+    with active and inactive rows; bitwise repeatability; K3 and K5
+    bitwise against their full-count builds there and on the band and
+    special rows (``exit_check``); device times of the kernel and the
+    plain version at the main path's shape in f32, and K3's and K5's A/B
+    against the full-count build (``exit_ab``).  Returns the ``kernels``
+    records (their launches are set after phase 7)."""
+    from epsilon_tpu_torch.ops.kernels._rows import STEP_COUNTS
     dev = torch.device("cuda")
     clock_hz = 1e6 * float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -936,10 +1077,32 @@ def phase_row_kernels(card):
                 if len(out) == 2:
                     same = (out[0] == v).all(dim=-1).reshape(-1)
                     inactive = f", {int(same.sum())} of {rows} rows inactive"
+                exits = ""
+                if k["full"] is not None:
+                    steps, _ = exit_check(name, k, v, p, f"{rows}x{n} {dtype}")
+                    exits = (f"; bitwise equal to its full-count build, steps (mean) "
+                             + ", ".join(f"{c} {steps[:, j].mean():.1f}"
+                                         for j, c in enumerate(STEP_COUNTS) if steps[:, j].any()))
                 log(f"[7a] {name} {rows}x{n} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-                    f"(scale {scale:.3e}, rtol {ROW_RTOL[dtype]:g}), bitwise repeatable{inactive}")
+                    f"(scale {scale:.3e}, rtol {ROW_RTOL[dtype]:g}), bitwise repeatable"
+                    f"{inactive}{exits}")
                 if (rows, n) == k["main"] and dtype == torch.float32:
                     main_err, main_in = err, (v, p)
+            if k["full"] is None:
+                continue
+            # the exit's hard cases: the 3-cycle band, non-finite and <= 0 values
+            checked = []
+            for n in sorted({main_n, 33, 257}):
+                rows = max(main_rows, 16) if n == main_n else 16
+                cases = [("special", special_inputs(name, rows, n, dtype, n, dev))]
+                if name != "epi_neg_log_rows":
+                    cases.append(("band", band_inputs(name, rows, n, dtype, n, dev)))
+                for label, (v, p) in cases:
+                    exit_check(name, k, v, p, f"{label} {rows}x{n} {dtype}")
+                    checked.append(f"{label} {rows}x{n}")
+            log(f"[7a] {name} {str(dtype)[6:]}: bitwise equal to its full-count build on "
+                + ", ".join(checked) + " (NaN, inf, -inf, 0, -0 and negative values and "
+                "bounds; the band: Lambert arguments in [-2.1, -0.5])")
         v, p = main_in
         kernel = lambda: k["kernel"](v, p)
         plain = lambda: k["plain"](v, p)
@@ -965,7 +1128,42 @@ def phase_row_kernels(card):
                          "replaces": k["replaces"], "max_abs_err": main_err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None}
+        if k["full"] is not None:
+            records[name].update(exit_ab(name, k, v, p, n_bytes, clock_hz, card))
     return records
+
+
+def exit_ab(name, k, v, p, n_bytes, clock_hz, card):
+    """The kernel and its full-count build at the main path's shape in f32,
+    timed in turns (``interleaved_ms``), and the bound for the steps this
+    run's rows took (``row_chain_taken``, ``row_flops_taken``) beside the
+    full-count bound.  Returns the record's added fields."""
+    from epsilon_tpu_torch.ops.kernels._rows import STEP_COUNTS
+    main_rows, main_n = k["main"]
+    ab = interleaved_ms({"exit": lambda: k["kernel"](v, p), "full": lambda: k["full"](v, p)})
+    steps, full_steps = exit_check(name, k, v, p, "main f32")
+    chain = row_chain_taken(name, steps)
+    if row_chain_taken(name, full_steps).max() != row_chain_ops(name, main_n):
+        raise AssertionError(f"{name}: the full-count steps give a chain of "
+                             f"{row_chain_taken(name, full_steps).max()} operations, "
+                             f"not {row_chain_ops(name, main_n)}")
+    longest = int(np.argmax(chain))
+    chain_ms = 1e3 * int(chain[longest]) * ROW_CYCLES_PER_OP / clock_hz
+    flops = row_flops_taken(name, steps, main_n)
+    bound_taken_ms, by = bound(n_bytes, flops)
+    if chain_ms > bound_taken_ms:
+        bound_taken_ms, by = chain_ms, "operations"
+    taken = {c: int(steps[longest, j]) for j, c in enumerate(STEP_COUNTS)}
+    (med, lo, hi), (f_med, f_lo, f_hi) = ab["exit"], ab["full"]
+    log(f"[7a] {name} {main_rows}x{main_n} f32 in turns ({AB_ROUNDS} rounds, exit, full, "
+        f"full, exit; {AB_REPS} calls a reading): exit {med:.4f} ms ({lo:.4f}-{hi:.4f}), "
+        f"full count {f_med:.4f} ms ({f_lo:.4f}-{f_hi:.4f}), ratio {med / f_med:.3f}; "
+        f"steps taken on the longest chain (row {longest}) {taken}, a chain of "
+        f"{int(chain[longest])} operations ({chain_ms:.4f} ms), {flops:.3g} operations: "
+        f"bound for the steps taken {bound_taken_ms:.4f} ms by {by}, kernel at "
+        f"{bound_taken_ms / med:.2f} of it; {card}")
+    return {"full_count_ms": f_med, "ab_ms": {"exit": ab["exit"], "full_count": ab["full"]},
+            "steps_taken": taken, "bound_taken_ms": bound_taken_ms}
 
 
 def library_row(bench, inst, ref, profile_iters=LIBRARY_PROFILE_ITERS, tag=""):

@@ -13,11 +13,33 @@
 // versions' branches.  Row sums are taken in a fixed order (strided partial
 // sums per lane, then an xor butterfly), so results repeat bitwise; every
 // lane of a warp holds the same sum, because IEEE addition is commutative.
+//
+// The exit.  Each loop is a fixed map of its state: the Lambert solve's w
+// (c fixed), the safeguarded Newton's (x, lo, hi, glo, ghi) and the
+// epigraph Newton's (lam, lo, hi) (g and h depend on x and lam alone).
+// Built with EXIT, a loop keeps its last four states and compares each new
+// one with them bitwise; once the state after step k equals the state after
+// step k - p (p <= 4), the sequence is periodic from there, so the state
+// after all N steps is the state after step k - p + ((N - k) mod p), which
+// the loop returns at once (iterate() below).  That is exactly the
+// full-count result: the same operations on the same bits give the same
+// bits, NaN states included.  Without EXIT (the full-count builds, the
+// A/B's reference) every loop runs its count.  The Lambert solve exits per
+// lane (the lanes meet again at the pass's warp sum, whose full-mask
+// shuffles wait for every lane); the Newton loops run on sums that are the
+// same in every lane, so their exit is the same in every lane.
+//
+// Rows in registers.  A row of n <= 32 elements, the main path's widths, is
+// loaded once into registers, lane j holding element j, and every pass
+// reads it there (Row<T, 1>); a longer row stays in device memory and each
+// pass reads it lane-strided (Row<T, 0>).  Both take the elements in the
+// same order, so the sums are the same.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cfloat>
+#include <type_traits>
 
 namespace rowloops {
 
@@ -60,6 +82,16 @@ template <typename T> __device__ __forceinline__ T warp_sum(T v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+// Two independent sums through one butterfly (each the same as warp_sum's).
+template <typename T> __device__ __forceinline__ void warp_sum2(T& a, T& b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const T oa = __shfl_xor_sync(0xffffffffu, a, off);
+    const T ob = __shfl_xor_sync(0xffffffffu, b, off);
+    a += oa;
+    b += ob;
+  }
+}
 template <typename T> __device__ __forceinline__ T warp_max(T v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = tmax(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -72,70 +104,211 @@ template <typename T> __device__ __forceinline__ T warp_min(T v) {
 }
 __device__ __forceinline__ bool warp_all(bool p) { return __all_sync(0xffffffffu, p); }
 
-// util.solve_w_log_w: w + log w = c for w > 0, 30 Newton steps.
-template <typename T> __device__ __forceinline__ T solve_w_log_w(T c) {
+// -- the exit -------------------------------------------------------------
+
+__device__ __forceinline__ bool same(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+__device__ __forceinline__ bool same(double a, double b) {
+  return __double_as_longlong(a) == __double_as_longlong(b);
+}
+
+// The last four states of a loop, newest first (a shift through fixed
+// slots: no dynamic indexing, so they stay in registers).
+template <typename S> struct Ring4 {
+  S s1, s2, s3, s4;
+  __device__ __forceinline__ explicit Ring4(const S& s) : s1(s), s2(s), s3(s), s4(s) {}
+  // The least p <= 4 whose state equals s, or 0.  Before step 4 the slots
+  // not yet written hold the start, so they match only where a nearer one
+  // does.
+  __device__ __forceinline__ int period(const S& s) const {
+    return same(s, s1) ? 1 : same(s, s2) ? 2 : same(s, s3) ? 3 : same(s, s4) ? 4 : 0;
+  }
+  __device__ __forceinline__ void push(const S& s) { s4 = s3; s3 = s2; s2 = s1; s1 = s; }
+  // The state j = 1, 2 or 3 steps back.
+  __device__ __forceinline__ S back(int j) const { return j == 1 ? s1 : j == 2 ? s2 : s3; }
+};
+
+// The state after `iters` steps of s = step(s); `ran` gets the steps run.
+// With EXIT, the loop stops at the first state that repeats one of the
+// last four (see the header).
+template <bool EXIT, typename S, typename F>
+__device__ __forceinline__ S iterate(S s, int iters, F step, int& ran) {
+  if constexpr (EXIT) {
+    Ring4<S> ring(s);
+#pragma unroll 1
+    for (int k = 1; k <= iters; ++k) {
+      s = step(s);
+      const int p = ring.period(s);
+      if (p != 0) {
+        ran = k;
+        const int r = (iters - k) % p;
+        return r == 0 ? s : ring.back(p - r);
+      }
+      ring.push(s);
+    }
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < iters; ++k) s = step(s);
+  }
+  ran = iters;
+  return s;
+}
+
+// -- rows -----------------------------------------------------------------
+
+// One row as lane `lane` sees it: E > 0, its elements i = lane + 32 e
+// (e < E, i < n) in registers; E == 0, the row in device memory.
+template <typename T, int E> struct Row {
+  T a[E];
+  __device__ __forceinline__ void load(const T* p, int n, int lane) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (lane + 32 * e < n) a[e] = p[lane + 32 * e];
+  }
+  __device__ __forceinline__ T at(int e, int) const { return a[e]; }
+  __device__ __forceinline__ void put(int e, int, T x) { a[e] = x; }
+  __device__ __forceinline__ void store(T* p, int n, int lane) const {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (lane + 32 * e < n) p[lane + 32 * e] = a[e];
+  }
+};
+template <typename T> struct Row<T, 0> {
+  T* p;
+  __device__ __forceinline__ void load(const T* q, int, int) { p = const_cast<T*>(q); }
+  __device__ __forceinline__ T at(int, int i) const { return p[i]; }
+  __device__ __forceinline__ void put(int, int i, T x) { p[i] = x; }
+  __device__ __forceinline__ void store(T* q, int n, int lane) const {
+    if (q != p)
+      for (int i = lane; i < n; i += 32) q[i] = p[i];
+  }
+};
+
+// f(e, i) for each of the lane's elements, in the order of i.
+template <int E, typename F>
+__device__ __forceinline__ void each(int n, int lane, F f) {
+  if constexpr (E > 0) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (lane + 32 * e < n) f(e, lane + 32 * e);
+  } else {
+    for (int i = lane; i < n; i += 32) f(0, i);
+  }
+}
+
+// f(std::integral_constant<int, E>): E = 1 for a row of up to 32 elements,
+// held in registers, else E = 0.
+template <typename F> void by_width(int n, F f) {
+  if (n <= 32) return f(std::integral_constant<int, 1>{});
+  f(std::integral_constant<int, 0>{});
+}
+
+// Per-row step counts for the chain bound, written where the caller passed
+// a steps array (nullptr on the main path): [0] epigraph Newton steps on
+// lam, [1] safeguarded Newton steps on nu (summed over the row's proxes),
+// [2] Lambert steps on the warp's chain (per pass, the most any lane ran;
+// summed over the passes but the bracket's lower end, which is independent
+// of the upper), [3] Lambert steps of all elements (summed over every pass).
+struct Steps {
+  int lam = 0, nu = 0, warp = 0, elem = 0;
+  __device__ __forceinline__ void pass(int lane_steps, bool chain) {
+    if (chain) warp += (int)__reduce_max_sync(0xffffffffu, (unsigned)lane_steps);
+    elem += (int)__reduce_add_sync(0xffffffffu, (unsigned)lane_steps);
+  }
+  __device__ __forceinline__ void write(int* p, int row) const {
+    int* q = p + 4LL * row;
+    q[0] = lam; q[1] = nu; q[2] = warp; q[3] = elem;
+  }
+};
+
+// -- the loops ------------------------------------------------------------
+
+// util.solve_w_log_w: w + log w = c for w > 0, 30 Newton steps; `ran`
+// gets the steps run.
+template <bool EXIT, typename T> __device__ __forceinline__ T solve_w_log_w(T c, int& ran) {
   const T tiny = Lim<T>::tiny();
   T w = c > T(1) ? c - t_log(clamp_min(c, T(1.1))) : t_exp(clamp_max(c, T(1)));
   w = clamp_min(w, tiny);
-#pragma unroll 1
-  for (int k = 0; k < 30; ++k) w = clamp_min(w - (w + t_log(w) - c) * w / (w + T(1)), tiny);
-  return w;
+  return iterate<EXIT>(w, 30, [&](T u) {
+    return clamp_min(u - (u + t_log(u) - c) * u / (u + T(1)), tiny);
+  }, ran);
+}
+
+// util.newton_safeguarded's state.
+template <typename T> struct Bracket { T x, lo, hi, glo, ghi; };
+template <typename T> __device__ __forceinline__ bool same(const Bracket<T>& a, const Bracket<T>& b) {
+  return same(a.x, b.x) && same(a.lo, b.lo) && same(a.hi, b.hi) && same(a.glo, b.glo) &&
+         same(a.ghi, b.ghi);
 }
 
 // util.newton_safeguarded for non-decreasing g: Newton kept inside a
 // bracket with endpoint residuals, Illinois regula falsi as the fallback.
 // gfun(x, gp) returns g(x) and sets gp = g'(x); a warp calls it together
-// when g reduces over a row.
-template <typename T, typename G>
-__device__ __forceinline__ T newton_safeguarded(G gfun, T x, T lo, T hi, int iters) {
+// when g reduces over a row.  The state is not a plain bracket that only
+// shrinks: once x settles between two neighbouring floats at the root, the
+// step swaps glo and ghi's roles and the Illinois halving undoes itself, so
+// the state repeats with period 2-4 (tests/test_torch_loop_exit.py); the
+// LOG_SUM_EXP prox exits there (EXIT), K4 runs the fixed count.
+template <typename T, bool EXIT = false, typename G>
+__device__ __forceinline__ T newton_safeguarded(G gfun, T x, T lo, T hi, int iters,
+                                                int* ran = nullptr) {
   T gp;
-  T glo = gfun(lo, gp);
-  T ghi = gfun(hi, gp);
-#pragma unroll 1
-  for (int k = 0; k < iters; ++k) {
-    const T gx = gfun(x, gp);
+  const T glo = gfun(lo, gp);
+  const T ghi = gfun(hi, gp);
+  int k;
+  const Bracket<T> b = iterate<EXIT>(Bracket<T>{x, lo, hi, glo, ghi}, iters,
+                                     [&](Bracket<T> b) {
+    T gpx;
+    const T gx = gfun(b.x, gpx);
     if (gx < T(0)) {
-      lo = tmax(lo, x);
-      glo = gx;
-      ghi = T(0.5) * ghi;
+      b.lo = tmax(b.lo, b.x);
+      b.glo = gx;
+      b.ghi = T(0.5) * b.ghi;
     } else {
-      hi = tmin(hi, x);
-      ghi = gx;
-      glo = T(0.5) * glo;
+      b.hi = tmin(b.hi, b.x);
+      b.ghi = gx;
+      b.glo = T(0.5) * b.glo;
     }
-    const T step = gp != T(0) ? gx / gp : T(0);
-    const T xn = x - step;
-    const T denom = ghi - glo;
-    const T mid = T(0.5) * (lo + hi);
-    T falsi = denom != T(0) ? (lo * ghi - hi * glo) / denom : mid;
-    falsi = is_finite(falsi) ? tmin(tmax(falsi, lo), hi) : mid;
-    const bool bad = xn <= lo || xn >= hi || !is_finite(xn);
-    x = bad ? falsi : xn;
-  }
-  return x;
+    const T step = gpx != T(0) ? gx / gpx : T(0);
+    const T xn = b.x - step;
+    const T denom = b.ghi - b.glo;
+    const T mid = T(0.5) * (b.lo + b.hi);
+    T falsi = denom != T(0) ? (b.lo * b.ghi - b.hi * b.glo) / denom : mid;
+    falsi = is_finite(falsi) ? tmin(tmax(falsi, b.lo), b.hi) : mid;
+    const bool bad = xn <= b.lo || xn >= b.hi || !is_finite(xn);
+    b.x = bad ? falsi : xn;
+    return b;
+  }, k);
+  if (ran != nullptr) *ran += k;
+  return b.x;
+}
+
+// newton_epi.implicit_newton_epigraph's state.
+template <typename T> struct LamState { T lam, lo, hi; };
+template <typename T> __device__ __forceinline__ bool same(const LamState<T>& a, const LamState<T>& b) {
+  return same(a.lam, b.lam) && same(a.lo, b.lo) && same(a.hi, b.hi);
 }
 
 // newton_epi.implicit_newton_epigraph's loop on lam (the port's strict
-// bracket test), 24 steps from lam = 1.  hfun(lam, hp) returns
-// h(lam) = f(prox(v, lam)) - s - lam and sets hp = h'(lam).
-template <typename T, typename H>
-__device__ __forceinline__ T implicit_newton_lam(H hfun, int iters) {
+// bracket test), `iters` steps from lam = 1; `ran` gets the steps run.
+// hfun(lam, hp) returns h(lam) = f(prox(v, lam)) - s - lam and sets
+// hp = h'(lam).
+template <typename T, bool EXIT, typename H>
+__device__ __forceinline__ T implicit_newton_lam(H hfun, int iters, int& ran) {
   const T big = Lim<T>::max() / T(4);
-  T lam = T(1);
-  T lo = Lim<T>::domain_eps();
-  T hi = big * T(2);
-#pragma unroll 1
-  for (int k = 0; k < iters; ++k) {
+  const LamState<T> start{T(1), Lim<T>::domain_eps(), big * T(2)};
+  return iterate<EXIT>(start, iters, [&](LamState<T> st) {
     T hp;
-    const T h = hfun(lam, hp);
-    if (h > T(0)) lo = tmax(lo, lam);
-    if (h <= T(0)) hi = tmin(hi, lam);
-    const T lam_n = lam - h / hp;
-    const T fallback = hi >= big ? clamp_min(T(4) * lam, T(1)) : T(0.5) * (lo + hi);
-    const bool bad = lam_n < lo || lam_n > hi || !is_finite(lam_n);
-    lam = bad ? fallback : lam_n;
-  }
-  return lam;
+    const T h = hfun(st.lam, hp);
+    if (h > T(0)) st.lo = tmax(st.lo, st.lam);
+    if (h <= T(0)) st.hi = tmin(st.hi, st.lam);
+    const T lam_n = st.lam - h / hp;
+    const T fallback = st.hi >= big ? clamp_min(T(4) * st.lam, T(1)) : T(0.5) * (st.lo + st.hi);
+    const bool bad = lam_n < st.lo || lam_n > st.hi || !is_finite(lam_n);
+    st.lam = bad ? fallback : lam_n;
+    return st;
+  }, ran).lam;
 }
 
 // A per-row scalar: from device memory (stride 0 broadcasts one value) or,

@@ -6,6 +6,9 @@ last axis, flattened to ``rows x n``) and a per-row scalar (``lam`` or
 ``s``): a tensor on the rows' device, read by the kernel from device
 memory (stride 0 broadcasts a single value, so a value that the solver
 changes on the device needs no sync), or a host number passed by value.
+The kernels whose loops stop when their state repeats (``lse_rows``,
+``epi_neg_log``) also take an optional ``steps`` array, into which they
+write each row's step counts (:func:`steps_ptr`).
 """
 
 from __future__ import annotations
@@ -18,8 +21,10 @@ import torch
 from . import _build
 
 # The kernels repeat their plain versions' arithmetic operation by
-# operation: no contracted multiply-adds where PyTorch rounds twice.
-FLAGS = ("--fmad=false",)
+# operation: no contracted multiply-adds where PyTorch rounds twice.  The
+# optimizer runs on every core (lse_rows.cu holds 16 kernels: each entry
+# per dtype, row in registers or not, with and without the exit).
+FLAGS = ("--fmad=false", "--split-compile=0")
 
 
 def build(name: str):
@@ -108,6 +113,29 @@ def epi_args(fname: str, v, s):
     x = torch.empty_like(v)
     t = torch.empty(out_shape(fname, "s", batch, s_shape), dtype=v.dtype, device=v.device)
     return x, t, (v.data_ptr(), ptr, stride, value, x.data_ptr(), t.data_ptr(), rows, n), (v, keep)
+
+
+# Step counts a row: epigraph Newton steps on lam, safeguarded Newton steps
+# on nu (summed over the row's proxes), Lambert steps on the warp's chain
+# (per pass the most any lane ran, summed over the passes but the bracket's
+# lower end), Lambert steps of all elements (summed over every pass); a
+# count a kernel has no loop for stays 0, and an inactive row counts 0.
+STEP_COUNTS = ("lam", "nu", "lambert_chain", "lambert_elements")
+
+
+def steps_ptr(fname: str, steps, v: torch.Tensor):
+    """The pointer of ``steps`` for the C entry (None for None): a
+    contiguous int32 tensor on v's device of shape ``v.shape[:-1] + (4,)``
+    (:data:`STEP_COUNTS`), which the kernel fills."""
+    if steps is None:
+        return None
+    want = tuple(v.shape[:-1]) + (len(STEP_COUNTS),)
+    if (not isinstance(steps, torch.Tensor) or steps.dtype != torch.int32
+            or tuple(steps.shape) != want or not steps.is_contiguous()
+            or steps.device != v.device):
+        raise ValueError(f"{fname}: steps must be a contiguous int32 tensor of shape {want} "
+                         f"on {v.device}")
+    return steps.data_ptr()
 
 
 def suffix(t: torch.Tensor) -> str:

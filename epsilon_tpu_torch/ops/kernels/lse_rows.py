@@ -11,7 +11,12 @@ in one warp.
 
 These are the kernel entries: they take CUDA tensors only and raise on any
 other device.  The dispatch (the plain version on a CPU tensor) is in
-``ops/prox/vector.py`` and ``ops/prox/newton_epi.py``.
+``ops/prox/vector.py`` and ``ops/prox/newton_epi.py``.  The kernel's loops
+stop once their state repeats, which gives the full-count result bitwise;
+:func:`prox_rows_full` and :func:`epi_rows_full` launch the build that
+runs every loop to its count, the reference that exit is checked against
+(no dispatch calls them).  ``steps``, where given, receives each row's
+step counts (``_rows.STEP_COUNTS``).
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import torch
 
 from . import _rows
 
-__all__ = ["prox_rows", "epi_rows", "build", "prox_launches", "epi_launches"]
+__all__ = ["prox_rows", "epi_rows", "prox_rows_full", "epi_rows_full", "build",
+           "prox_launches", "epi_launches"]
 
-# Kernel launches made by prox_rows and epi_rows.
+# Kernel launches made by prox_rows and epi_rows (the full-count builds'
+# launches are not counted).
 prox_launches = 0
 epi_launches = 0
 
@@ -40,36 +47,59 @@ def build():
 def _library():
     global _LIB
     if _LIB is None:
-        prox = [_P, _P, _I, "scalar", _P, _I, _I, _P]
-        epi = [_P, _P, _I, "scalar", _P, _P, _I, _I, _P]
+        prox = [_P, _P, _I, "scalar", _P, _P, _I, _I, _P]
+        epi = [_P, _P, _I, "scalar", _P, _P, _P, _I, _I, _P]
         _LIB = _rows.load("lse_rows", {
-            "lse_prox_rows_f32": prox, "lse_prox_rows_f64": prox,
-            "lse_epi_rows_f32": epi, "lse_epi_rows_f64": epi})
+            f"lse_{kind}_rows_{build}{t}": prox if kind == "prox" else epi
+            for kind in ("prox", "epi") for build in ("", "full_") for t in ("f32", "f64")})
     return _LIB
 
 
-def prox_rows(v, lam):
-    """``prox_{lam LSE}`` of every row of ``v`` (CUDA, f32 or f64; the row
-    along the last axis); ``lam`` a number or a tensor of the batch shape
-    (or broadcasting to it).  One launch."""
-    v, batch, rows, n = _rows.rows_of("lse prox_rows", v)
-    ptr, stride, value, _keep, _ = _rows.row_scalar("lse prox_rows", "lam", lam, v, batch)
+def _prox(fname, build, v, lam, steps):
+    v, batch, rows, n = _rows.rows_of(fname, v)
+    ptr, stride, value, _keep, _ = _rows.row_scalar(fname, "lam", lam, v, batch)
+    steps_ptr = _rows.steps_ptr(fname, steps, v)
     x = torch.empty_like(v)
-    fn = getattr(_library(), f"lse_prox_rows_{_rows.suffix(v)}")
-    global prox_launches
-    prox_launches += 1
-    _rows.launch("lse prox_rows", fn, (v.data_ptr(), ptr, stride, value, x.data_ptr(), rows, n), v)
+    fn = getattr(_library(), f"lse_prox_rows_{build}{_rows.suffix(v)}")
+    if not build:
+        global prox_launches
+        prox_launches += 1
+    _rows.launch(fname, fn, (v.data_ptr(), ptr, stride, value, x.data_ptr(), steps_ptr, rows, n),
+                 v)
     return x
 
 
-def epi_rows(v, s):
+def _epi(fname, build, v, s, steps):
+    x, t, (vp, sp, stride, value, xp, tp, rows, n), _keep = _rows.epi_args(fname, v, s)
+    steps_ptr = _rows.steps_ptr(fname, steps, v)
+    fn = getattr(_library(), f"lse_epi_rows_{build}{_rows.suffix(x)}")
+    if not build:
+        global epi_launches
+        epi_launches += 1
+    _rows.launch(fname, fn, (vp, sp, stride, value, xp, tp, steps_ptr, rows, n), x)
+    return x, t
+
+
+def prox_rows(v, lam, steps=None):
+    """``prox_{lam LSE}`` of every row of ``v`` (CUDA, f32 or f64; the row
+    along the last axis); ``lam`` a number or a tensor of the batch shape
+    (or broadcasting to it).  One launch."""
+    return _prox("lse prox_rows", "", v, lam, steps)
+
+
+def epi_rows(v, s, steps=None):
     """The projection of every ``(v_row, s_row)`` onto
     ``{(x, t): logsumexp(x) <= t}`` (CUDA, f32 or f64); ``s`` a number or a
     tensor broadcasting to the batch shape.  Returns ``(x, t)``.  One
     launch."""
-    x, t, args, _keep = _rows.epi_args("lse epi_rows", v, s)
-    fn = getattr(_library(), f"lse_epi_rows_{_rows.suffix(x)}")
-    global epi_launches
-    epi_launches += 1
-    _rows.launch("lse epi_rows", fn, args, x)
-    return x, t
+    return _epi("lse epi_rows", "", v, s, steps)
+
+
+def prox_rows_full(v, lam, steps=None):
+    """:func:`prox_rows` by the full-count build (uncounted)."""
+    return _prox("lse prox_rows_full", "full_", v, lam, steps)
+
+
+def epi_rows_full(v, s, steps=None):
+    """:func:`epi_rows` by the full-count build (uncounted)."""
+    return _epi("lse epi_rows_full", "full_", v, s, steps)

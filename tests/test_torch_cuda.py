@@ -1,8 +1,9 @@
 """CUDA-only tests of the port: the sym_packed (K2), local_update (K1) and
 per-row loop (K3 lse_rows, K4 epi_sum_square, K5 epi_neg_log) kernels
-against their plain PyTorch versions, the factor apply, a small lasso, a
-small consensus lasso and the rows whose epigraphs K3 and K4 carry on the
-card.  They skip
+against their plain PyTorch versions, K3 and K5 (whose loops stop when
+their state repeats) against their full-count builds bitwise, the factor
+apply, a small lasso, a small consensus lasso and the rows whose epigraphs
+K3 and K4 carry on the card.  They skip
 without a CUDA device.  This file imports neither JAX nor the JAX package,
 so it also runs where JAX is absent:
 
@@ -460,3 +461,137 @@ def test_loop_kernel_rows_on_card_match_cpu_port(cuda, monkeypatch, row, kwargs)
     assert prob_cpu.status == "optimal"
     assert abs(iters_gpu - prob_cpu.solver_status.num_iterations) <= 50
     np.testing.assert_allclose(obj_gpu, obj_cpu, rtol=1e-6)
+
+
+# -- the exit: K3 and K5 against their full-count builds, bitwise ------------
+
+def _exit_entries():
+    """kind -> (the kernel entry, its full-count build, the C entry's name)."""
+    from epsilon_tpu_torch.ops.kernels import epi_neg_log, lse_rows
+    return {"lse_prox": (lse_rows.prox_rows, lse_rows.prox_rows_full, "lse_prox_rows"),
+            "lse_epi": (lse_rows.epi_rows, lse_rows.epi_rows_full, "lse_epi_rows"),
+            "neg_log": (epi_neg_log.epi_rows, epi_neg_log.epi_rows_full, "epi_neg_log_rows")}
+
+
+def _same_bits(a, b):
+    ints = {4: torch.int32, 8: torch.int64}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.element_size()]), b.view(ints[b.element_size()])))
+
+
+def _exit_check(kind, v, p):
+    """The kernel, with and without its step counts, against its
+    full-count build: bitwise equal outputs, counts within their loops'
+    counts (``chip_smoke.steps_out_of_counts``)."""
+    from chip_smoke import steps_out_of_counts
+    entry, full_entry, name = _exit_entries()[kind]
+    steps = torch.zeros(tuple(v.shape[:-1]) + (4,), dtype=torch.int32, device=v.device)
+    full_steps = torch.zeros_like(steps)
+    got = entry(v, p, steps=steps)
+    plain_got = entry(v, p)
+    want = full_entry(v, p, steps=full_steps)
+    got, plain_got, want = [o if isinstance(o, tuple) else (o,) for o in (got, plain_got, want)]
+    for a, b, c in zip(got, plain_got, want):
+        assert _same_bits(a, c) and _same_bits(b, c)
+    assert not steps_out_of_counts(name, steps.cpu().numpy(), full_steps.cpu().numpy(),
+                                   v.shape[-1]).any()
+    return steps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,shape", [
+    ("lse_prox", (10000, 10)), ("lse_prox", (64, 1)), ("lse_prox", (64, 31)),
+    ("lse_prox", (64, 33)), ("lse_prox", (3, 8, 257)),
+    ("lse_epi", (100, 20)), ("lse_epi", (16, 1)), ("lse_epi", (16, 31)),
+    ("lse_epi", (16, 33)), ("lse_epi", (2, 4, 257)),
+    ("neg_log", (10,)), ("neg_log", (8, 1)), ("neg_log", (8, 31)),
+    ("neg_log", (8, 33)), ("neg_log", (2, 4, 257)),
+])
+def test_row_kernel_exit_matches_full_count(cuda, kind, shape, dtype):
+    """K3 (a), K3 (b) and K5, whose loops stop when their state repeats,
+    give their full-count builds' results bitwise, and count their steps
+    within the loops' counts."""
+    v, p = _row_inputs(kind, shape, seed=sum(shape), dtype=dtype, device=cuda)
+    if len(shape) == 1:
+        p = p.reshape(())
+    steps = _exit_check(kind, v, p).reshape(-1, 4).long()
+    active = steps[:, 1] > 0 if kind != "neg_log" else steps[:, 0] > 0
+    if kind != "lse_prox":
+        assert (steps[active, 0] < 24).any()     # the lam loop exits early somewhere
+    if kind != "neg_log":
+        # so do Lambert solves: fewer than 30 steps a solve on some chain
+        proxes, per_lane = steps[:, 0] + 1, -(-v.shape[-1] // 32)
+        assert steps[:, 2].sum() < 30 * per_lane * (steps[:, 1] + 2 * proxes)[active].sum()
+
+
+def _band_inputs(kind, rows, n, seed, dtype, device):
+    """LOG_SUM_EXP rows whose Lambert arguments at the solution lie in
+    [-2.1, -0.5], where a solve can settle into a 3-cycle (see
+    chip_smoke.band_inputs)."""
+    rng = np.random.RandomState(seed)
+    q = rng.uniform(0.11, 0.40, (rows, n))
+    lam = q.sum(axis=1)
+    if kind == "lse_prox":
+        v, p = q + np.log(q) + 1.0 - np.log(lam)[:, None], lam
+    else:
+        x = np.log(q / lam[:, None]) + rng.uniform(-2.0, 2.0, (rows, 1))
+        m = x.max(axis=1)
+        v, p = x + q, m + np.log(np.exp(x - m[:, None]).sum(axis=1)) - lam
+    return (torch.as_tensor(v, dtype=dtype, device=device),
+            torch.as_tensor(p, dtype=dtype, device=device))
+
+
+def _special_inputs(kind, rows, n, seed, dtype, device):
+    """Rows holding a NaN, +inf, -inf, 0, -0 and a negative value, and
+    rows whose bound is NaN, +inf, -inf or 0."""
+    v, p = (a.numpy() for a in _row_inputs(kind, (rows, n), seed, torch.float64, "cpu"))
+    values = (np.nan, np.inf, -np.inf, 0.0, -0.0, -1.5)
+    for r, value in enumerate(values):
+        v[r, r % n] = value
+    for r, value in enumerate((np.nan, np.inf, -np.inf, 0.0)):
+        p[len(values) + r] = value
+    return (torch.as_tensor(v, dtype=dtype, device=device),
+            torch.as_tensor(p, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [10, 20, 33, 257])
+@pytest.mark.parametrize("kind,inputs", [("lse_prox", "band"), ("lse_epi", "band"),
+                                         ("lse_prox", "special"), ("lse_epi", "special"),
+                                         ("neg_log", "special")])
+def test_row_kernel_exit_on_hard_rows(cuda, kind, inputs, n, dtype):
+    """The same on the 3-cycle band of the Lambert solve and on rows with
+    non-finite and non-positive values and bounds."""
+    make = _band_inputs if inputs == "band" else _special_inputs
+    v, p = make(kind, 16, n, n, dtype, cuda)
+    _exit_check(kind, v, p)
+
+
+class _Names:
+    """A kernel library that records the entries looked up on it."""
+
+    def __init__(self, lib):
+        self.lib, self.names = lib, []
+
+    def __getattr__(self, name):
+        self.names.append(name)
+        return getattr(self.lib, name)
+
+
+def test_dispatch_never_reaches_a_full_count_entry(cuda, monkeypatch):
+    """The prox modules' dispatch launches the kernels that exit, never a
+    full-count build."""
+    from epsilon_tpu_torch.ops.kernels import epi_neg_log, lse_rows
+    from epsilon_tpu_torch.ops.prox import elementwise, newton_epi, vector
+    libs = {mod: _Names(mod._library()) for mod in (lse_rows, epi_neg_log)}
+    for mod, names in libs.items():
+        monkeypatch.setattr(mod, "_LIB", names)
+    for dtype in (torch.float32, torch.float64):
+        v, lam = _row_inputs("lse_prox", (16, 12), 1, dtype, cuda)
+        vector.prox_log_sum_exp(v, lam)
+        v, s = _row_inputs("lse_epi", (16, 12), 2, dtype, cuda)
+        newton_epi.epi_log_sum_exp(v, s)
+        v, s = _row_inputs("neg_log", (8, 10), 3, dtype, cuda)
+        elementwise.epi_sum_neg_log(v, s)
+    names = [n for names in libs.values() for n in names.names]
+    assert len(names) == 6 and not any("full" in n for n in names)

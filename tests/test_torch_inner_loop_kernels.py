@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import steps_out_of_counts
 from epsilon_tpu.ops.prox import elementwise as jew
 from epsilon_tpu.ops.prox import registry as jreg
 from epsilon_tpu.ops.prox import vector as jvec
@@ -206,7 +207,10 @@ DISPATCH = [
      lambda v, p: ew.epi_sum_neg_log_reference(v, p)),
 ]
 ENTRIES = [("lse_prox", lse_rows.prox_rows), ("lse_epi", lse_rows.epi_rows),
-           ("sum_square", epi_sum_square.epi_rows), ("neg_log", epi_neg_log.epi_rows)]
+           ("sum_square", epi_sum_square.epi_rows), ("neg_log", epi_neg_log.epi_rows),
+           # the full-count builds of the kernels whose loops exit early
+           ("lse_prox", lse_rows.prox_rows_full), ("lse_epi", lse_rows.epi_rows_full),
+           ("neg_log", epi_neg_log.epi_rows_full)]
 
 
 def _counts():
@@ -270,6 +274,51 @@ def test_row_scalar_forms():
         _rows.row_scalar("f", "s", torch.zeros(5), v, batch)
     with pytest.raises(ValueError):
         _rows.row_scalar("f", "s", torch.zeros(3, 4, device="meta"), v, batch)
+
+
+def test_steps_array_is_checked():
+    v = torch.zeros(3, 4, 5, dtype=torch.float64)
+    assert _rows.steps_ptr("f", None, v) is None
+    steps = torch.zeros(3, 4, len(_rows.STEP_COUNTS), dtype=torch.int32)
+    assert _rows.steps_ptr("f", steps, v) == steps.data_ptr()
+    for bad in (torch.zeros(3, 4, 4), torch.zeros(12, 4, dtype=torch.int32),
+                torch.zeros(3, 4, 3, dtype=torch.int32), torch.zeros(3, 4, 4, dtype=torch.int64),
+                torch.zeros(4, 3, 4, dtype=torch.int32).transpose(0, 1),
+                torch.zeros(3, 4, 4, dtype=torch.int32, device="meta"), [0] * 48):
+        with pytest.raises(ValueError, match="steps"):
+            _rows.steps_ptr("f", bad, v)
+
+
+def _full_counts(kernel, n, active):
+    """What a full-count build records for rows of width n."""
+    per_lane = -(-n // 32)
+    row = {"lse_prox_rows": [0, 25, 27 * 30 * per_lane, 28 * 30 * n],
+           "lse_epi_rows": [24, 25 * 25, 25 * 27 * 30 * per_lane, 25 * 28 * 30 * n],
+           "epi_neg_log_rows": [24, 0, 0, 0]}[kernel]
+    return np.array([row if a else [0, 0, 0, 0] for a in active])
+
+
+@pytest.mark.parametrize("n", [10, 33])
+@pytest.mark.parametrize("kernel", ["lse_prox_rows", "lse_epi_rows", "epi_neg_log_rows"])
+def test_steps_out_of_counts(kernel, n):
+    active = [True, True, kernel == "lse_prox_rows"]
+    full = _full_counts(kernel, n, active)
+    assert not steps_out_of_counts(kernel, full, full, n).any()
+    taken = {"lse_prox_rows": [0, 9, 40, 40 * n], "lse_epi_rows": [5, 60, 400, 400 * n],
+             "epi_neg_log_rows": [11, 0, 0, 0]}[kernel]
+    steps = np.array([taken if a else [0, 0, 0, 0] for a in active])
+    assert not steps_out_of_counts(kernel, steps, full, n).any()
+    for row, col, value in [(0, 0, 25), (0, 1, 0), (1, 2, 10 ** 6), (1, 3, 0)]:
+        bad = steps.copy()
+        bad[row, col] = value
+        if kernel == "epi_neg_log_rows" and col > 0:
+            bad[row, col] = 1              # K5 has no nu or Lambert loop
+        if (bad == steps).all():
+            continue
+        assert steps_out_of_counts(kernel, bad, full, n)[row]
+    wrong_full = full.copy()
+    wrong_full[0, 0] += 1                  # the full-count build must run its count
+    assert steps_out_of_counts(kernel, steps, wrong_full, n)[0]
 
 
 def test_out_shape():

@@ -43,6 +43,17 @@ solves the ``tv_1d`` row at its reference size twice, with float32 state
 (``config.default_dtype`` patched for the run; nothing in the port sets
 it), and prints objective, iterations and seconds of both.
 
+    python3 -m tools.profile_port --exit-ab max_softmax,mnist,max_gaussian
+
+solves library rows (reference sizes, f32) with the per-row loop kernels
+that stop when their state repeats and with their full-count builds put in
+their place in the dispatch, in turns in this one process (exit, full,
+full, exit, for several rounds): cold solves at the harness's rel_tol
+(at most ``EXIT_AB_COLD_ITERS`` iterations) and warm re-solves of
+``EXIT_AB_WARM_ITERS`` iterations, host wall ms/iteration of each side
+(median and min-max).  Both sides compute the same bits, so they take the
+same iterations; the launch counters say which kernels ran.
+
     python3 -m tools.profile_port --k1-tune
 
 times K1's ring path at other sizes (rows per item, lanes per row, slabs,
@@ -54,6 +65,8 @@ Only events on the device are summed: an aten op's entry also carries its
 kernels' device time, so summing every event counts most kernels twice.
 """
 
+import contextlib
+import statistics
 import subprocess
 import sys
 import time
@@ -334,6 +347,77 @@ def profile_library(rows, iters=10):
         torch.cuda.empty_cache()
 
 
+EXIT_AB_COLD_ITERS = 1000
+EXIT_AB_WARM_ITERS = 100
+EXIT_AB_ROUNDS = 3
+
+
+@contextlib.contextmanager
+def full_count_entries():
+    """The dispatch of ``ops/prox`` sends K3 and K5's calls to their
+    full-count builds while the context is open."""
+    from epsilon_tpu_torch.ops.kernels import epi_neg_log, lse_rows
+    swaps = [(lse_rows, "prox_rows", lse_rows.prox_rows_full),
+             (lse_rows, "epi_rows", lse_rows.epi_rows_full),
+             (epi_neg_log, "epi_rows", epi_neg_log.epi_rows_full)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, full in swaps:
+        setattr(mod, name, full)
+    try:
+        yield
+    finally:
+        for (mod, name, _), entry in zip(swaps, saved):
+            setattr(mod, name, entry)
+
+
+def exit_ab(rows, rounds=EXIT_AB_ROUNDS):
+    """Library rows with the kernels that exit against their full-count
+    builds, in turns: cold solves, then warm re-solves."""
+    from chip_smoke import LIBRARY_REL_TOL, row_launches
+    from epsilon_tpu_torch.problems import benchmark
+    sides = {"exit": contextlib.nullcontext, "full": full_count_entries}
+    for inst in benchmark.PROBLEMS_REFERENCE():
+        if inst.name not in rows:
+            continue
+        warm = dict(rel_tol=0.0, abs_tol=0.0, warm_start=True, max_iterations=EXIT_AB_WARM_ITERS)
+        prob = inst.create_problem()
+        prob.solve(rel_tol=LIBRARY_REL_TOL, max_iterations=EXIT_AB_WARM_ITERS, warm_start=True)
+        cold, hot, runs, launched = {s: [] for s in sides}, {s: [] for s in sides}, {}, {}
+        for _ in range(rounds):
+            for side in list(sides) + list(sides)[::-1]:
+                before = sum(row_launches().values())
+                with sides[side]():
+                    row = benchmark.benchmark_epsilon(inst, rel_tol=LIBRARY_REL_TOL,
+                                                      max_iterations=EXIT_AB_COLD_ITERS)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    prob.solve(**warm)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                launched[side] = launched.get(side, 0) + sum(row_launches().values()) - before
+                cold[side].append(row["ms_per_iter"])
+                hot[side].append(1e3 * wall / prob.solver_status.num_iterations)
+                runs.setdefault(side, set()).add((row["iterations"], row["status"],
+                                                  row["objective"]))
+        if launched["full"] != 0 or launched["exit"] == 0:
+            raise AssertionError(f"{inst.name}: kernel launches {launched}")
+        iters = sorted({it for side in sides for it, _, _ in runs[side]})
+        parts = []
+        for label, r in ((f"cold, {'/'.join(map(str, iters))} iterations", cold),
+                         (f"warm, {EXIT_AB_WARM_ITERS} iterations", hot)):
+            m = {side: statistics.median(r[side]) for side in sides}
+            parts.append(f"{label}: exit {m['exit']:.4f} ms/iter ({min(r['exit']):.4f}-"
+                         f"{max(r['exit']):.4f}), full {m['full']:.4f} ({min(r['full']):.4f}-"
+                         f"{max(r['full']):.4f}), ratio {m['exit'] / m['full']:.3f}")
+        print(f"[exit-ab] {inst.name} in turns ({rounds} rounds of exit, full, full, exit): "
+              + "; ".join(parts) + f"; kernel launches {launched}; the cold solves "
+              + "; ".join(f"{side} " + ", ".join(f"{it} iterations {st} objective {obj!r}"
+                                               for it, st, obj in sorted(runs[side]))
+                          for side in sides))
+        del prob
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device available", file=sys.stderr)
@@ -353,6 +437,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--tv1d-f64"]:
         profile_tv1d_f64()
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--exit-ab":
+        exit_ab(sys.argv[2].split(","))
         return 0
     if sys.argv[1:] == ["--k1"]:
         lu.build()
