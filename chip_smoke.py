@@ -4,10 +4,11 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Card and build: the card's name and power limit, then the five CUDA
+1. Card and build: the card's name and power limit, then the six CUDA
    sources (sym_packed, local_update, lse_rows, epi_sum_square,
-   epi_neg_log) are compiled from ``epsilon_tpu_torch/csrc``, one ``nvcc``
-   each, started together.
+   epi_neg_log, and launch_floor, the empty kernel of phase 7a) are
+   compiled from ``epsilon_tpu_torch/csrc``, one ``nvcc`` each, started
+   together.
 2. Kernel against its plain PyTorch version on the card, at the shape the
    main path gives it (n = 8192, R = 1) and at R = 8, in f32 and f64:
    maximum error, bitwise repeatability, and CUDA-event times of the
@@ -51,13 +52,19 @@ Phases, in order; any failure exits non-zero:
    plain PyTorch versions on the card, at the shapes phase 7 gives them
    and at widths 1, 31, 33 and 257, in f32 and f64, with active and
    inactive rows: error, bitwise repeatability, and device times of kernel
-   and plain version at the main path's shape.  K3 and K5 stop their loops
-   once the state repeats: there, and on rows whose Lambert arguments fall
-   where the solve can settle into a 3-cycle and on rows with NaN, inf and
-   values <= 0, each is held bitwise to its full-count build (the same
-   kernel with the exit compiled out) and its step counts to the loops'
-   counts; at the main path's shape in f32 the two are timed in turns
-   (exit, full, full, exit, 5 rounds of 20 calls a reading; median and
+   and plain version at the main path's shape, beside an empty kernel's
+   launched through the same path (the launch floor).  K3, K4 and K5 stop
+   their loops once the state repeats: there, and on rows whose Lambert
+   arguments fall where the solve can settle into a 3-cycle and on rows
+   with NaN, inf and values <= 0, each is held bitwise to its full-count
+   build (the same kernel with the exit compiled out) and its step counts
+   to the loops' counts; K3's prox, which runs rows of up to 16 two to a
+   warp, is also held bitwise (results and step counts) to the same
+   kernel one row a warp at widths 1, 7-10, 15, 16 and on mnist's rows,
+   with the resident warps a SM and the waves mnist's shape takes in both
+   layouts; at the main path's shape in f32 each is timed in turns with
+   the builds it replaces (kernel, full count, and for K3's prox one row a
+   warp, then in reverse, 5 rounds of 20 calls a reading; median and
    min-max), beside the bound of the steps this run took.
 7. The problem library: every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes (full width), through ``problems.benchmark``
@@ -121,9 +128,10 @@ re-solves of phases 3 and 4 run 500 and 100 iterations (2000 and 200
 before); when (e)-(g) were added, phase 9 (a)'s warm re-solves run 50
 iterations (100 before).
 On an H100 the script takes about 550-715 s (the host sets most of the
-spread), of which the build takes about 11 s (``lse_rows.cu``'s 16
-kernels: each entry per dtype, row in registers or not, with and without
-the exit), phase 7a about 45 s,
+spread), of which the build takes about 11 s (``lse_rows.cu``'s 20
+kernels: prox and epigraph per dtype, row in registers or not, with and
+without the exit, and the half-warp prox per dtype with and without it),
+phase 7a about 45 s,
 phase 7 about 310-380 s (``max_gaussian``'s 50,000 iterations,
 215-250 s in the second process; beside it the other rows' host-side build and
 set-up at reference size and ``infinite_push``'s 19,860 iterations) and
@@ -150,6 +158,8 @@ when no CUDA device is available.
 
 import json
 import os
+import ctypes
+import functools
 import statistics
 import subprocess
 import sys
@@ -233,6 +243,11 @@ ROW_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # The odd widths at which phase 7a also holds each kernel (one lane, a
 # warp short, a warp over, and beyond eight elements a lane).
 ROW_WIDTHS = (1, 31, 33, 257)
+# The widths at which phase 7a holds K3's half-warp prox to the same
+# kernel one row a warp (one lane, around a quarter and a half of the
+# warp, mnist's 10), on an odd count of rows (the last half-warp idle).
+HALF_WARP_WIDTHS = (1, 7, 8, 9, 10, 15, 16)
+HALF_WARP_ROWS = 63
 # The plain LOG_SUM_EXP epigraph issues about 208,000 eager operations a
 # call (2.5 s on an H100): its time is the median of 5 calls, not 50.
 ROW_PLAIN_REPS = {"lse_epi_rows": 5}
@@ -812,13 +827,27 @@ def feasibility(name, kw, values):
     return None
 
 
+@functools.cache
+def _launch_floor_library():
+    from epsilon_tpu_torch.ops.kernels import _rows
+    return _rows.load("launch_floor", {"row_launch_floor": [ctypes.c_void_p]})
+
+
+def launch_floor(t):
+    """One launch of an empty kernel (``csrc/launch_floor.cu``, one block,
+    as a one-row launch) on t's device and stream, through the per-row
+    kernels' ctypes path: the least such a launch costs."""
+    from epsilon_tpu_torch.ops.kernels import _rows
+    _rows.launch("row_launch_floor", _launch_floor_library().row_launch_floor, (), t)
+
+
 def row_kernels():
     """The per-row loop kernels of phase 7a (K3 (a), K3 (b), K4, K5), each
     as ``name -> dict``: its module and launch-count attribute, the kernel
     entry and its plain version (the same call signature ``(v, p)``, ``p``
-    the per-row ``lam`` or ``s``), the full-count build of a kernel whose
-    loops exit when their state repeats (else None), the JAX function it
-    stands for, the
+    the per-row ``lam`` or ``s``), its full-count build (its loops run
+    their counts), for K3 (a) ``wide`` (the same kernel one row a warp),
+    the JAX function it stands for, the
     main path's shape (rows, n) in phase 7, and the length of the
     kernel's dependent chain in operations for those rows (see
     ``row_chain_ops``)."""
@@ -828,7 +857,7 @@ def row_kernels():
         "lse_prox_rows": dict(
             module=lse_rows, counter="prox_launches", kernel=lse_rows.prox_rows,
             plain=vector.prox_log_sum_exp_reference, param="lam", full=lse_rows.prox_rows_full,
-            source="epsilon_tpu_torch/csrc/lse_rows.cu",
+            wide=lse_rows.prox_rows_wide, source="epsilon_tpu_torch/csrc/lse_rows.cu",
             replaces="epsilon_tpu/ops/prox/vector.py:153", main=(10000, 10), row="mnist"),
         "lse_epi_rows": dict(
             module=lse_rows, counter="epi_launches", kernel=lse_rows.epi_rows,
@@ -838,7 +867,8 @@ def row_kernels():
             row="max_softmax"),
         "epi_sum_square_rows": dict(
             module=epi_sum_square, counter="launches", kernel=epi_sum_square.epi_rows,
-            plain=registry._epi_sum_square_reference, param="s", full=None,
+            plain=registry._epi_sum_square_reference, param="s",
+            full=epi_sum_square.epi_rows_full,
             source="epsilon_tpu_torch/csrc/epi_sum_square.cu",
             replaces="epsilon_tpu/ops/prox/registry.py:65", main=(1, 200),
             row="oneclass_svm"),
@@ -889,13 +919,16 @@ def row_chain_taken(name, steps):
     """``row_chain_ops`` per row for the steps this run's rows took
     (``steps``: the kernel's step counts, rows x 4 as numpy): a Lambert
     step 7 operations on the chain, a pass of the prox 10 (its warp sum),
-    and in K3 (b) each prox 60 more, in K5 each step 33.  With the full
-    counts it is ``row_chain_ops``."""
+    and in K3 (b) each prox 60 more, in K5 each step 33; K4 the row's sum
+    and write 30, a widening step 6 (its count under "nu") and a Newton
+    step 9 (under "lam").  With the full counts it is ``row_chain_ops``."""
     lam, nu, chain = (steps[:, j].astype(np.int64) for j in range(3))
     if name == "lse_prox_rows":
         return 7 * chain + 10 * (nu + 2)
     if name == "lse_epi_rows":
         return 7 * chain + 10 * (nu + 2 * (lam + 1)) + 60 * (lam + 1)
+    if name == "epi_sum_square_rows":
+        return 30 + 6 * nu + 9 * lam
     return 33 * (lam + 1)
 
 
@@ -903,16 +936,25 @@ def steps_out_of_counts(kernel, steps, full_steps, n):
     """Rows (a numpy bool array) whose step counts leave their loops' counts.
 
     ``steps`` and ``full_steps`` are the counts (rows x 4, numpy) of
-    ``kernel`` (``"lse_prox_rows"``, ``"lse_epi_rows"`` or
-    ``"epi_neg_log_rows"``) and of its full-count build on the same rows
-    of width ``n``.  The full-count build runs 24 steps on lam, 25 on nu a
-    prox and 30 a Lambert solve (0 on an inactive row), the exit 1-24 on
-    lam, 1-25 on nu a prox and at most 30 a solve; a lane solves its
-    elements one after another, so a pass's chain holds up to 30 steps an
-    element of the lane, and a prox has 28 passes, 27 on the chain."""
+    ``kernel`` (``"lse_prox_rows"``, ``"lse_epi_rows"``,
+    ``"epi_sum_square_rows"`` or ``"epi_neg_log_rows"``) and of its
+    full-count build on the same rows of width ``n``.  The full-count build
+    runs 24 steps on lam, 25 on nu a prox and 30 a Lambert solve (0 on an
+    inactive row), the exit 1-24 on lam, 1-25 on nu a prox and at most 30 a
+    solve; a lane solves its elements one after another, so a pass's chain
+    holds up to 30 steps an element of the lane, and a prox has 28 passes,
+    27 on the chain.  K4 counts 25 Newton steps under lam and 40 widening
+    steps under nu, the exit 1-25 and 1-40."""
     steps = np.asarray(steps, dtype=np.int64).reshape(-1, 4)
     full = np.asarray(full_steps, dtype=np.int64).reshape(-1, 4)
     per_lane = -(-n // 32)
+    if kernel == "epi_sum_square_rows":
+        active = full[:, 0] != 0
+        within = ((steps[:, 0] >= 1) & (steps[:, 0] <= 25) & (steps[:, 1] >= 1)
+                  & (steps[:, 1] <= 40) & (steps[:, 2:] == 0).all(axis=1))
+        ok = np.where(active, within, (steps == 0).all(axis=1))
+        want_full = np.array([25, 40, 0, 0])
+        return ~ok | (full != np.where(active[:, None], want_full[None], 0)).any(axis=1)
     if kernel == "lse_prox_rows":
         active = np.ones(len(full), dtype=bool)
         lam_ok = steps[:, 0] == 0
@@ -938,11 +980,13 @@ def steps_out_of_counts(kernel, steps, full_steps, n):
 def row_flops_taken(name, steps, n):
     """``row_flops`` for the steps this run's rows took: 8 a Lambert step
     of an element."""
-    lam, elements = steps[:, 0].astype(np.int64), steps[:, 3].astype(np.int64)
+    lam, nu, elements = (steps[:, j].astype(np.int64) for j in (0, 1, 3))
     if name == "lse_prox_rows":
         return int(8 * elements.sum())
     if name == "lse_epi_rows":
         return int(8 * elements.sum() + (n * (lam + 1) * 30).sum())
+    if name == "epi_sum_square_rows":
+        return int((3 * n + 8 * nu + 20 * lam).sum())
     return int((n * (lam + 1) * 12).sum())
 
 
@@ -1037,20 +1081,95 @@ def exit_check(name, k, v, p, label):
     return steps, full_steps
 
 
+def wide_check(name, k, v, p, label):
+    """K3's prox (two rows of up to 16 a warp) against the same kernel one
+    row a warp (``k["wide"]``) on (v, p): the same step counts and the same
+    bits, but where both hold a zero of another sign.  Returns the rows
+    with such zeros (the layouts' butterflies agree on them by design, so
+    none is expected)."""
+    steps = torch.zeros(tuple(v.shape[:-1]) + (4,), dtype=torch.int32, device=v.device)
+    wide_steps = torch.zeros_like(steps)
+    out = k["kernel"](v, p, steps=steps)
+    wide = k["wide"](v, p, steps=wide_steps)
+    torch.cuda.synchronize()
+    if not torch.equal(steps, wide_steps):
+        raise AssertionError(f"{name} {label}: step counts differ from one row a warp's")
+    ints = {4: torch.int32, 8: torch.int64}[out.element_size()]
+    differ = out.view(ints) != wide.view(ints)
+    if (differ & ~((out == 0) & (wide == 0))).any():
+        rows = torch.nonzero(differ.reshape(-1, v.shape[-1]).any(dim=1)).flatten()[:3]
+        raise AssertionError(f"{name} {label}: differs from one row a warp in rows "
+                             f"{rows.tolist()}")
+    return torch.nonzero(differ.reshape(-1, v.shape[-1]).any(dim=1)).flatten().tolist()
+
+
+def half_warp_checks(name, k, dtype, dev, main_in):
+    """Phase 7a's checks of K3's half-warp prox in one dtype: bitwise
+    against one row a warp (``wide_check``) and against its full-count
+    build (``exit_check``) at ``HALF_WARP_WIDTHS`` on an odd row count, on
+    the band and special rows at mnist's width, and on mnist's rows."""
+    main_rows, main_n = k["main"]
+    cases = [(f"{HALF_WARP_ROWS}x{n}", row_inputs(name, HALF_WARP_ROWS, n, dtype, 100 + n, dev))
+             for n in HALF_WARP_WIDTHS]
+    cases += [(f"special {HALF_WARP_ROWS}x{main_n}",
+               special_inputs(name, HALF_WARP_ROWS, main_n, dtype, 7, dev)),
+              (f"band {HALF_WARP_ROWS}x{main_n}",
+               band_inputs(name, HALF_WARP_ROWS, main_n, dtype, 7, dev)),
+              (f"{main_rows}x{main_n}", main_in)]
+    zeros = {}
+    for label, (v, p) in cases:
+        exit_check(name, k, v, p, f"{label} {dtype}")
+        rows = wide_check(name, k, v, p, f"{label} {dtype}")
+        if rows:
+            zeros[label] = rows
+    log(f"[7a] {name} {str(dtype)[6:]}: two rows a warp bitwise equal to one row a warp "
+        "(results and step counts) and to the full-count build on "
+        + ", ".join(label for label, _ in cases) + "; rows differing only in a zero's sign: "
+        + (", ".join(f"{label} rows {rows}" for label, rows in zeros.items()) or "none"))
+
+
+def half_warp_occupancy(name, k, v, p):
+    """The resident warps a SM and the waves the main path's shape (v, p)
+    takes for K3's prox in both layouts (``lse_rows.resident_warps``), and
+    the share of one row a warp's work that two rows a warp issue: a warp
+    runs while either of its rows steps, so it issues the longer of the
+    two rows' chains (``row_chain_taken``) for both."""
+    main_rows, main_n = k["main"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parts = []
+    for wide, label in ((False, "two rows a warp"), (True, "one row a warp")):
+        warps = k["module"].resident_warps(v.dtype, main_n, wide)
+        need = -(-main_rows // (1 if wide or main_n > 16 else 2))
+        parts.append(f"{label}: {warps} warps a SM, {need} warps, "
+                     f"{need / (warps * sms):.2f} waves")
+    steps = torch.zeros(main_rows, 4, dtype=torch.int32, device=v.device)
+    k["kernel"](v, p, steps=steps)
+    chain = row_chain_taken(name, steps.cpu().numpy())
+    pairs = np.concatenate([chain, chain[-1:]] if len(chain) % 2 else [chain]).reshape(-1, 2)
+    return (f"{sms} SMs; " + "; ".join(parts) + "; the warps' longer chains of two rows sum "
+            f"to {pairs.max(axis=1).sum() / chain.sum():.3f} of the rows' chains")
+
+
 def phase_row_kernels(card):
     """Phase 7a: K3 (a), K3 (b), K4 and K5 against their plain versions on
     the card, at the main path's shapes and at odd widths, f32 and f64,
-    with active and inactive rows; bitwise repeatability; K3 and K5
-    bitwise against their full-count builds there and on the band and
-    special rows (``exit_check``); device times of the kernel and the
-    plain version at the main path's shape in f32, and K3's and K5's A/B
-    against the full-count build (``exit_ab``).  Returns the ``kernels``
-    records (their launches are set after phase 7)."""
+    with active and inactive rows; bitwise repeatability; each bitwise
+    against its full-count build there and on the band and special rows
+    (``exit_check``), K3 (a) also against one row a warp
+    (``half_warp_checks``); device times of the kernel and the plain
+    version at the main path's shape in f32 beside the launch floor, and
+    the A/B against the builds it replaces (``exit_ab``).  Returns the
+    ``kernels`` records (their launches are set after phase 7)."""
     from epsilon_tpu_torch.ops.kernels._rows import STEP_COUNTS
     dev = torch.device("cuda")
     clock_hz = 1e6 * float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0])
+    anchor = torch.empty(1, device=dev)
+    launch_floor(anchor)   # loads the library outside the timing
+    floor_ms = device_ms(lambda: launch_floor(anchor))
+    log(f"[7a] launch floor: an empty kernel (one block of 128 threads) through the same "
+        f"ctypes path, {floor_ms:.4f} ms (device time, median of 50); {card}")
     records = {}
     for name, k in row_kernels().items():
         main_rows, main_n = k["main"]
@@ -1078,24 +1197,25 @@ def phase_row_kernels(card):
                     same = (out[0] == v).all(dim=-1).reshape(-1)
                     inactive = f", {int(same.sum())} of {rows} rows inactive"
                 exits = ""
-                if k["full"] is not None:
-                    steps, _ = exit_check(name, k, v, p, f"{rows}x{n} {dtype}")
-                    exits = (f"; bitwise equal to its full-count build, steps (mean) "
-                             + ", ".join(f"{c} {steps[:, j].mean():.1f}"
-                                         for j, c in enumerate(STEP_COUNTS) if steps[:, j].any()))
+                steps, _ = exit_check(name, k, v, p, f"{rows}x{n} {dtype}")
+                exits = (f"; bitwise equal to its full-count build, steps (mean) "
+                         + ", ".join(f"{c} {steps[:, j].mean():.1f}"
+                                     for j, c in enumerate(STEP_COUNTS) if steps[:, j].any()))
                 log(f"[7a] {name} {rows}x{n} {str(dtype)[6:]}: max_abs_err={err:.3e} "
                     f"(scale {scale:.3e}, rtol {ROW_RTOL[dtype]:g}), bitwise repeatable"
                     f"{inactive}{exits}")
-                if (rows, n) == k["main"] and dtype == torch.float32:
-                    main_err, main_in = err, (v, p)
-            if k["full"] is None:
-                continue
+                if (rows, n) == k["main"]:
+                    main_in_dtype = (v, p)
+                    if dtype == torch.float32:
+                        main_err, main_in = err, (v, p)
+            if "wide" in k:
+                half_warp_checks(name, k, dtype, dev, main_in_dtype)
             # the exit's hard cases: the 3-cycle band, non-finite and <= 0 values
             checked = []
             for n in sorted({main_n, 33, 257}):
                 rows = max(main_rows, 16) if n == main_n else 16
                 cases = [("special", special_inputs(name, rows, n, dtype, n, dev))]
-                if name != "epi_neg_log_rows":
+                if name.startswith("lse"):
                     cases.append(("band", band_inputs(name, rows, n, dtype, n, dev)))
                 for label, (v, p) in cases:
                     exit_check(name, k, v, p, f"{label} {rows}x{n} {dtype}")
@@ -1123,24 +1243,31 @@ def phase_row_kernels(card):
                else "") + f"); bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, "
             f"{flops:.3g} operations, a chain of {row_chain_ops(name, main_n)} dependent "
             f"operations at {ROW_CYCLES_PER_OP} cycles and {clock_hz / 1e6:.0f} MHz: "
-            f"{chain_ms:.4f} ms); kernel at {bound_ms / ms:.2f} of it; {card}")
+            f"{chain_ms:.4f} ms); kernel at {bound_ms / ms:.2f} of it; launch floor "
+            f"{floor_ms:.4f} ms; {card}")
+        if "wide" in k:
+            log(f"[7a] {name} {main_rows}x{main_n} f32 occupancy: "
+                + half_warp_occupancy(name, k, v, p))
         records[name] = {"name": name, "route": "cuda", "source": k["source"],
                          "replaces": k["replaces"], "max_abs_err": main_err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None}
-        if k["full"] is not None:
-            records[name].update(exit_ab(name, k, v, p, n_bytes, clock_hz, card))
+                         "library_ms": None, "floor_ms": floor_ms}
+        records[name].update(exit_ab(name, k, v, p, n_bytes, clock_hz, card))
     return records
 
 
 def exit_ab(name, k, v, p, n_bytes, clock_hz, card):
-    """The kernel and its full-count build at the main path's shape in f32,
-    timed in turns (``interleaved_ms``), and the bound for the steps this
-    run's rows took (``row_chain_taken``, ``row_flops_taken``) beside the
-    full-count bound.  Returns the record's added fields."""
+    """The kernel, its full-count build and (K3 (a)) the same kernel one
+    row a warp at the main path's shape in f32, timed in turns
+    (``interleaved_ms``), and the bound for the steps this run's rows took
+    (``row_chain_taken``, ``row_flops_taken``) beside the full-count
+    bound.  Returns the record's added fields."""
     from epsilon_tpu_torch.ops.kernels._rows import STEP_COUNTS
     main_rows, main_n = k["main"]
-    ab = interleaved_ms({"exit": lambda: k["kernel"](v, p), "full": lambda: k["full"](v, p)})
+    sides = {"exit": lambda: k["kernel"](v, p), "full": lambda: k["full"](v, p)}
+    if "wide" in k:
+        sides["wide"] = lambda: k["wide"](v, p)
+    ab = interleaved_ms(sides)
     steps, full_steps = exit_check(name, k, v, p, "main f32")
     chain = row_chain_taken(name, steps)
     if row_chain_taken(name, full_steps).max() != row_chain_ops(name, main_n):
@@ -1155,15 +1282,26 @@ def exit_ab(name, k, v, p, n_bytes, clock_hz, card):
         bound_taken_ms, by = chain_ms, "operations"
     taken = {c: int(steps[longest, j]) for j, c in enumerate(STEP_COUNTS)}
     (med, lo, hi), (f_med, f_lo, f_hi) = ab["exit"], ab["full"]
-    log(f"[7a] {name} {main_rows}x{main_n} f32 in turns ({AB_ROUNDS} rounds, exit, full, "
-        f"full, exit; {AB_REPS} calls a reading): exit {med:.4f} ms ({lo:.4f}-{hi:.4f}), "
-        f"full count {f_med:.4f} ms ({f_lo:.4f}-{f_hi:.4f}), ratio {med / f_med:.3f}; "
+    wide = ""
+    if "wide" in ab:
+        w_med, w_lo, w_hi = ab["wide"]
+        wide = (f", one row a warp {w_med:.4f} ms ({w_lo:.4f}-{w_hi:.4f}), ratio "
+                f"{med / w_med:.3f}")
+    log(f"[7a] {name} {main_rows}x{main_n} f32 in turns ({AB_ROUNDS} rounds, "
+        f"{', '.join(sides)}, then in reverse; {AB_REPS} calls a reading): exit {med:.4f} ms "
+        f"({lo:.4f}-{hi:.4f}), full count {f_med:.4f} ms ({f_lo:.4f}-{f_hi:.4f}), ratio "
+        f"{med / f_med:.3f}{wide}; "
         f"steps taken on the longest chain (row {longest}) {taken}, a chain of "
         f"{int(chain[longest])} operations ({chain_ms:.4f} ms), {flops:.3g} operations: "
         f"bound for the steps taken {bound_taken_ms:.4f} ms by {by}, kernel at "
         f"{bound_taken_ms / med:.2f} of it; {card}")
-    return {"full_count_ms": f_med, "ab_ms": {"exit": ab["exit"], "full_count": ab["full"]},
-            "steps_taken": taken, "bound_taken_ms": bound_taken_ms}
+    fields = {"full_count_ms": f_med,
+              "ab_ms": {"exit": ab["exit"], "full_count": ab["full"]},
+              "steps_taken": taken, "bound_taken_ms": bound_taken_ms}
+    if "wide" in ab:
+        fields["one_row_a_warp_ms"] = ab["wide"][0]
+        fields["ab_ms"]["one_row_a_warp"] = ab["wide"]
+    return fields
 
 
 def library_row(bench, inst, ref, profile_iters=LIBRARY_PROFILE_ITERS, tag=""):
@@ -1749,6 +1887,7 @@ def main():
         return 1
     t_start = time.perf_counter()
     import epsilon_tpu_torch as ep
+    from epsilon_tpu_torch.ops.kernels import _rows
     from epsilon_tpu_torch.ops.kernels import local_update as lu
     from epsilon_tpu_torch.ops.kernels import sym_packed as sp
     row_k = row_kernels()
@@ -1761,12 +1900,14 @@ def main():
     log(f"[1] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     modules = [sp, lu] + list({id(k["module"]): k["module"] for k in row_k.values()}.values())
-    with ThreadPoolExecutor(len(modules)) as pool:
-        builds = list(pool.map(lambda mod: mod.build(), modules))
-    log(f"[1] {len(modules)} kernel sources built in {time.perf_counter() - t0:.2f} s, "
+    sources = [mod.build for mod in modules] + [lambda: _rows.build("launch_floor")]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = list(pool.map(lambda build: build(), sources))
+    log(f"[1] {len(sources)} kernel sources built in {time.perf_counter() - t0:.2f} s, "
         "one nvcc each, started together")
     for path, build_s, build_log in builds:
-        log(f"[1] built {path.name} in {build_s:.2f} s")
+        kernels = build_log.count("Compiling entry function")
+        log(f"[1] built {path.name} in {build_s:.2f} s ({kernels} kernels)")
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[1]   {line.strip()}")

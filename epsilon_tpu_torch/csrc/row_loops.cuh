@@ -34,6 +34,19 @@
 // reads it there (Row<T, 1>); a longer row stays in device memory and each
 // pass reads it lane-strided (Row<T, 0>).  Both take the elements in the
 // same order, so the sums are the same.
+//
+// Two rows a warp.  A row of n <= 16 (the LOG_SUM_EXP prox at mnist's
+// width of 10) can take a half-warp: lanes 0-15 hold one row, lanes 16-31
+// the next, and every butterfly runs at width W = 16 (offsets 8, 4, 2, 1,
+// which stay inside the half).  The one-row-a-warp butterfly of such a row
+// adds only identities in its first level (+0 to a partial sum that began
+// as +0, so never -0; -inf to a max, +inf to a min) and is the 16-wide one
+// after that, so both give the same bits.  Each half keeps its own exit:
+// the warp runs a loop while either half still steps and every shuffle
+// stays full-mask; a half whose state has repeated steps on through its
+// cycle, uncounted, and at the loop's end returns the state of that cycle
+// that the full count reaches (iterate(); tests/test_torch_loop_exit.py
+// holds the rule on the plain loops).
 
 #pragma once
 
@@ -77,29 +90,31 @@ template <typename T> __device__ __forceinline__ T tmin(T a, T b) {
 template <typename T> __device__ __forceinline__ T clamp_min(T x, T lo) { return x < lo ? lo : x; }
 template <typename T> __device__ __forceinline__ T clamp_max(T x, T hi) { return x > hi ? hi : x; }
 
-template <typename T> __device__ __forceinline__ T warp_sum(T v) {
+// Butterflies over a segment of W lanes (W = 32: the warp; W = 16: its
+// half); every lane of the segment ends with the same bits.
+template <int W = 32, typename T> __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = W / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 // Two independent sums through one butterfly (each the same as warp_sum's).
-template <typename T> __device__ __forceinline__ void warp_sum2(T& a, T& b) {
+template <int W = 32, typename T> __device__ __forceinline__ void warp_sum2(T& a, T& b) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = W / 2; off > 0; off >>= 1) {
     const T oa = __shfl_xor_sync(0xffffffffu, a, off);
     const T ob = __shfl_xor_sync(0xffffffffu, b, off);
     a += oa;
     b += ob;
   }
 }
-template <typename T> __device__ __forceinline__ T warp_max(T v) {
+template <int W = 32, typename T> __device__ __forceinline__ T warp_max(T v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = tmax(v, __shfl_xor_sync(0xffffffffu, v, off));
+  for (int off = W / 2; off > 0; off >>= 1) v = tmax(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
-template <typename T> __device__ __forceinline__ T warp_min(T v) {
+template <int W = 32, typename T> __device__ __forceinline__ T warp_min(T v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = tmin(v, __shfl_xor_sync(0xffffffffu, v, off));
+  for (int off = W / 2; off > 0; off >>= 1) v = tmin(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 __device__ __forceinline__ bool warp_all(bool p) { return __all_sync(0xffffffffu, p); }
@@ -125,16 +140,54 @@ template <typename S> struct Ring4 {
     return same(s, s1) ? 1 : same(s, s2) ? 2 : same(s, s3) ? 3 : same(s, s4) ? 4 : 0;
   }
   __device__ __forceinline__ void push(const S& s) { s4 = s3; s3 = s2; s2 = s1; s1 = s; }
-  // The state j = 1, 2 or 3 steps back.
-  __device__ __forceinline__ S back(int j) const { return j == 1 ? s1 : j == 2 ? s2 : s3; }
+  // The state j = 1, 2, 3 or 4 steps back.
+  __device__ __forceinline__ S back(int j) const {
+    return j == 1 ? s1 : j == 2 ? s2 : j == 3 ? s3 : s4;
+  }
 };
 
 // The state after `iters` steps of s = step(s); `ran` gets the steps run.
 // With EXIT, the loop stops at the first state that repeats one of the
-// last four (see the header).
-template <bool EXIT, typename S, typename F>
-__device__ __forceinline__ S iterate(S s, int iters, F step, int& ran) {
-  if constexpr (EXIT) {
+// last four (see the header).  W = 16: two rows a warp, each half with its
+// own state (step() holds full-mask shuffles, so every lane calls it while
+// either half steps).  A half whose state has repeated with period p steps
+// on through that cycle until the other half's repeats too (or the count
+// ends), uncounted (`*live`, where given, is false there), and returns the
+// state of its cycle that the full count reaches.
+//
+// Two rules, because W = 32 serves loops that no vote may wait on: the
+// Lambert solve runs per lane and only in the lanes that hold an element
+// (each() skips the rest), so a full-mask __all_sync there would wait for
+// lanes that never reach it.  Such a loop returns at its own first repeat;
+// so does a loop on sums that every lane of the warp holds alike, where
+// that repeat comes at the same step in every lane.  The vote is needed
+// only where two rows share the warp's shuffles and exit apart (W < 32).
+template <bool EXIT, int W = 32, typename S, typename F>
+__device__ __forceinline__ S iterate(S s, int iters, F step, int& ran, bool* live = nullptr) {
+  if constexpr (EXIT && W < 32) {
+    Ring4<S> ring(s);
+    int period = 0, k = 0;
+    ran = iters;
+#pragma unroll 1
+    while (k < iters) {
+      s = step(s);
+      ++k;
+      if (period == 0) {
+        period = ring.period(s);
+        if (period != 0) {
+          ran = k;
+          if (live != nullptr) *live = false;
+        }
+      }
+      ring.push(s);
+      if (__all_sync(0xffffffffu, period != 0)) break;
+    }
+    if (live != nullptr) *live = true;
+    // the ring holds the states k, k - 1, k - 2, k - 3; the full count's
+    // is the state k - p + ((iters - k) mod p) of the cycle
+    const int r = period == 0 ? 0 : (iters - k) % period;
+    return r == 0 ? s : ring.back(period - r + 1);
+  } else if constexpr (EXIT) {
     Ring4<S> ring(s);
 #pragma unroll 1
     for (int k = 1; k <= iters; ++k) {
@@ -210,11 +263,25 @@ template <typename F> void by_width(int n, F f) {
 // [2] Lambert steps on the warp's chain (per pass, the most any lane ran;
 // summed over the passes but the bracket's lower end, which is independent
 // of the upper), [3] Lambert steps of all elements (summed over every pass).
+// K4 puts its safeguarded Newton steps on lam in [0] and its widening
+// steps in [1].  W: the lanes of the row (see warp_sum).
 struct Steps {
   int lam = 0, nu = 0, warp = 0, elem = 0;
+  template <int W = 32>
   __device__ __forceinline__ void pass(int lane_steps, bool chain) {
-    if (chain) warp += (int)__reduce_max_sync(0xffffffffu, (unsigned)lane_steps);
-    elem += (int)__reduce_add_sync(0xffffffffu, (unsigned)lane_steps);
+    if constexpr (W == 32) {
+      if (chain) warp += (int)__reduce_max_sync(0xffffffffu, (unsigned)lane_steps);
+      elem += (int)__reduce_add_sync(0xffffffffu, (unsigned)lane_steps);
+    } else {
+      int most = lane_steps, all = lane_steps;
+#pragma unroll
+      for (int off = W / 2; off > 0; off >>= 1) {
+        most = max(most, __shfl_xor_sync(0xffffffffu, most, off));
+        all += __shfl_xor_sync(0xffffffffu, all, off);
+      }
+      if (chain) warp += most;
+      elem += all;
+    }
   }
   __device__ __forceinline__ void write(int* p, int row) const {
     int* q = p + 4LL * row;
@@ -248,16 +315,17 @@ template <typename T> __device__ __forceinline__ bool same(const Bracket<T>& a, 
 // when g reduces over a row.  The state is not a plain bracket that only
 // shrinks: once x settles between two neighbouring floats at the root, the
 // step swaps glo and ghi's roles and the Illinois halving undoes itself, so
-// the state repeats with period 2-4 (tests/test_torch_loop_exit.py); the
-// LOG_SUM_EXP prox exits there (EXIT), K4 runs the fixed count.
-template <typename T, bool EXIT = false, typename G>
+// the state repeats with period 2-4 (tests/test_torch_loop_exit.py), on
+// the LOG_SUM_EXP prox's nu and on K4's cubic alike, and both exit there
+// (EXIT).  W and live: see iterate().
+template <typename T, bool EXIT = false, int W = 32, typename G>
 __device__ __forceinline__ T newton_safeguarded(G gfun, T x, T lo, T hi, int iters,
-                                                int* ran = nullptr) {
+                                                int* ran = nullptr, bool* live = nullptr) {
   T gp;
   const T glo = gfun(lo, gp);
   const T ghi = gfun(hi, gp);
   int k;
-  const Bracket<T> b = iterate<EXIT>(Bracket<T>{x, lo, hi, glo, ghi}, iters,
+  const Bracket<T> b = iterate<EXIT, W>(Bracket<T>{x, lo, hi, glo, ghi}, iters,
                                      [&](Bracket<T> b) {
     T gpx;
     const T gx = gfun(b.x, gpx);
@@ -279,7 +347,7 @@ __device__ __forceinline__ T newton_safeguarded(G gfun, T x, T lo, T hi, int ite
     const bool bad = xn <= b.lo || xn >= b.hi || !is_finite(xn);
     b.x = bad ? falsi : xn;
     return b;
-  }, k);
+  }, k, live);
   if (ran != nullptr) *ran += k;
   return b.x;
 }

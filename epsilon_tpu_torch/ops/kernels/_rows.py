@@ -6,9 +6,9 @@ last axis, flattened to ``rows x n``) and a per-row scalar (``lam`` or
 ``s``): a tensor on the rows' device, read by the kernel from device
 memory (stride 0 broadcasts a single value, so a value that the solver
 changes on the device needs no sync), or a host number passed by value.
-The kernels whose loops stop when their state repeats (``lse_rows``,
-``epi_neg_log``) also take an optional ``steps`` array, into which they
-write each row's step counts (:func:`steps_ptr`).
+Their loops stop when their state repeats, and they take an optional
+``steps`` array, into which they write each row's step counts
+(:func:`steps_ptr`).
 """
 
 from __future__ import annotations
@@ -22,8 +22,9 @@ from . import _build
 
 # The kernels repeat their plain versions' arithmetic operation by
 # operation: no contracted multiply-adds where PyTorch rounds twice.  The
-# optimizer runs on every core (lse_rows.cu holds 16 kernels: each entry
-# per dtype, row in registers or not, with and without the exit).
+# optimizer runs on every core (lse_rows.cu holds 20 kernels: prox and
+# epigraph per dtype, row in registers or not, with and without the exit,
+# and the half-warp prox per dtype with and without it).
 FLAGS = ("--fmad=false", "--split-compile=0")
 
 
@@ -120,6 +121,8 @@ def epi_args(fname: str, v, s):
 # (per pass the most any lane ran, summed over the passes but the bracket's
 # lower end), Lambert steps of all elements (summed over every pass); a
 # count a kernel has no loop for stays 0, and an inactive row counts 0.
+# K4 (``epi_sum_square``) writes its safeguarded Newton steps on lam under
+# "lam" and its widening steps under "nu".
 STEP_COUNTS = ("lam", "nu", "lambert_chain", "lambert_elements")
 
 

@@ -7,7 +7,7 @@ The JAX package compiles ``prox_log_sum_exp`` and ``epi_log_sum_exp``
 plain versions (:func:`~epsilon_tpu_torch.ops.prox.vector.prox_log_sum_exp_reference`,
 :func:`~epsilon_tpu_torch.ops.prox.newton_epi.epi_log_sum_exp_reference`)
 issue every loop step as eager operations; the kernel runs one row's loops
-in one warp.
+in one warp, and the prox two rows of up to 16 elements in one warp.
 
 These are the kernel entries: they take CUDA tensors only and raise on any
 other device.  The dispatch (the plain version on a CPU tensor) is in
@@ -15,8 +15,10 @@ other device.  The dispatch (the plain version on a CPU tensor) is in
 stop once their state repeats, which gives the full-count result bitwise;
 :func:`prox_rows_full` and :func:`epi_rows_full` launch the build that
 runs every loop to its count, the reference that exit is checked against
-(no dispatch calls them).  ``steps``, where given, receives each row's
-step counts (``_rows.STEP_COUNTS``).
+(no dispatch calls them), and :func:`prox_rows_wide` the prox that exits
+one row a warp at every width, the layout the half-warp prox replaced and
+its bitwise reference (nor that).  ``steps``, where given, receives each
+row's step counts (``_rows.STEP_COUNTS``).
 """
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ import torch
 
 from . import _rows
 
-__all__ = ["prox_rows", "epi_rows", "prox_rows_full", "epi_rows_full", "build",
-           "prox_launches", "epi_launches"]
+__all__ = ["prox_rows", "epi_rows", "prox_rows_full", "epi_rows_full", "prox_rows_wide",
+           "resident_warps", "build", "prox_launches", "epi_launches"]
 
 # Kernel launches made by prox_rows and epi_rows (the full-count builds'
-# launches are not counted).
+# and the wide prox's launches are not counted).
 prox_launches = 0
 epi_launches = 0
 
@@ -49,9 +51,11 @@ def _library():
     if _LIB is None:
         prox = [_P, _P, _I, "scalar", _P, _P, _I, _I, _P]
         epi = [_P, _P, _I, "scalar", _P, _P, _P, _I, _I, _P]
-        _LIB = _rows.load("lse_rows", {
-            f"lse_{kind}_rows_{build}{t}": prox if kind == "prox" else epi
-            for kind in ("prox", "epi") for build in ("", "full_") for t in ("f32", "f64")})
+        entries = {f"lse_{kind}_rows_{build}{t}": prox if kind == "prox" else epi
+                   for kind in ("prox", "epi") for build in ("", "full_") for t in ("f32", "f64")}
+        entries.update({f"lse_prox_rows_wide_{t}": prox for t in ("f32", "f64")})
+        entries["lse_prox_rows_resident_warps"] = [_I, _I, _I, ctypes.POINTER(_I)]
+        _LIB = _rows.load("lse_rows", entries)
     return _LIB
 
 
@@ -98,6 +102,23 @@ def epi_rows(v, s, steps=None):
 def prox_rows_full(v, lam, steps=None):
     """:func:`prox_rows` by the full-count build (uncounted)."""
     return _prox("lse prox_rows_full", "full_", v, lam, steps)
+
+
+def prox_rows_wide(v, lam, steps=None):
+    """:func:`prox_rows` one row a warp at every width (uncounted)."""
+    return _prox("lse prox_rows_wide", "wide_", v, lam, steps)
+
+
+def resident_warps(dtype, n, wide=False):
+    """Warps one SM holds of the kernel that :func:`prox_rows` (or, with
+    ``wide``, :func:`prox_rows_wide`) launches on rows of ``n`` elements
+    of ``dtype`` (CUDA's occupancy calculator, on the current device)."""
+    warps = _I(0)
+    err = _library().lse_prox_rows_resident_warps(int(dtype == torch.float64), int(n),
+                                                   int(wide), ctypes.byref(warps))
+    if err != 0:
+        raise RuntimeError(f"lse resident_warps: CUDA error {err}")
+    return warps.value
 
 
 def epi_rows_full(v, s, steps=None):

@@ -1,7 +1,8 @@
 """CUDA-only tests of the port: the sym_packed (K2), local_update (K1) and
 per-row loop (K3 lse_rows, K4 epi_sum_square, K5 epi_neg_log) kernels
-against their plain PyTorch versions, K3 and K5 (whose loops stop when
-their state repeats) against their full-count builds bitwise, the factor
+against their plain PyTorch versions, K3-K5 (whose loops stop when their
+state repeats) against their full-count builds bitwise, K3's half-warp
+prox against the same kernel one row a warp bitwise, the factor
 apply, a small lasso, a small consensus lasso and the rows whose epigraphs
 K3 and K4 carry on the card.  They skip
 without a CUDA device.  This file imports neither JAX nor the JAX package,
@@ -463,13 +464,15 @@ def test_loop_kernel_rows_on_card_match_cpu_port(cuda, monkeypatch, row, kwargs)
     np.testing.assert_allclose(obj_gpu, obj_cpu, rtol=1e-6)
 
 
-# -- the exit: K3 and K5 against their full-count builds, bitwise ------------
+# -- the exit: K3-K5 against their full-count builds, bitwise ----------------
 
 def _exit_entries():
     """kind -> (the kernel entry, its full-count build, the C entry's name)."""
-    from epsilon_tpu_torch.ops.kernels import epi_neg_log, lse_rows
+    from epsilon_tpu_torch.ops.kernels import epi_neg_log, epi_sum_square, lse_rows
     return {"lse_prox": (lse_rows.prox_rows, lse_rows.prox_rows_full, "lse_prox_rows"),
             "lse_epi": (lse_rows.epi_rows, lse_rows.epi_rows_full, "lse_epi_rows"),
+            "sum_square": (epi_sum_square.epi_rows, epi_sum_square.epi_rows_full,
+                           "epi_sum_square_rows"),
             "neg_log": (epi_neg_log.epi_rows, epi_neg_log.epi_rows_full, "epi_neg_log_rows")}
 
 
@@ -504,21 +507,30 @@ def _exit_check(kind, v, p):
     ("lse_prox", (64, 33)), ("lse_prox", (3, 8, 257)),
     ("lse_epi", (100, 20)), ("lse_epi", (16, 1)), ("lse_epi", (16, 31)),
     ("lse_epi", (16, 33)), ("lse_epi", (2, 4, 257)),
+    ("sum_square", (200,)), ("sum_square", (64, 200)), ("sum_square", (8, 1)),
+    ("sum_square", (64, 1)), ("sum_square", (8, 31)), ("sum_square", (64, 31)),
+    ("sum_square", (8, 33)), ("sum_square", (64, 33)), ("sum_square", (2, 4, 257)),
+    ("sum_square", (64, 257)),
     ("neg_log", (10,)), ("neg_log", (8, 1)), ("neg_log", (8, 31)),
     ("neg_log", (8, 33)), ("neg_log", (2, 4, 257)),
 ])
 def test_row_kernel_exit_matches_full_count(cuda, kind, shape, dtype):
-    """K3 (a), K3 (b) and K5, whose loops stop when their state repeats,
-    give their full-count builds' results bitwise, and count their steps
-    within the loops' counts."""
+    """K3 (a), K3 (b), K4 and K5, whose loops stop when their state
+    repeats, give their full-count builds' results bitwise, and count their
+    steps within the loops' counts."""
     v, p = _row_inputs(kind, shape, seed=sum(shape), dtype=dtype, device=cuda)
     if len(shape) == 1:
         p = p.reshape(())
     steps = _exit_check(kind, v, p).reshape(-1, 4).long()
     active = steps[:, 1] > 0 if kind != "neg_log" else steps[:, 0] > 0
-    if kind != "lse_prox":
+    if kind == "sum_square":
+        # the widening's start already brackets the root: it repeats at step 1
+        assert active.any() and (steps[active, 1] == 1).all()
+        if steps.shape[0] >= 64:
+            assert (steps[active, 0] < 25).any()     # the Newton exits early somewhere
+    elif kind != "lse_prox":
         assert (steps[active, 0] < 24).any()     # the lam loop exits early somewhere
-    if kind != "neg_log":
+    if kind.startswith("lse"):
         # so do Lambert solves: fewer than 30 steps a solve on some chain
         proxes, per_lane = steps[:, 0] + 1, -(-v.shape[-1] // 32)
         assert steps[:, 2].sum() < 30 * per_lane * (steps[:, 1] + 2 * proxes)[active].sum()
@@ -558,7 +570,7 @@ def _special_inputs(kind, rows, n, seed, dtype, device):
 @pytest.mark.parametrize("n", [10, 20, 33, 257])
 @pytest.mark.parametrize("kind,inputs", [("lse_prox", "band"), ("lse_epi", "band"),
                                          ("lse_prox", "special"), ("lse_epi", "special"),
-                                         ("neg_log", "special")])
+                                         ("sum_square", "special"), ("neg_log", "special")])
 def test_row_kernel_exit_on_hard_rows(cuda, kind, inputs, n, dtype):
     """The same on the 3-cycle band of the Lambert solve and on rows with
     non-finite and non-positive values and bounds."""
@@ -580,10 +592,10 @@ class _Names:
 
 def test_dispatch_never_reaches_a_full_count_entry(cuda, monkeypatch):
     """The prox modules' dispatch launches the kernels that exit, never a
-    full-count build."""
-    from epsilon_tpu_torch.ops.kernels import epi_neg_log, lse_rows
-    from epsilon_tpu_torch.ops.prox import elementwise, newton_epi, vector
-    libs = {mod: _Names(mod._library()) for mod in (lse_rows, epi_neg_log)}
+    full-count build nor the prox one row a warp."""
+    from epsilon_tpu_torch.ops.kernels import epi_neg_log, epi_sum_square, lse_rows
+    from epsilon_tpu_torch.ops.prox import elementwise, newton_epi, registry, vector
+    libs = {mod: _Names(mod._library()) for mod in (lse_rows, epi_neg_log, epi_sum_square)}
     for mod, names in libs.items():
         monkeypatch.setattr(mod, "_LIB", names)
     for dtype in (torch.float32, torch.float64):
@@ -593,5 +605,58 @@ def test_dispatch_never_reaches_a_full_count_entry(cuda, monkeypatch):
         newton_epi.epi_log_sum_exp(v, s)
         v, s = _row_inputs("neg_log", (8, 10), 3, dtype, cuda)
         elementwise.epi_sum_neg_log(v, s)
+        v, s = _row_inputs("sum_square", (8, 200), 4, dtype, cuda)
+        registry._epi_sum_square(v, s)
     names = [n for names in libs.values() for n in names.names]
-    assert len(names) == 6 and not any("full" in n for n in names)
+    assert len(names) == 8 and not any("full" in n or "wide" in n for n in names)
+
+
+# -- K3's prox two rows a warp against one row a warp, bitwise ---------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("inputs,shape", [
+    ("seeded", (63, 1)), ("seeded", (63, 7)), ("seeded", (63, 8)), ("seeded", (63, 9)),
+    ("seeded", (63, 10)), ("seeded", (63, 15)), ("seeded", (63, 16)),
+    ("seeded", (10000, 10)), ("seeded", (1, 10)), ("seeded", (3, 5, 16)),
+    ("band", (63, 10)), ("special", (63, 10)), ("special", (64, 16)),
+])
+def test_half_warp_prox_matches_one_row_a_warp(cuda, inputs, shape, dtype):
+    """K3's prox takes rows of up to 16 two to a warp; its results and step
+    counts equal, bitwise, those of the same kernel one row a warp
+    (``prox_rows_wide``) and of its full-count build, on odd row counts
+    (the last half-warp idle) too.  The layouts' butterflies differ only
+    in adding identities, which a partial sum begun at +0 never turns into
+    another zero's sign."""
+    from epsilon_tpu_torch.ops.kernels import lse_rows
+    rows, n = int(np.prod(shape[:-1])), shape[-1]
+    if inputs == "seeded":
+        v, lam = _row_inputs("lse_prox", shape, sum(shape), dtype, cuda)
+    else:
+        make = _band_inputs if inputs == "band" else _special_inputs
+        v, lam = make("lse_prox", rows, n, n, dtype, cuda)
+    steps = _exit_check("lse_prox", v, lam)
+    wide_steps = torch.zeros_like(steps)
+    wide = lse_rows.prox_rows_wide(v, lam, steps=wide_steps)
+    assert _same_bits(lse_rows.prox_rows(v, lam), wide)
+    assert torch.equal(steps, wide_steps)
+
+
+def test_half_warp_prox_occupancy(cuda):
+    """The occupancy calculator answers for both layouts at mnist's width,
+    and rows of 17 take one row a warp in both."""
+    from epsilon_tpu_torch.ops.kernels import lse_rows
+    for dtype in (torch.float32, torch.float64):
+        half, wide = (lse_rows.resident_warps(dtype, 10, w) for w in (False, True))
+        assert 0 < half and 0 < wide
+        assert lse_rows.resident_warps(dtype, 17) == lse_rows.resident_warps(dtype, 17, True)
+
+
+def test_launch_floor_runs(cuda):
+    """The empty kernel that phase 7a times as the launch floor launches
+    and leaves the per-row kernels' launch counters alone."""
+    from chip_smoke import launch_floor, row_kernels
+    counters = [(k["module"], k["counter"]) for k in row_kernels().values()]
+    before = [getattr(mod, counter) for mod, counter in counters]
+    launch_floor(torch.empty(1, device=cuda))
+    torch.cuda.synchronize()
+    assert [getattr(mod, counter) for mod, counter in counters] == before

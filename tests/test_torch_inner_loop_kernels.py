@@ -294,21 +294,27 @@ def _full_counts(kernel, n, active):
     per_lane = -(-n // 32)
     row = {"lse_prox_rows": [0, 25, 27 * 30 * per_lane, 28 * 30 * n],
            "lse_epi_rows": [24, 25 * 25, 25 * 27 * 30 * per_lane, 25 * 28 * 30 * n],
+           "epi_sum_square_rows": [25, 40, 0, 0],
            "epi_neg_log_rows": [24, 0, 0, 0]}[kernel]
     return np.array([row if a else [0, 0, 0, 0] for a in active])
 
 
 @pytest.mark.parametrize("n", [10, 33])
-@pytest.mark.parametrize("kernel", ["lse_prox_rows", "lse_epi_rows", "epi_neg_log_rows"])
+@pytest.mark.parametrize("kernel", ["lse_prox_rows", "lse_epi_rows", "epi_sum_square_rows",
+                                    "epi_neg_log_rows"])
 def test_steps_out_of_counts(kernel, n):
     active = [True, True, kernel == "lse_prox_rows"]
     full = _full_counts(kernel, n, active)
     assert not steps_out_of_counts(kernel, full, full, n).any()
     taken = {"lse_prox_rows": [0, 9, 40, 40 * n], "lse_epi_rows": [5, 60, 400, 400 * n],
-             "epi_neg_log_rows": [11, 0, 0, 0]}[kernel]
+             "epi_sum_square_rows": [13, 1, 0, 0], "epi_neg_log_rows": [11, 0, 0, 0]}[kernel]
     steps = np.array([taken if a else [0, 0, 0, 0] for a in active])
     assert not steps_out_of_counts(kernel, steps, full, n).any()
-    for row, col, value in [(0, 0, 25), (0, 1, 0), (1, 2, 10 ** 6), (1, 3, 0)]:
+    mutations = [(0, 0, 25), (0, 1, 0), (1, 2, 10 ** 6), (1, 3, 0)]
+    if kernel == "epi_sum_square_rows":
+        # K4: 1-25 Newton steps under lam, 1-40 widening steps under nu
+        mutations = [(0, 0, 26), (0, 0, 0), (0, 1, 0), (0, 1, 41), (1, 2, 1), (1, 3, 1)]
+    for row, col, value in mutations:
         bad = steps.copy()
         bad[row, col] = value
         if kernel == "epi_neg_log_rows" and col > 0:

@@ -1,8 +1,8 @@
 """The premise of the per-row loop kernels' early exit, held on the port's
 own plain loops on the CPU.
 
-The kernels K3 (``csrc/lse_rows.cu``) and K5 (``csrc/epi_neg_log.cu``) stop
-a fixed-count loop once its state repeats: each loop is a fixed map of its
+The kernels K3 (``csrc/lse_rows.cu``), K4 (``csrc/epi_sum_square.cu``) and
+K5 (``csrc/epi_neg_log.cu``) stop a fixed-count loop once its state repeats: each loop is a fixed map of its
 state (the Lambert solve ``util.solve_w_log_w``: w; the implicit Newton on
 the epigraph's lam, ``newton_epi.implicit_newton_epigraph``: (lam, lo,
 hi), since h depends on lam alone), so once the state after step k equals
@@ -15,8 +15,14 @@ operations (each step function is anchored bitwise to the plain routine
 it copies), on a seeded grid and on hypothesis cases, in f32 and f64:
 the state predicted at the first repeat equals the full-count state
 bitwise.  The same holds for ``util.newton_safeguarded``'s loop on the
-LOG_SUM_EXP prox's nu (state (x, lo, hi, glo, ghi)), whose state repeats
-on some rows once x settles at the root, so K3 exits there too.
+LOG_SUM_EXP prox's nu and on the SUM_SQUARE epigraph's cubic (state (x,
+lo, hi, glo, ghi)), whose state repeats on some rows once x settles at the
+root, so K3 and K4 exit there too; K4's widening of its bracket (state hi)
+repeats at its first step.
+
+K3's prox runs rows of up to 16 two to a warp, its sums through 16-wide
+butterflies in place of 32-wide ones; a plain simulation of both holds
+them to the same bits here.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_loop_exit.py -q -p no:cacheprovider
 """
@@ -90,6 +96,23 @@ def _exit_is_exact(bits):
     assert torch.equal(predicted[:, rep], stacked[n][:, rep])
     return (rep.double().mean().item(), k[rep].double().mean().item() if rep.any() else 0.0,
             set(p[rep].tolist()))
+
+
+def _cycled_exit_is_exact(bits):
+    """The rule of the two-rows-a-warp loop (row_loops.cuh iterate() at
+    W = 16): a row whose state repeated at step k with period p steps on
+    through its cycle until its warp stops at a later step K, and returns
+    the state of step K if (N - K) mod p is 0, else of step
+    K - p + ((N - K) mod p); that is the full count's state, for every K."""
+    n = len(bits) - 1
+    k, p = _first_repeat(bits)
+    stacked = torch.stack(bits)
+    for stop in range(1, n + 1):
+        rep = (k > 0) & (k <= stop)
+        r = torch.remainder(n - stop, p.clamp(min=1))
+        j = torch.where(r == 0, torch.full_like(k, stop), stop - p + r).clamp(min=0)
+        predicted = stacked.gather(0, j.expand(stacked.shape[1:])[None])[0]
+        assert torch.equal(predicted[:, rep], stacked[n][:, rep])
 
 
 # -- util.solve_w_log_w: state w ---------------------------------------------
@@ -305,3 +328,175 @@ def test_safeguarded_newton_exit_is_exact(dtype):
     # the prox at the full count's nu is the plain version's
     x = v - util.solve_w_log_w(c0 - states[-1][0][..., None])
     assert torch.equal(_bits(x), _bits(vec.prox_log_sum_exp_reference(v, lam)))
+
+
+# -- registry._epi_sum_square_reference (K4): widening (hi), then Newton -----
+
+WIDEN_STEPS = 40
+
+
+def _sum_square_rows(rows, n, dtype, seed):
+    """Rows as the kernels' tests make them (a third inactive, some bounds
+    negative), then rows holding NaN, +inf and -inf and rows whose bound is
+    NaN, +inf, -inf, 0 or -0."""
+    rng = np.random.RandomState(seed)
+    v = rng.standard_normal((rows, n)) * 2.0
+    s = (v * v).sum(axis=1) * (1.25 * rng.uniform(-1.0, 1.0, rows) + 0.25)
+    for r, value in enumerate((np.nan, np.inf, -np.inf)):
+        v[r, r % n] = value
+    for r, value in enumerate((np.nan, np.inf, -np.inf, 0.0, -0.0)):
+        s[3 + r] = value
+    return torch.as_tensor(v, dtype=dtype), torch.as_tensor(s, dtype=dtype)
+
+
+def _sum_square_loops(v, s):
+    """The widening's and the Newton's states, step by step, with the plain
+    version's operations; the result after the full counts is
+    ``_epi_sum_square_reference``'s, bitwise."""
+    from epsilon_tpu_torch.ops.prox import registry
+    u2 = torch.sum(v * v, dim=-1)
+
+    def g(lam):
+        return (s + lam) * (1.0 + 2.0 * lam) ** 2 - u2
+
+    def g_and_gp(lam):
+        return g(lam), (1.0 + 2.0 * lam) * (1.0 + 6.0 * lam + 4.0 * s)
+
+    lo = torch.clamp(-s, min=0.0)
+    widen, widen_bits = _run(lambda st: (torch.where(g(st[0]) < 0, 2 * st[0], st[0]),),
+                             (lo + torch.sqrt(u2) + u2 + 1.0,), WIDEN_STEPS)
+    hi = widen[-1][0]
+    newton, newton_bits = _run(_nu_step(g_and_gp), (0.5 * (lo + hi), lo, hi, g(lo), g(hi)),
+                               NU_STEPS)
+    lam = newton[-1][0]
+    inactive = u2 <= s
+    x = torch.where(inactive[..., None], v, v / (1.0 + 2.0 * lam[..., None]))
+    t = torch.where(inactive, s, s + lam)
+    for a, b in zip((x, t), registry._epi_sum_square_reference(v, s)):
+        assert torch.equal(_bits(a), _bits(b))
+    return widen_bits, newton_bits, ~inactive
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,n", [(400, 200), (400, 10), (64, 1), (64, 33)])
+def test_sum_square_widening_repeats_at_its_first_step(rows, n, dtype):
+    """hi0 = lo + sqrt(u2) + u2 + 1 with lo = max(0, -s) gives s + hi0 >=
+    u2 + 1, so g(hi0) > 0 on every finite row and the widening leaves hi as
+    it is: its state repeats at step 1 (period 1), on inactive rows, s <= 0
+    and rows with NaN and +-inf as well (where g is NaN or +inf, so hi
+    stays too)."""
+    v, s = _sum_square_rows(rows, n, dtype, seed=rows + n)
+    widen_bits, _, active = _sum_square_loops(v, s)
+    k, p = _first_repeat(widen_bits)
+    assert (k == 1).all() and (p == 1).all()
+    assert (~active).any() and (s <= 0).any()
+    _exit_is_exact(widen_bits)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,n", [(400, 200), (400, 10)])
+def test_sum_square_newton_exit_is_exact(rows, n, dtype):
+    """The safeguarded Newton on K4's cubic repeats its state (x, lo, hi,
+    glo, ghi) within its 25 steps on most active rows (period 2-4 once x
+    settles at the root, as on the LOG_SUM_EXP prox's nu), and the state
+    the exit returns is the full count's, bitwise."""
+    v, s = _sum_square_rows(rows, n, dtype, seed=rows + n + 1)
+    _, newton_bits, active = _sum_square_loops(v, s)
+    _exit_is_exact(newton_bits)
+    k, p = _first_repeat(newton_bits)
+    finite = active & torch.isfinite(v).all(dim=-1) & torch.isfinite(s)
+    assert (k[finite] > 0).double().mean().item() > 0.4
+    assert set(p[finite & (k > 0)].tolist()) <= {2, 3, 4}
+
+
+# -- two rows a warp: 16-wide against 32-wide xor butterflies ----------------
+
+def _tmax(a, b):
+    """row_loops.cuh tmax (torch.maximum's NaN rule)."""
+    return torch.where(torch.isnan(a) | torch.isnan(b), a + b, torch.where(a > b, a, b))
+
+
+def _tmin(a, b):
+    return torch.where(torch.isnan(a) | torch.isnan(b), a + b, torch.where(a < b, a, b))
+
+
+BUTTERFLIES = {"sum": (torch.add, 0.0), "max": (_tmax, -np.inf), "min": (_tmin, np.inf)}
+
+
+def _butterfly(lanes, width, op):
+    """Every lane's value after row_loops.cuh's xor butterfly over segments
+    of ``width`` lanes (``lanes``: (..., 32))."""
+    index = torch.arange(32)
+    off = width // 2
+    while off:
+        lanes = op(lanes, lanes[..., index ^ off])
+        off //= 2
+    return lanes
+
+
+def _warp_rows(values, n, identity):
+    """Rows of n (..., 2, n) as lanes: one row a warp, (..., 2, 32), each
+    row in lanes 0..n-1 of its own warp, and two rows a warp, (..., 32),
+    the rows in lanes 0..n-1 and 16..16+n-1; the other lanes hold the
+    reduction's identity."""
+    one = torch.full(values.shape[:-1] + (32,), identity, dtype=values.dtype)
+    one[..., :n] = values
+    two = torch.full(values.shape[:-2] + (32,), identity, dtype=values.dtype)
+    two[..., :n] = values[..., 0, :]
+    two[..., 16:16 + n] = values[..., 1, :]
+    return one, two
+
+
+def _lane_values(n, dtype, seed):
+    """A lane's operands: seeded values over many magnitudes (so that the
+    order of the sums matters), with zeros of both signs, NaN and +-inf."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((400, 2, n)) * 10.0 ** rng.uniform(-8, 8, (400, 2, n))
+    x[rng.rand(400, 2, n) < 0.1] = 0.0
+    x[rng.rand(400, 2, n) < 0.1] = -0.0
+    x[:4, 0, 0] = (np.nan, np.inf, -np.inf, -0.0)
+    x[4, :, :] = -0.0
+    return torch.as_tensor(x, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", list(range(1, 17)))
+def test_half_warp_butterflies_match_one_row_a_warp(n, dtype):
+    """For rows of n <= 16 the 32-wide butterfly's first level adds only
+    the identities held by lanes n..31 and is the 16-wide butterfly after
+    that, so lane j of a row gets the same bits in both: for the sums as
+    the kernels form them (a lane's partial sum begins at +0, so it is
+    never -0), the max and the min (whose lanes may differ among
+    themselves in the sign of a zero, +0 against -0 being a tie, but
+    alike in both layouts).  A raw -0 operand is the one case that
+    differs: -0 + +0 is +0, so a row of 16 -0s sums to +0 one row a warp
+    and to -0 two rows a warp (a shorter row meets a lane holding +0 in
+    both)."""
+    x = _lane_values(n, dtype, seed=n)
+    for kind, (op, identity) in BUTTERFLIES.items():
+        operands = 0.0 + x if kind == "sum" else x     # the kernels' partials: +0 + x
+        one, two = _warp_rows(operands, n, identity)
+        wide = _butterfly(one, 32, op)
+        half = _butterfly(two, 16, op)
+        for r, lanes in enumerate((slice(0, 16), slice(16, 32))):
+            assert torch.equal(_bits(half[..., lanes].contiguous()),
+                               _bits(wide[..., r, :16].contiguous()))
+    # raw -0 operands: the one difference, as it behaves
+    one, two = _warp_rows(x[4:5], n, 0.0)
+    wide, half = _butterfly(one, 32, torch.add), _butterfly(two, 16, torch.add)
+    assert torch.equal(_bits(wide), _bits(torch.zeros_like(wide)))
+    assert torch.equal(_bits(half), _bits(torch.full_like(half, -0.0 if n == 16 else 0.0)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("loop", ["lambert", "sum_square_newton"])
+def test_exit_after_cycling_on_is_exact(loop, dtype):
+    """Two rows a warp stop together: a row whose state repeated first
+    steps on through its cycle (``_cycled_exit_is_exact``), and the state
+    it returns is still the full count's."""
+    if loop == "lambert":
+        bits = _lambert(_c_grid(dtype))
+    else:
+        v, s = _sum_square_rows(400, 10, dtype, seed=5)
+        bits = _sum_square_loops(v, s)[1]
+    _cycled_exit_is_exact(bits)

@@ -43,13 +43,14 @@ solves the ``tv_1d`` row at its reference size twice, with float32 state
 (``config.default_dtype`` patched for the run; nothing in the port sets
 it), and prints objective, iterations and seconds of both.
 
-    python3 -m tools.profile_port --exit-ab max_softmax,mnist,max_gaussian
+    python3 -m tools.profile_port --exit-ab oneclass_svm,mnist
 
 solves library rows (reference sizes, f32) with the per-row loop kernels
-that stop when their state repeats and with their full-count builds put in
-their place in the dispatch, in turns in this one process (exit, full,
-full, exit, for several rounds): cold solves at the harness's rel_tol
-(at most ``EXIT_AB_COLD_ITERS`` iterations) and warm re-solves of
+and with the builds each replaced put in their place in the dispatch (K3's
+prox one row a warp; K3's epigraph, K4 and K5 their full-count builds),
+in turns in this one process (kernel, replaced, replaced, kernel, for
+several rounds): cold solves at the harness's rel_tol (at most
+``EXIT_AB_COLD_ITERS`` iterations) and warm re-solves of
 ``EXIT_AB_WARM_ITERS`` iterations, host wall ms/iteration of each side
 (median and min-max).  Both sides compute the same bits, so they take the
 same iterations; the launch counters say which kernels ran.
@@ -353,12 +354,14 @@ EXIT_AB_ROUNDS = 3
 
 
 @contextlib.contextmanager
-def full_count_entries():
-    """The dispatch of ``ops/prox`` sends K3 and K5's calls to their
-    full-count builds while the context is open."""
-    from epsilon_tpu_torch.ops.kernels import epi_neg_log, lse_rows
-    swaps = [(lse_rows, "prox_rows", lse_rows.prox_rows_full),
+def replaced_entries():
+    """The dispatch of ``ops/prox`` sends each per-row kernel's calls to the
+    build it replaced while the context is open: K3's prox to one row a
+    warp, K3's epigraph, K4 and K5 to their full-count builds."""
+    from epsilon_tpu_torch.ops.kernels import epi_neg_log, epi_sum_square, lse_rows
+    swaps = [(lse_rows, "prox_rows", lse_rows.prox_rows_wide),
              (lse_rows, "epi_rows", lse_rows.epi_rows_full),
+             (epi_sum_square, "epi_rows", epi_sum_square.epi_rows_full),
              (epi_neg_log, "epi_rows", epi_neg_log.epi_rows_full)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, full in swaps:
@@ -371,11 +374,11 @@ def full_count_entries():
 
 
 def exit_ab(rows, rounds=EXIT_AB_ROUNDS):
-    """Library rows with the kernels that exit against their full-count
-    builds, in turns: cold solves, then warm re-solves."""
+    """Library rows with the per-row kernels against the builds they
+    replaced, in turns: cold solves, then warm re-solves."""
     from chip_smoke import LIBRARY_REL_TOL, row_launches
     from epsilon_tpu_torch.problems import benchmark
-    sides = {"exit": contextlib.nullcontext, "full": full_count_entries}
+    sides = {"kernel": contextlib.nullcontext, "replaced": replaced_entries}
     for inst in benchmark.PROBLEMS_REFERENCE():
         if inst.name not in rows:
             continue
@@ -399,17 +402,19 @@ def exit_ab(rows, rounds=EXIT_AB_ROUNDS):
                 hot[side].append(1e3 * wall / prob.solver_status.num_iterations)
                 runs.setdefault(side, set()).add((row["iterations"], row["status"],
                                                   row["objective"]))
-        if launched["full"] != 0 or launched["exit"] == 0:
+        if launched["replaced"] != 0 or launched["kernel"] == 0:
             raise AssertionError(f"{inst.name}: kernel launches {launched}")
         iters = sorted({it for side in sides for it, _, _ in runs[side]})
         parts = []
         for label, r in ((f"cold, {'/'.join(map(str, iters))} iterations", cold),
                          (f"warm, {EXIT_AB_WARM_ITERS} iterations", hot)):
             m = {side: statistics.median(r[side]) for side in sides}
-            parts.append(f"{label}: exit {m['exit']:.4f} ms/iter ({min(r['exit']):.4f}-"
-                         f"{max(r['exit']):.4f}), full {m['full']:.4f} ({min(r['full']):.4f}-"
-                         f"{max(r['full']):.4f}), ratio {m['exit'] / m['full']:.3f}")
-        print(f"[exit-ab] {inst.name} in turns ({rounds} rounds of exit, full, full, exit): "
+            parts.append(f"{label}: kernel {m['kernel']:.4f} ms/iter ({min(r['kernel']):.4f}-"
+                         f"{max(r['kernel']):.4f}), replaced {m['replaced']:.4f} "
+                         f"({min(r['replaced']):.4f}-{max(r['replaced']):.4f}), ratio "
+                         f"{m['kernel'] / m['replaced']:.3f}")
+        print(f"[exit-ab] {inst.name} in turns ({rounds} rounds of kernel, replaced, replaced, "
+              f"kernel): "
               + "; ".join(parts) + f"; kernel launches {launched}; the cold solves "
               + "; ".join(f"{side} " + ", ".join(f"{it} iterations {st} objective {obj!r}"
                                                for it, st, obj in sorted(runs[side]))
