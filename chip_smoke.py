@@ -78,6 +78,20 @@ Phases, in order; any failure exits non-zero:
    reaches the iteration cap in both), and the rows with hard constraints
    also pass a feasibility residual computed in f64 numpy.  K3, K4 and K5
    must each launch in it.
+7c. The library under the oracle matrix's other two parameter sets
+   (``LIBRARY_SETS``): every row of ``PROBLEMS_REFERENCE`` at the
+   reference sizes in f32, through ``problems.benchmark`` with
+   ``solver="prox_admm"`` (the N-block Gauss-Seidel solver) and then with
+   ``use_epigraph=False`` (the conic fallback), each set in a spawned
+   process of its own that starts with phase 7 and runs beside phases 7
+   and 8.  Each row is held as phase 7 holds its rows, against the JAX
+   package's f64 objective under the same set (the set's key of
+   ``library_reference.json``) and at its iteration cap, and prints the
+   same figures and the launches of K2-K5 while it ran; each set then
+   prints its table.  K3 (a), K3 (b), K4 and K5 must each launch in the
+   phase (K3 (b) and K4 only under ``prox_admm``: without the epigraph
+   ``max_softmax`` runs the EXP epigraph and ``oneclass_svm`` second-order
+   cones).  A failed row makes the phase raise after both sets.
 8. The rest of the solver's one-device surface at the flagship's width
    (lasso 2000 x 1000, phase 3's data, f32), each solve ``optimal`` and
    held to phase 3's f64 checks: (a) adaptive rho; (b) the data scaled by
@@ -126,7 +140,12 @@ Phases, in order; any failure exits non-zero:
 Depth cut when phase 9 was added, no kernel or check with it: the timed warm
 re-solves of phases 3 and 4 run 500 and 100 iterations (2000 and 200
 before); when (e)-(g) were added, phase 9 (a)'s warm re-solves run 50
-iterations (100 before).
+iterations (100 before).  Phase 7c solves ``max_gaussian`` at 20,000
+iterations in both sets (its f64 references at the same cap; 50,000 in
+phase 7): at about 6 ms an iteration beside the other processes its
+50,000 would keep the phase running about 290 s past phase 8, 20,000 about
+110 s.  At the cap the port in f32 on the CPU is within 3.4e-5 of the f64
+objective in both sets.
 On an H100 the script takes about 550-715 s (the host sets most of the
 spread), of which the build takes about 11 s (``lse_rows.cu``'s 20
 kernels: prox and epigraph per dtype, row in registers or not, with and
@@ -135,6 +154,10 @@ phase 7a about 45 s,
 phase 7 about 310-380 s (``max_gaussian``'s 50,000 iterations,
 215-250 s in the second process; beside it the other rows' host-side build and
 set-up at reference size and ``infinite_push``'s 19,860 iterations) and
+phase 7c's two processes about 345-440 s from the start of phase 7, so
+they end about 15-110 s after phase 8 (the ``max_gaussian`` rows take 30 s
+at 5,000 iterations, 110-120 s at 20,000; ``infinite_push`` about 55 s,
+``oneclass_svm`` under ``prox_admm`` 40 s),
 phase 9 about 130-150 s (the one-process references of (e) and (f) about
 30-45, the four ranks about 75-90, the two that resume (g) about 15);
 phases 3, 4 and 6 together hold under 2 s of steady iterations.
@@ -149,7 +172,8 @@ kernels their dependent chain at the card's maximum SM clock
 
 K1 has two records, one for each shape and path that a main path gives
 it: (200, 200) on the ring path with phase 6's launches, and (50, 200) on
-the streaming path with rank 0's launches in phase 9 (d).
+the streaming path with rank 0's launches in phase 9 (d).  The records of
+K2-K5 also carry ``launches_7c``: their launches in phase 7c, per set.
 
 Prints a ``{"kernels": [...]}`` line, then a last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -206,10 +230,10 @@ L2_FLUSH_BYTES = 256 * 1024 * 1024
 # Spin before each device-timed call (about 1 ms): longer than any host
 # enqueue time of the calls timed.
 HEAD_START_CYCLES = 2_000_000
-# Phase 7: the harness's parameters (benchmark_epsilon's defaults, the
-# parameters the reference objectives were made at).
+# Phase 7: the harness's rel_tol (benchmark_epsilon's default, the
+# parameter the reference objectives were made at); each row's iteration
+# cap is its reference's (50,000, the harness's, unless the row is capped).
 LIBRARY_REL_TOL = 1e-3
-LIBRARY_MAX_ITERATIONS = 50000
 # The oracle matrix's one-sided test (tests/test_solve_suite.py):
 # obj <= ref + 1e-2 |ref| + 1e-4, both in the minimization form that
 # Problem.solve returns (a Maximize row's objective is negated); the same
@@ -232,6 +256,11 @@ LIBRARY_FEAS_TOL_ROWS = {"portfolio": 1e-1}
 # (3.0-4.5 ms each on an H100, a loop bound by its host, the card idle
 # 0.91 of it), as long as the other 26 rows together.
 LIBRARY_BESIDE = ("max_gaussian",)
+# Phase 7c: the oracle matrix's other two parameter sets, each a key of
+# tests/data/library_reference.json that holds its solver parameters and
+# its rows' f64 references (tools/library_reference.py), each solved in a
+# process of its own beside phases 7 and 8.
+LIBRARY_SETS = ("n_block", "no_epi")
 # Iterations of the profiled warm re-solve that counts device operations.
 LIBRARY_PROFILE_ITERS = 10
 # Phase 7a: the per-row loop kernels against their plain versions,
@@ -1304,9 +1333,12 @@ def exit_ab(name, k, v, p, n_bytes, clock_hz, card):
     return fields
 
 
-def library_row(bench, inst, ref, profile_iters=LIBRARY_PROFILE_ITERS, tag=""):
-    """One phase 7 row: solve, check, print (``tag`` after the row's
-    name); returns the row (its ``ok`` says whether it passed)."""
+def library_row(bench, inst, ref, profile_iters=LIBRARY_PROFILE_ITERS, tag="", phase="7",
+                params=None):
+    """One phase 7 (or 7c) row: solve under the solver parameters
+    ``params`` at the reference's iteration cap, check, print (``tag``
+    after the row's name); returns the row (its ``ok`` says whether it
+    passed)."""
     from epsilon_tpu_torch.frontend import api
 
     def check(prob):
@@ -1320,8 +1352,8 @@ def library_row(bench, inst, ref, profile_iters=LIBRARY_PROFILE_ITERS, tag=""):
         return dict(finite=finite, feasibility=feasibility(inst.name, inst.kwargs, values))
 
     row = bench.benchmark_epsilon(inst, rel_tol=LIBRARY_REL_TOL,
-                                  max_iterations=LIBRARY_MAX_ITERATIONS,
-                                  profile_iters=profile_iters, check=check)
+                                  max_iterations=ref["max_iterations"],
+                                  profile_iters=profile_iters, check=check, **(params or {}))
     want = ref["objective"]
     rtol = LIBRARY_OBJ_RTOL_ROWS.get(inst.name, LIBRARY_OBJ_RTOL)
     band = rtol * abs(want) + LIBRARY_OBJ_ATOL
@@ -1335,10 +1367,11 @@ def library_row(bench, inst, ref, profile_iters=LIBRARY_PROFILE_ITERS, tag=""):
                        and want - band <= row["objective"] <= want + band
                        and (feas is None or feas <= feas_tol)))
     ops = row.get("device_ops_per_iter")
-    log(f"[7] {inst.name}{tag}: build {row['build_s']:.3f} s, compile {row['compile_s']:.3f} s, "
+    log(f"[{phase}] {inst.name}{tag}: build {row['build_s']:.3f} s, compile "
+        f"{row['compile_s']:.3f} s, "
         f"set-up {row['setup_s']:.3f} s, solve {row['solve_s']:.3f} s; {row['iterations']} "
         f"iterations ({row['status']}; the f64 reference took {ref['iterations']}, "
-        f"{ref['status']}), "
+        f"{ref['status']}, cap {ref['max_iterations']}), "
         f"{row['ms_per_iter']:.4f} ms/iter, "
         f"{'not measured' if ops is None else f'{ops:.1f}'} device operations/iter; "
         f"objective {row['objective']:.9g} vs reference {want:.9g} (band "
@@ -1364,6 +1397,71 @@ def library_row_beside(name):
     inst = next(p for p in bench.PROBLEMS_REFERENCE() if p.name == name)
     row = library_row(bench, inst, refs[name], tag=" (in a second process)")
     return row, row_launches()
+
+
+def library_set_beside(name):
+    """Phase 7c's rows of one parameter set (``name``, a key of
+    ``library_reference.json`` that holds its solver parameters and its
+    rows), in a process of its own (spawned by ``start_library_sets``):
+    every row of PROBLEMS_REFERENCE under those parameters, at the
+    reference's iteration cap.  Returns the rows, each with the launches
+    of K2-K5 while it ran (the counts set to 0 before the first row)."""
+    torch.set_num_threads(1)
+    from epsilon_tpu_torch.ops.kernels import sym_packed as sp
+    from epsilon_tpu_torch.problems import benchmark as bench
+    ref_set = json.loads(REFERENCE_JSON.read_text())[name]
+    sp.launches = 0
+    for k in row_kernels().values():
+        setattr(k["module"], k["counter"], 0)
+    out = []
+    for inst in bench.PROBLEMS_REFERENCE():
+        before = dict(row_launches(), sym_packed=sp.launches)
+        row = library_row(bench, inst, ref_set["rows"][inst.name], tag=f" ({name})",
+                          phase="7c", params=ref_set["params"])
+        after = dict(row_launches(), sym_packed=sp.launches)
+        row["launches"] = {k: n - before[k] for k, n in after.items() if n > before[k]}
+        log(f"[7c] {inst.name} ({name}): kernels launched "
+            + (", ".join(f"{k} {n}" for k, n in row["launches"].items()) or "none"))
+        out.append(row)
+    return out
+
+
+def start_library_sets():
+    """Starts phase 7c: one spawned process for each set of
+    ``LIBRARY_SETS``, which run beside phases 7 and 8 (the rows are bound
+    by their hosts).  Returns the pool and the futures."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(len(LIBRARY_SETS),
+                               mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(library_set_beside, name) for name in LIBRARY_SETS}
+
+
+def phase_library_sets(pool, futures, t0):
+    """Phase 7c's end: waits for the sets' processes, prints each set's
+    table and the launches of K2-K5 per set, and raises after the last
+    set if any row failed.  Returns the launches per kernel and set."""
+    launches, failed = {}, []
+    with pool:
+        for name, fut in futures.items():
+            rows = fut.result()
+            failed += [f"{r['name']} ({name})" for r in rows if not r["ok"]]
+            log(f"[7c] {name}: {sum(r['ok'] for r in rows)} of {len(rows)} rows passed; "
+                "row, iterations (f64 reference), ms/iter, device operations/iter, kernels")
+            for r in rows:
+                ops = r.get("device_ops_per_iter")
+                log(f"[7c]   {name} {r['name']}: {r['iterations']} ({r['reference_iterations']}), "
+                    f"{r['ms_per_iter']:.4f} ms/iter, "
+                    f"{'not measured' if ops is None else f'{ops:.1f}'} ops/iter, "
+                    + (", ".join(f"{k} {n}" for k, n in r["launches"].items()) or "none")
+                    + ("" if r["ok"] else "  FAILED"))
+                for k, n in r["launches"].items():
+                    launches.setdefault(k, dict.fromkeys(LIBRARY_SETS, 0))[name] += n
+    log(f"[7c] both sets done {time.perf_counter() - t0:.1f} s after they started; "
+        f"launches per kernel and set: {json.dumps(launches)}")
+    if failed:
+        raise AssertionError(f"phase 7c rows failed: {failed}")
+    return launches
 
 
 def phase_library():
@@ -1960,29 +2058,46 @@ def main():
     row_records = phase_row_kernels(card)
     log(f"[7a] passed in {time.perf_counter() - t0:.1f} s")
 
-    # -- 7. the problem library at reference size ------------------------------------
-    sp.launches = lu.launches = 0
-    for k in row_k.values():
-        setattr(k["module"], k["counter"], 0)
-    _, beside_launches = phase_library()
-    launches = {name: n + beside_launches[name] for name, n in row_launches().items()}
-    log(f"[7] hand-written kernel launches in phase 7: sym_packed {sp.launches}, "
-        f"local_update {lu.launches} (no library row reaches either); "
-        + ", ".join(f"{name} {n} ({beside_launches[name]} of them in the second process)"
-                    for name, n in launches.items()))
-    for name, n in launches.items():
-        row_records[name]["launches"] = n
-        if n == 0:
-            raise AssertionError(f"{name} was not launched in phase 7")
-    records += list(row_records.values())
+    # -- 7c (started). the library under the other two parameter sets -----------------
+    t_sets = time.perf_counter()
+    set_pool, set_futures = start_library_sets()
+    try:
+        # -- 7. the problem library at reference size ------------------------------------
+        sp.launches = lu.launches = 0
+        for k in row_k.values():
+            setattr(k["module"], k["counter"], 0)
+        _, beside_launches = phase_library()
+        launches = {name: n + beside_launches[name] for name, n in row_launches().items()}
+        log(f"[7] hand-written kernel launches in phase 7: sym_packed {sp.launches}, "
+            f"local_update {lu.launches} (no library row reaches either); "
+            + ", ".join(f"{name} {n} ({beside_launches[name]} of them in the second process)"
+                        for name, n in launches.items()))
+        for name, n in launches.items():
+            row_records[name]["launches"] = n
+            if n == 0:
+                raise AssertionError(f"{name} was not launched in phase 7")
+        records += list(row_records.values())
 
-    # -- 8. the rest of the solver's surface at the flagship's width -----------------
-    sp.launches = lu.launches = 0
-    t0 = time.perf_counter()
-    phase_surface(ep, flagship_iters, x_ref)
-    log(f"[8] passed in {time.perf_counter() - t0:.1f} s; hand-written kernel launches in "
-        f"phase 8: sym_packed {sp.launches}, local_update {lu.launches} (n = 1000 is below "
-        f"K2's gate)")
+        # -- 8. the rest of the solver's surface at the flagship's width -----------------
+        sp.launches = lu.launches = 0
+        t0 = time.perf_counter()
+        phase_surface(ep, flagship_iters, x_ref)
+        log(f"[8] passed in {time.perf_counter() - t0:.1f} s; hand-written kernel launches in "
+            f"phase 8: sym_packed {sp.launches}, local_update {lu.launches} (n = 1000 is below "
+            f"K2's gate)")
+
+        # -- 7c (end). the library under the other two parameter sets --------------------
+        sets_launches = phase_library_sets(set_pool, set_futures, t_sets)
+    except BaseException:
+        # stop the sets' processes: a failed phase ends the run
+        for proc in list(set_pool._processes.values()):
+            proc.terminate()
+        set_pool.shutdown(wait=False, cancel_futures=True)
+        raise
+    for name, rec in [("sym_packed", record)] + list(row_records.items()):
+        rec["launches_7c"] = sets_launches.get(name, dict.fromkeys(LIBRARY_SETS, 0))
+        if name in row_k and not sum(rec["launches_7c"].values()):
+            raise AssertionError(f"{name} was not launched in phase 7c")
 
     # -- 9. the meshed paths, four processes over one group ------------------------------
     A, b, lam = workload(2000, 1000)

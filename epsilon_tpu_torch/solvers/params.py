@@ -57,5 +57,10 @@ class SolverParams:
     def __post_init__(self):
         if isinstance(self.solver, str):
             self.solver = SolverKind(self.solver)
+        elif not isinstance(self.solver, SolverKind):
+            # another package's enum would compare unequal to every member
+            # here, and create_solver would build the two-block solver
+            raise ValueError(f"solver must be a string or an epsilon_tpu_torch "
+                             f"SolverKind, got {self.solver!r}")
         if self.drive not in ("device", "host"):
             raise ValueError(f"drive must be 'device' or 'host', got {self.drive!r}")

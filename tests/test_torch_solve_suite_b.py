@@ -1,0 +1,16 @@
+"""A third of the oracle matrix of ``tests/test_solve_suite.py`` on the port
+(``torch_solve_suite``): these rows under the N-block and the no-epigraph
+sets, and under the default two-block set those that
+``tests/test_torch_library_{a,b,c}.py`` do not hold."""
+
+import pytest
+
+from torch_solve_suite import _cpu_one_thread, cases, run  # noqa: F401
+
+CASES = cases(["chebyshev", "covsel", "fused_lasso", "group_lasso",
+               "huber", "infinite_push", "max_gaussian", "mnist"])
+
+
+@pytest.mark.parametrize("row,params", CASES)
+def test_port_meets_oracle(row, params, monkeypatch):
+    run(monkeypatch, row, params)

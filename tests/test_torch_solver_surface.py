@@ -258,6 +258,25 @@ def test_drive_value_is_checked():
         TParams(drive="tpu")
 
 
+def test_solver_kind_is_the_ports_own():
+    # the JAX package's enum compares unequal to the port's members: taken
+    # as it is, create_solver would build the two-block solver for it
+    from epsilon_tpu.solvers import SolverKind as JKind
+    from epsilon_tpu_torch.solvers import SolverKind as TKind
+    with pytest.raises(ValueError, match="SolverKind"):
+        TParams(solver=JKind.PROX_ADMM)
+    with pytest.raises(ValueError, match="SolverKind"):
+        TParams(solver=JKind.PROX_ADMM_TWO_BLOCK)
+    with pytest.raises(ValueError):
+        TParams(solver="prox_admm_n_block")
+    _, tprob = cases.pair("lasso")
+    for kind in ("prox_admm", TKind.PROX_ADMM):
+        assert TParams(solver=kind).solver is TKind.PROX_ADMM
+        assert type(tcreate(tprob, TParams(solver=kind))) is ProxADMMSolver
+    for kind in ("prox_admm_two_block", TKind.PROX_ADMM_TWO_BLOCK):
+        assert type(tcreate(tprob, TParams(solver=kind))) is ProxADMMTwoBlockSolver
+
+
 def test_verbose_logs_progress(caplog):
     import logging
     _, tprob = cases.pair("lasso")
