@@ -4,11 +4,11 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Card and build: the card's name and power limit, then the six CUDA
+1. Card and build: the card's name and power limit, then the eight CUDA
    sources (sym_packed, local_update, lse_rows, epi_sum_square,
-   epi_neg_log, and launch_floor, the empty kernel of phase 7a) are
-   compiled from ``epsilon_tpu_torch/csrc``, one ``nvcc`` each, started
-   together.
+   epi_neg_log, sum_logistic, tv1d_pdas, and launch_floor, the empty
+   kernels of phase 7a) are compiled from ``epsilon_tpu_torch/csrc``, one
+   ``nvcc`` each, started together.
 2. Kernel against its plain PyTorch version on the card, at the shape the
    main path gives it (n = 8192, R = 1) and at R = 8, in f32 and f64:
    maximum error, bitwise repeatability, and CUDA-event times of the
@@ -65,7 +65,22 @@ Phases, in order; any failure exits non-zero:
    layouts; at the main path's shape in f32 each is timed in turns with
    the builds it replaces (kernel, full count, and for K3's prox one row a
    warp, then in reverse, 5 rounds of 20 calls a reading; median and
-   min-max), beside the bound of the steps this run took.
+   min-max), beside the bound of the steps this run took.  Then K6
+   ``sum_logistic_prox`` (one thread an element; its Newton exits when its
+   state repeats) at the main path's 1,500 elements and at other sizes,
+   f32 and f64, lam a number, a 0-d tensor and one an element: bitwise
+   against its full-count build (special values too) and against its
+   plain version at ``ROW_RTOL``, timed (kernel and full count in turns,
+   plain, the launch floor, the chain bound of the steps taken).  And K7
+   ``tv1d_pdas`` (the whole TV-1D PDAS in one cooperative launch): its PCR
+   solve bitwise against the plain ``pcr_tridiag_solve`` on the card; the
+   PDAS against the plain version and the exact oracle within ``K7_RTOL``,
+   bitwise repeatable, cold and warm, lam a number and a 0-d tensor, with
+   the plain version's rounds at the inner tolerances (within one at the
+   default); at tv_1d's and fused_lasso's lengths in f32, cold and warm at
+   the main path's inner tolerance, timed against the plain version in
+   turns beside an empty cooperative kernel with the same grid syncs at the
+   same grid (the bound: syncs x their cost).
 7. The problem library: every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes (full width), through ``problems.benchmark``
    (``Problem.solve``) in f32 at the harness's parameters, the rows of
@@ -77,7 +92,8 @@ Phases, in order; any failure exits non-zero:
    must stop ``optimal`` (or as the f64 reference did: ``max_gaussian``
    reaches the iteration cap in both), and the rows with hard constraints
    also pass a feasibility residual computed in f64 numpy.  K3, K4 and K5
-   must each launch in it.
+   must each launch in it, K6 in both logistic rows and K7 in ``tv_1d`` and
+   ``fused_lasso`` (each row prints the hand loop kernels it launched).
 7c. The library under the oracle matrix's other two parameter sets
    (``LIBRARY_SETS``): every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes in f32, through ``problems.benchmark`` with
@@ -87,11 +103,12 @@ Phases, in order; any failure exits non-zero:
    and 8.  Each row is held as phase 7 holds its rows, against the JAX
    package's f64 objective under the same set (the set's key of
    ``library_reference.json``) and at its iteration cap, and prints the
-   same figures and the launches of K2-K5 while it ran; each set then
+   same figures and the launches of K2-K7 while it ran; each set then
    prints its table.  K3 (a), K3 (b), K4 and K5 must each launch in the
    phase (K3 (b) and K4 only under ``prox_admm``: without the epigraph
    ``max_softmax`` runs the EXP epigraph and ``oneclass_svm`` second-order
-   cones).  A failed row makes the phase raise after both sets.
+   cones), K6 in both logistic rows and K7 in ``tv_1d`` and ``fused_lasso``
+   under each set.  A failed row makes the phase raise after both sets.
 8. The rest of the solver's one-device surface at the flagship's width
    (lasso 2000 x 1000, phase 3's data, f32), each solve ``optimal`` and
    held to phase 3's f64 checks: (a) adaptive rho; (b) the data scaled by
@@ -131,7 +148,8 @@ Phases, in order; any failure exits non-zero:
    on z, each against its solve in this process the same way (the matrix
    and per-slice families to convergence; the others, the costliest a
    call, stop short of it at 10-60 iterations; the nuclear-norm family's x
-   within 1e-3, the bound of its f32 solution and the card's SVDs).
+   within 1e-3, the bound of its f32 solution and the card's SVDs); K7 must
+   launch on every rank and in the one-process solve of the TV family.
    (g) (e) stopped after three epochs under ``drive="host"`` with a
    checkpointer, resumed by a new solver on the
    four ranks and then on two ranks (a second launch): both reach (e)'s
@@ -147,11 +165,12 @@ phase 7): at about 6 ms an iteration beside the other processes its
 110 s.  At the cap the port in f32 on the CPU is within 3.4e-5 of the f64
 objective in both sets.
 On an H100 the script takes about 550-715 s (the host sets most of the
-spread), of which the build takes about 11 s (``lse_rows.cu``'s 20
+spread; 565 s since K6 and K7 carry the logistic and TV rows), of which
+the build takes about 10 s (``lse_rows.cu``'s 20
 kernels: prox and epigraph per dtype, row in registers or not, with and
 without the exit, and the half-warp prox per dtype with and without it),
-phase 7a about 45 s,
-phase 7 about 310-380 s (``max_gaussian``'s 50,000 iterations,
+phase 7a about 55 s (K6 and K7 about 10 s of it),
+phase 7 about 270-380 s (``max_gaussian``'s 50,000 iterations,
 215-250 s in the second process; beside it the other rows' host-side build and
 set-up at reference size and ``infinite_push``'s 19,860 iterations) and
 phase 7c's two processes about 345-440 s from the start of phase 7, so
@@ -173,7 +192,11 @@ kernels their dependent chain at the card's maximum SM clock
 K1 has two records, one for each shape and path that a main path gives
 it: (200, 200) on the ring path with phase 6's launches, and (50, 200) on
 the streaming path with rank 0's launches in phase 9 (d).  The records of
-K2-K5 also carry ``launches_7c``: their launches in phase 7c, per set.
+K2-K7 also carry ``launches_7c``: their launches in phase 7c, per set; K7's
+``launches_9f``, rank 0's in phase 9 (f)'s TV family, and its timings at
+both main lengths, cold and warm.  K6's and K7's ``bound_ms`` is the
+chain: K6's Newton steps on its longest element, K7's grid syncs times
+their measured cost at its grid.
 
 Prints a ``{"kernels": [...]}`` line, then a last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -316,6 +339,44 @@ ENTRY_ATOL = 1e-6
 # 200 blocks.  Phase 5 holds the kernel to its plain version there.
 K1_RANK_SHAPE = (200 // MESH_WORLD, 200)
 REFERENCE_JSON = Path(__file__).resolve().parent / "tests" / "data" / "library_reference.json"
+# Phase 7a, K6 (the SUM_LOGISTIC prox): the sizes at which it is also held
+# (one element, a block short and over, a large vector), the range of v
+# and of lam (log-uniform), and the operations on one element's dependent
+# chain a Newton step (sigmoid: negate, exp, add, divide; g' and the step:
+# multiply, subtract, multiply, add, divide, subtract; the bracket test
+# and the select: 2) and at the start (x0 and the bracket's two g).
+K6_SIZES = (1, 255, 257, 100_000)
+K6_V_RANGE = 60.0
+K6_LAM_EXP = (-6.0, 6.0)
+K6_CHAIN_PER_STEP, K6_CHAIN_START = 12, 16
+# Phase 7a, K7 (the TV-1D PDAS): the lengths at which it is also held (two
+# and three elements, odd, 2^k - 1 and 2^k + 1 around the PCR's step
+# counts), the PCR systems' sizes (m = n - 1 of those and of the main
+# path's lengths), and the inner tolerances at which its rounds must equal
+# the plain version's (the solver's prox_inner_tol_for range: at least 3e-4
+# in f32, 1e-7 in f64; at the default PDAS tolerance the f32 gap test reads
+# rounding noise, and below 3e-4 the f32 gap floors above its threshold so
+# that the stop rests on the full step's change of J, a sum at the rounding
+# scale: the two may differ by a round there).
+K7_LENGTHS = (2, 3, 17, 1023, 1025, 4097)
+K7_INNER_TOLS = {torch.float32: (1e-3, 3e-4), torch.float64: (1e-4, 1e-6)}
+K7_ROUND_SLACK = 1
+# K7 against the plain PDAS on the card, max |x - x_ref| over max(1, max
+# |v|) (the two differ only in the order of their sums), and against the
+# exact taut-string oracle (tv1d_exact_numpy) within the same at the
+# default tolerance (the plain version's distance from the oracle there is
+# 7e-6 relative in f32 and 1e-14 in f64 on an H100), at an inner tolerance
+# plus the PDAS certificate of the returned dual, sqrt(2 gap) with the gap
+# of z evaluated in f64 (at a loose inner tolerance the PDAS stops that far
+# from x*).
+K7_RTOL = {torch.float32: 1e-4, torch.float64: 1e-9}
+# The plain PDAS at n = 100,000 takes about 160 ms a call on an H100: its
+# readings in turns are of K7_PLAIN_REPS calls.
+K7_AB_ROUNDS, K7_PLAIN_REPS = 3, 3
+# Floating-point operations of one element a PDAS round (g, the system and
+# the active set about 16; a PCR step 12; the six trials 6 x 14; the step
+# and the gap 20), for the operations bound.
+K7_FLOPS_ROUND, K7_FLOPS_PCR_STEP = 120, 12
 
 
 def log(msg):
@@ -859,7 +920,8 @@ def feasibility(name, kw, values):
 @functools.cache
 def _launch_floor_library():
     from epsilon_tpu_torch.ops.kernels import _rows
-    return _rows.load("launch_floor", {"row_launch_floor": [ctypes.c_void_p]})
+    return _rows.load("launch_floor", {"row_launch_floor": [ctypes.c_void_p],
+                                       "grid_sync_floor": [ctypes.c_int] * 3 + [ctypes.c_void_p]})
 
 
 def launch_floor(t):
@@ -908,6 +970,40 @@ def row_kernels():
             replaces="epsilon_tpu/ops/prox/elementwise.py:231", main=(1, 10),
             row="max_gaussian"),
     }
+
+
+def loop_kernels():
+    """The hand kernels of phase 7a that are not per-row loops (K6
+    ``sum_logistic_prox``, K7 ``tv1d_pdas``), each as ``name -> dict``:
+    its module and launch-count attribute, source, the JAX function it
+    stands for, the main path's shape in phase 7 and the library rows whose
+    main path launches it (phases 7 and 7c)."""
+    from epsilon_tpu_torch.ops.kernels import sum_logistic, tv1d_pdas
+    return {
+        "sum_logistic_prox": dict(
+            module=sum_logistic, counter="launches",
+            source="epsilon_tpu_torch/csrc/sum_logistic.cu",
+            replaces="epsilon_tpu/ops/prox/elementwise.py:156", main=(1500,),
+            rows=("logreg_l1", "logreg_l1_sparse")),
+        "tv1d_pdas": dict(
+            module=tv1d_pdas, counter="launches", source="epsilon_tpu_torch/csrc/tv1d_pdas.cu",
+            replaces="epsilon_tpu/ops/prox/tv1d.py:292", main=(100_000, 10_000),
+            rows=("tv_1d", "fused_lasso")),
+    }
+
+
+def counted_kernels():
+    """``name -> (module, counter attribute)`` of every hand loop kernel
+    (K3-K7), whose launches phases 7 and 7c count."""
+    out = {name: (k["module"], k["counter"]) for name, k in row_kernels().items()}
+    out.update({name: (k["module"], k["counter"]) for name, k in loop_kernels().items()})
+    return out
+
+
+def reset_launches():
+    """Set every hand loop kernel's launch count to 0 in this process."""
+    for module, counter in counted_kernels().values():
+        setattr(module, counter, 0)
 
 
 def row_chain_ops(name, n):
@@ -1282,6 +1378,10 @@ def phase_row_kernels(card):
                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None, "floor_ms": floor_ms}
         records[name].update(exit_ab(name, k, v, p, n_bytes, clock_hz, card))
+    loops = loop_kernels()
+    records["sum_logistic_prox"] = phase_sum_logistic(loops["sum_logistic_prox"], card,
+                                                      floor_ms, clock_hz)
+    records["tv1d_pdas"] = phase_tv1d(loops["tv1d_pdas"], card, clock_hz)
     return records
 
 
@@ -1331,6 +1431,309 @@ def exit_ab(name, k, v, p, n_bytes, clock_hz, card):
         fields["one_row_a_warp_ms"] = ab["wide"][0]
         fields["ab_ms"]["one_row_a_warp"] = ab["wide"]
     return fields
+
+
+def k6_inputs(n, dtype, seed, dev, lam_kind):
+    """``(v, lam)`` for K6: v uniform over +-K6_V_RANGE; lam log-uniform
+    over 10^K6_LAM_EXP, as a number, a 0-d tensor on the card or one value
+    an element."""
+    rng = np.random.RandomState(seed)
+    v = torch.as_tensor(rng.uniform(-K6_V_RANGE, K6_V_RANGE, n), dtype=dtype, device=dev)
+    lam = 10.0 ** rng.uniform(*K6_LAM_EXP, n)
+    if lam_kind == "number":
+        return v, float(lam[0])
+    if lam_kind == "0-d":
+        return v, torch.tensor(lam[0], dtype=dtype, device=dev)
+    return v, torch.as_tensor(lam, dtype=dtype, device=dev)
+
+
+def k6_special(dtype, dev):
+    """Every pair of the values NaN, +-inf, 0, -0, +-1e30, +-1e-30, 1 and
+    -7.5 for v and of NaN, inf, 0, -0, -1, 1e-30, 1, 1e30 for lam."""
+    vs = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, 1e-30, -1e-30, 1.0, -7.5]
+    lams = [np.nan, np.inf, 0.0, -0.0, -1.0, 1e-30, 1.0, 1e30]
+    v, lam = np.meshgrid(np.array(vs), np.array(lams), indexing="ij")
+    as_t = lambda a: torch.as_tensor(a.ravel(), dtype=dtype, device=dev)
+    return as_t(v), as_t(lam)
+
+
+def k6_check(k6, plain, v, lam, label):
+    """K6 on (v, lam): two runs and the full-count build bitwise equal (so
+    the exit returns the full count's state), its steps within 1..STEPS
+    and the full count's all STEPS; returns ``(x, plain x, steps)``."""
+    steps = torch.zeros(v.shape, dtype=torch.int32, device=v.device)
+    full_steps = torch.zeros_like(steps)
+    x = k6.prox(v, lam, steps=steps)
+    x2 = k6.prox(v, lam)
+    full = k6.prox_full(v, lam, steps=full_steps)
+    ref = plain(v, lam)
+    torch.cuda.synchronize()
+    if not (same_bits(x, x2) and same_bits(x, full)):
+        raise AssertionError(f"sum_logistic_prox {label}: differs from its full-count build "
+                             "or from a second run")
+    if not (bool(((steps >= 1) & (steps <= k6.STEPS)).all())
+            and bool((full_steps == k6.STEPS).all())):
+        raise AssertionError(f"sum_logistic_prox {label}: steps out of 1..{k6.STEPS}")
+    return x, ref, steps
+
+
+def phase_sum_logistic(k, card, floor_ms, clock_hz):
+    """Phase 7a's K6: against its plain version (at ROW_RTOL, elementwise
+    relative to max(1, |x|)) and bitwise against its full-count build at
+    the main path's 1,500 elements and at K6_SIZES, f32 and f64, lam a
+    number, a 0-d tensor on the card and one an element, and on the
+    special values; timed at the main path's shape in f32 (kernel and full
+    count in turns, plain, launch floor) beside the chain bound of the
+    steps taken.  Returns the ``kernels`` record."""
+    from epsilon_tpu_torch.ops.kernels import sum_logistic as k6
+    from epsilon_tpu_torch.ops.prox import elementwise
+    plain = elementwise.prox_sum_logistic_reference
+    dev = torch.device("cuda")
+    (main_n,) = k["main"]
+    for dtype in (torch.float32, torch.float64):
+        parts = []
+        for seed, n in enumerate((main_n,) + K6_SIZES):
+            for lam_kind in ("number", "0-d", "element"):
+                v, lam = k6_inputs(n, dtype, seed, dev, lam_kind)
+                x, ref, steps = k6_check(k6, plain, v, lam, f"{n} {lam_kind} {dtype}")
+                err = float(((x - ref).abs() / ref.abs().clamp(min=1.0)).max())
+                if not (bool(torch.isfinite(x).all()) and err <= ROW_RTOL[dtype]):
+                    raise AssertionError(f"sum_logistic_prox {n} {lam_kind} {dtype}: relative "
+                                         f"error {err} > {ROW_RTOL[dtype]}")
+                if n == main_n and lam_kind == "number" and dtype == torch.float32:
+                    main_err = float((x - ref).abs().max())
+                parts.append(f"{n} lam {lam_kind}: {err:.2e}"
+                             + (" (bitwise)" if same_bits(x, ref) else "")
+                             + f", steps {steps.float().mean().item():.1f} mean, "
+                             f"{int(steps.max())} most")
+        v, lam = k6_special(dtype, dev)
+        k6_check(k6, plain, v, lam, f"special {dtype}")
+        log(f"[7a] sum_logistic_prox {str(dtype)[6:]}: bitwise repeatable and equal to its "
+            f"full-count build; relative error to the plain version (rtol "
+            f"{ROW_RTOL[dtype]:g}), Newton steps: " + "; ".join(parts)
+            + f"; the special values (NaN, inf, 0, -0, +-1e30, lam <= 0) bitwise too")
+    v, lam = k6_inputs(main_n, torch.float32, 0, dev, "number")
+    ms = device_ms(lambda: k6.prox(v, lam))
+    plain_ms = device_ms(lambda: plain(v, lam), reps=10, warmup=1)
+    ab = interleaved_ms({"exit": lambda: k6.prox(v, lam), "full": lambda: k6.prox_full(v, lam)})
+    steps = torch.zeros(main_n, dtype=torch.int32, device=dev)
+    x = k6.prox(v, lam, steps=steps)
+    taken = int(steps.max())
+    n_bytes = _nbytes(v, x)
+    flops = 20 * int(steps.sum()) + 10 * main_n
+    chain = K6_CHAIN_START + K6_CHAIN_PER_STEP * taken
+    chain_ms = 1e3 * chain * ROW_CYCLES_PER_OP / clock_hz
+    bound_ms, bound_by = bound(n_bytes, flops)
+    if chain_ms > bound_ms:
+        bound_ms, bound_by = chain_ms, "operations"
+    full_chain = K6_CHAIN_START + K6_CHAIN_PER_STEP * k6.STEPS
+    full_chain_ms = 1e3 * full_chain * ROW_CYCLES_PER_OP / clock_hz
+    (med, lo, hi), (f_med, f_lo, f_hi) = ab["exit"], ab["full"]
+    log(f"[7a] sum_logistic_prox {main_n} f32 (logreg_l1's shape, lam a number): kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms (device time, medians of 50 and 10); in turns "
+        f"({AB_ROUNDS} rounds of {AB_REPS} calls): exit {med:.4f} ms ({lo:.4f}-{hi:.4f}), full "
+        f"count {f_med:.4f} ms ({f_lo:.4f}-{f_hi:.4f}), ratio {med / f_med:.3f}; steps "
+        f"{steps.float().mean().item():.1f} mean, {taken} on the longest chain ({chain} "
+        f"operations, {chain_ms:.4f} ms at {ROW_CYCLES_PER_OP} cycles and {clock_hz / 1e6:.0f} "
+        f"MHz; the full count's {full_chain_ms:.4f}); bound {bound_ms:.4f} ms by {bound_by} "
+        f"({n_bytes} bytes, {flops:.3g} operations); launch floor {floor_ms:.4f} ms; no PyTorch "
+        f"call computes this function; {card}")
+    return {"name": "sum_logistic_prox", "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"], "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms,
+            "full_count_ms": f_med, "ab_ms": {"exit": ab["exit"], "full_count": ab["full"]},
+            "steps_taken": taken}
+
+
+def tv_signal(n, seed):
+    """A piecewise-constant signal with noise, as ``problems/tv_1d.py``
+    makes its data (about sqrt(n) / 2 level shifts of up to +-5, unit
+    noise)."""
+    rng = np.random.RandomState(seed)
+    x0 = np.ones(n)
+    for a, b in np.sort(rng.randint(0, n, (max(int(np.sqrt(n) / 2), 1), 2)), axis=1):
+        x0[a:b] += 10 * (rng.rand() - 0.5)
+    return x0 + rng.randn(n)
+
+
+def grid_sync_ms(t, blocks, threads, syncs):
+    """Device ms of one cooperative launch of ``blocks`` x ``threads`` that
+    only waits at ``syncs`` grid syncs (``csrc/launch_floor.cu``)."""
+    from epsilon_tpu_torch.ops.kernels import _rows
+    lib = _launch_floor_library()
+    return device_ms(lambda: _rows.launch("grid_sync_floor", lib.grid_sync_floor,
+                                          (blocks, threads, syncs), t))
+
+
+def pdas_case(tv1d, v, lam, tol, z0, exact, label):
+    """K7 against the plain PDAS on the card and the exact oracle's x
+    (``exact``, numpy), and bitwise repeatable; returns the kernel's ``(x,
+    z, gap, rounds)``, the plain version's rounds and the errors (x and z
+    to the plain version's and x to the oracle's, relative; whether x and
+    z are the plain version's bits)."""
+    x, gap, it, z = tv1d.prox_tv1d_pdas(v, lam, tol=tol, z0=z0, return_dual=True)
+    x2, gap2, it2, z2 = tv1d.prox_tv1d_pdas(v, lam, tol=tol, z0=z0, return_dual=True)
+    xr, _, itr, zr = tv1d.prox_tv1d_pdas_reference(v, lam, tol=tol, z0=z0, return_dual=True)
+    torch.cuda.synchronize()
+    if not (same_bits(x, x2) and same_bits(z, z2) and same_bits(gap, gap2)
+            and int(it) == int(it2)):
+        raise AssertionError(f"tv1d_pdas {label}: two runs differ")
+    lam_f = float(lam)
+    scale = max(1.0, float(v.abs().max()))
+    err_plain = float((x - xr).abs().max()) / scale
+    err_z = float((z - zr).abs().max()) / max(1.0, abs(lam_f))
+    err_exact = float(np.abs(x.double().cpu().numpy() - exact).max()) / scale
+    _, gap64 = tv1d.tv1d_gap(v.double().cpu(), lam_f, z.double().cpu())
+    rtol = K7_RTOL[v.dtype]
+    certified = 0.0 if tol is None else np.sqrt(2.0 * max(float(gap64), 0.0)) / scale
+    if not (bool(torch.isfinite(x).all()) and err_plain <= rtol and err_z <= rtol
+            and err_exact <= rtol + certified):
+        raise AssertionError(f"tv1d_pdas {label}: relative error to the plain version x "
+                             f"{err_plain:.2e}, z {err_z:.2e}, to the exact oracle "
+                             f"{err_exact:.2e} (rtol {rtol:g}, certificate {certified:.2e})")
+    return (x, z, gap, int(it)), itr, (err_plain, err_z, err_exact, same_bits(x, xr)
+                                       and same_bits(z, zr))
+
+
+def pcr_systems(m, dtype, dev, seed):
+    """Two tridiagonal systems of m rows: a diagonally dominant random one
+    and one as a PDAS round makes it (pinned rows b = 1, a = c = 0; free
+    rows -1, 2, -1)."""
+    rng = np.random.RandomState(seed)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    rand = (as_t(-rng.rand(m)), as_t(2.5 + rng.rand(m)), as_t(-rng.rand(m)), as_t(rng.randn(m)))
+    free = rng.rand(m) < 0.7
+    a = as_t(np.where(free, -1.0, 0.0))
+    pdas = (a, as_t(np.where(free, 2.0, 1.0)), a, as_t(np.where(free, rng.randn(m),
+                                                              np.sign(rng.randn(m)))))
+    return {"random": rand, "pdas": pdas}
+
+
+def phase_tv1d(k, card, clock_hz):
+    """Phase 7a's K7: one PCR solve (``tv1d_pdas.pcr``, the kernel's PCR
+    code) bitwise against the plain ``pcr_tridiag_solve`` on the card; the
+    PDAS against the plain version and the exact oracle (``pdas_case``) at
+    K7_LENGTHS and the main path's lengths, f32 and f64, cold and warm, lam
+    a number and a 0-d tensor, at the default tolerance (rounds within
+    K7_ROUND_SLACK) and at K7_INNER_TOLS (the same rounds); then at each
+    main length in f32, cold and warm at the main path's inner tolerance,
+    timed against the plain version in turns, beside the grid-sync floor at
+    the kernel's grid and the bound.  Returns the ``kernels`` record (at
+    tv_1d's length, warm: the main path's call) and the other timings."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas as k7
+    from epsilon_tpu_torch.ops.prox import tv1d
+    dev = torch.device("cuda")
+    main_lengths = k["main"]
+    for dtype in (torch.float32, torch.float64):
+        checked = []
+        for m in sorted({n - 1 for n in K7_LENGTHS + main_lengths} | {1}):
+            for name, system in pcr_systems(m, dtype, dev, m).items():
+                got, want = k7.pcr(*system), tv1d.pcr_tridiag_solve(*system)
+                torch.cuda.synchronize()
+                if not same_bits(got, want):
+                    raise AssertionError(f"tv1d_pcr {name} m={m} {dtype}: differs from "
+                                         "pcr_tridiag_solve")
+            checked.append(str(m))
+        log(f"[7a] tv1d_pcr {str(dtype)[6:]}: bitwise equal to the plain pcr_tridiag_solve on "
+            f"the card, a random and a PDAS system at m = {', '.join(checked)}")
+        parts, bitwise = [], 0
+        for n in K7_LENGTHS + main_lengths:
+            v = torch.as_tensor(tv_signal(n, n), dtype=dtype, device=dev)
+            lam = 0.5 * np.sqrt(n) if n > 3 else 0.3
+            exact = tv1d.tv1d_exact_numpy(v.double().cpu().numpy(), lam)
+            cold, _, _ = pdas_case(tv1d, v, lam, None, None, exact, f"n={n} {dtype} cold")
+            v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(n + 1).randn(n),
+                                            dtype=dtype, device=dev)
+            exact = tv1d.tv1d_exact_numpy(v2.double().cpu().numpy(), lam)
+            for tol in (None,) + K7_INNER_TOLS[dtype]:
+                for lam_t, z0, kind in ((lam, None, "cold"), (lam, cold[1], "warm"),
+                                        (torch.tensor(lam, dtype=dtype, device=dev), cold[1],
+                                         "warm, lam 0-d")):
+                    label = f"n={n} {dtype} tol {tol} {kind}"
+                    (_, _, _, it), itr, errs = pdas_case(tv1d, v2, lam_t, tol, z0, exact,
+                                                         label)
+                    slack = K7_ROUND_SLACK if tol is None else 0
+                    if abs(it - itr) > slack:
+                        raise AssertionError(f"tv1d_pdas {label}: {it} rounds, the plain "
+                                             f"version {itr}")
+                    bitwise += errs[3]
+                    if n in main_lengths or n == K7_LENGTHS[-1]:
+                        parts.append(f"n={n} tol {tol} {kind}: {it} rounds (plain {itr}), "
+                                     f"errors {errs[0]:.1e} / {errs[2]:.1e}")
+        cases = len(K7_LENGTHS + main_lengths) * (1 + len(K7_INNER_TOLS[dtype])) * 3
+        log(f"[7a] tv1d_pdas {str(dtype)[6:]}: {cases} cases at n = "
+            f"{', '.join(map(str, K7_LENGTHS + main_lengths))} (cold, warm, lam a 0-d tensor; "
+            f"default tolerance and {K7_INNER_TOLS[dtype]}) within {K7_RTOL[dtype]:g} of the "
+            f"plain PDAS (x and z) and of the exact oracle (plus the gap's certificate), "
+            f"bitwise repeatable, the same rounds "
+            f"at the inner tolerances; x and z bitwise equal to the plain version's in "
+            f"{bitwise} of them; " + "; ".join(parts))
+    from epsilon_tpu_torch import config
+    records = {}
+    threads = k7.threads()
+    # the main path's inner tolerance in f32 (phase 7's rel_tol)
+    inner_tol = config.prox_inner_tol_for(LIBRARY_REL_TOL)
+    for n in main_lengths:
+        v = torch.as_tensor(tv_signal(n, 1), dtype=torch.float32, device=dev)
+        lam = float(np.sqrt(n))
+        _, _, _, z_cold = tv1d.prox_tv1d_pdas(v, lam, tol=inner_tol, return_dual=True)
+        v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(2).randn(n), dtype=torch.float32,
+                                        device=dev)
+        blocks = k7.grid("pdas", n, v)
+        steps = k7.pcr_steps(n - 1)
+        for kind, z0 in (("cold", None), ("warm", z_cold)):
+            kernel = lambda: tv1d.prox_tv1d_pdas(v2, lam, tol=inner_tol, z0=z0)
+            plain = lambda: tv1d.prox_tv1d_pdas_reference(v2, lam, tol=inner_tol, z0=z0)
+            x_k, _, rounds = kernel()
+            x_p, _, plain_rounds = plain()
+            rounds, err = int(rounds), float((x_k - x_p).abs().max())
+            ms = device_ms(kernel)
+            plain_ms = device_ms(plain, reps=K7_PLAIN_REPS, warmup=1)
+            readings = {"kernel": [], "plain": []}
+            for _ in range(K7_AB_ROUNDS):
+                for side in ("kernel", "plain", "plain", "kernel"):
+                    fn = kernel if side == "kernel" else plain
+                    readings[side].append(device_ms(fn, reps=K7_PLAIN_REPS, warmup=1))
+            ab = {s: (statistics.median(r), min(r), max(r)) for s, r in readings.items()}
+            syncs = rounds * (steps + 3) + 2
+            sync0 = grid_sync_ms(v, blocks, threads, 0)
+            sync_ms = grid_sync_ms(v, blocks, threads, syncs)
+            per_sync = (sync_ms - sync0) / syncs
+            chain_ms = sync_ms
+            m = n - 1
+            n_bytes = v.element_size() * (2 * n + 2 * m + (m if z0 is not None else 0))
+            flops = rounds * m * (K7_FLOPS_ROUND + K7_FLOPS_PCR_STEP * steps)
+            bound_ms, bound_by = bound(n_bytes, flops)
+            if chain_ms > bound_ms:
+                bound_ms, bound_by = chain_ms, "operations"
+            (med, lo, hi), (p_med, p_lo, p_hi) = ab["kernel"], ab["plain"]
+            log(f"[7a] tv1d_pdas n={n} f32 {kind} (tol {inner_tol:g}, lam {lam:.4g}): {rounds} "
+                f"rounds (plain {plain_rounds}), max|x - x_plain| {err:.3e}; kernel {ms:.4f} ms "
+                f"(device time, median of 50), "
+                f"plain {plain_ms:.4f} ms (median of {K7_PLAIN_REPS}); in turns ({K7_AB_ROUNDS} "
+                f"rounds of kernel, plain, plain, kernel; {K7_PLAIN_REPS} calls a reading): "
+                f"kernel {med:.4f} ({lo:.4f}-{hi:.4f}), plain {p_med:.4f} ({p_lo:.4f}-{p_hi:.4f}), "
+                f"ratio {med / p_med:.4f}; grid {blocks} x {threads}, {steps} PCR steps, "
+                f"{syncs} grid syncs: an empty cooperative kernel with as many syncs at the same "
+                f"grid {sync_ms:.4f} ms ({per_sync * 1e3:.3f} us a sync, none {sync0:.4f} ms); "
+                f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {flops:.3g} "
+                f"operations, the syncs' chain {chain_ms:.4f} ms); kernel at "
+                f"{bound_ms / ms:.2f} of it; no PyTorch call computes this function (no "
+                f"tridiagonal solve in torch.linalg; a dense solve at n = {n} would take "
+                f"{4 * n * n / 1e9:.1f} GB); {card}")
+            records[(n, kind)] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": err, "rounds": rounds, "plain_rounds": plain_rounds,
+                "grid_syncs": syncs,
+                "sync_us": per_sync * 1e3, "sync_floor_ms": sync_ms, "launch_floor_ms": sync0,
+                "ab_ms": {"kernel": ab["kernel"], "plain": ab["plain"]}}
+    main = records[(main_lengths[0], "warm")]
+    record = {"name": "tv1d_pdas", "route": "cuda", "source": k["source"],
+              "replaces": k["replaces"], "library_ms": None,
+              **{key: main[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
+              "timings": {f"n={n} {kind}": r for (n, kind), r in records.items()}}
+    return record
 
 
 def library_row(bench, inst, ref, profile_iters=LIBRARY_PROFILE_ITERS, tag="", phase="7",
@@ -1383,8 +1786,9 @@ def library_row(bench, inst, ref, profile_iters=LIBRARY_PROFILE_ITERS, tag="", p
 
 
 def row_launches():
-    """The per-row loop kernels' launch counts in this process."""
-    return {name: getattr(k["module"], k["counter"]) for name, k in row_kernels().items()}
+    """The hand loop kernels' (K3-K7) launch counts in this process."""
+    return {name: getattr(module, counter)
+            for name, (module, counter) in counted_kernels().items()}
 
 
 def library_row_beside(name):
@@ -1411,8 +1815,7 @@ def library_set_beside(name):
     from epsilon_tpu_torch.problems import benchmark as bench
     ref_set = json.loads(REFERENCE_JSON.read_text())[name]
     sp.launches = 0
-    for k in row_kernels().values():
-        setattr(k["module"], k["counter"], 0)
+    reset_launches()
     out = []
     for inst in bench.PROBLEMS_REFERENCE():
         before = dict(row_launches(), sym_packed=sp.launches)
@@ -1457,6 +1860,9 @@ def phase_library_sets(pool, futures, t0):
                     + ("" if r["ok"] else "  FAILED"))
                 for k, n in r["launches"].items():
                     launches.setdefault(k, dict.fromkeys(LIBRARY_SETS, 0))[name] += n
+            failed += [f"{kernel} not launched in {row} ({name})"
+                       for kernel, k in loop_kernels().items() for row in k["rows"]
+                       if not next(r for r in rows if r["name"] == row)["launches"].get(kernel)]
     log(f"[7c] both sets done {time.perf_counter() - t0:.1f} s after they started; "
         f"launches per kernel and set: {json.dumps(launches)}")
     if failed:
@@ -1480,17 +1886,25 @@ def phase_library():
         beside = [pool.submit(library_row_beside, name) for name in LIBRARY_BESIDE]
         for inst in bench.PROBLEMS_REFERENCE():
             if inst.name not in LIBRARY_BESIDE:
+                before = row_launches()
                 out.append(library_row(bench, inst, refs[inst.name]))
+                out[-1]["launches"] = {k: n - before[k] for k, n in row_launches().items()
+                                       if n > before[k]}
+                log(f"[7] {inst.name}: kernels launched "
+                    + (", ".join(f"{k} {n}" for k, n in out[-1]["launches"].items()) or "none"))
         for fut in beside:
             row, launches = fut.result()
             out.append(row)
             for name, n in launches.items():
                 beside_launches[name] = beside_launches.get(name, 0) + n
     failed = [r["name"] for r in out if not r["ok"]]
+    not_launched = [f"{kernel} in {r['name']}" for kernel, k in loop_kernels().items()
+                    for r in out if r["name"] in k["rows"]
+                    and not r.get("launches", {}).get(kernel)]
     log(f"[7] {len(out)} rows in {time.perf_counter() - t0:.1f} s, "
         f"{len(out) - len(failed)} passed")
-    if failed:
-        raise AssertionError(f"library rows failed: {failed}")
+    if failed or not_launched:
+        raise AssertionError(f"library rows failed: {failed}; not launched: {not_launched}")
     return out, beside_launches
 
 
@@ -1734,11 +2148,14 @@ def mesh_kind_references(mw):
     for family in mw.FULL["kinds"]:
         solver = ProxADMMTwoBlockSolver(mw.kind_problem(family, mw.FULL), SolverParams(
             max_iterations=mw.FULL["kind_iters"][family], **mw.KINDS))
+        before = mw.loop_kernel_launches()
         x = solver.solve()
         torch.cuda.synchronize()
         f[family] = dict(iterations=solver.status.num_iterations, x=mw.flat_x(x),
                          ms_per_iter=(solver.status.timing.solve_usec / 1e3
-                                      / solver.status.num_iterations))
+                                      / solver.status.num_iterations),
+                         launches={k: n - before[k]
+                                   for k, n in mw.loop_kernel_launches().items()})
     torch.cuda.empty_cache()
     return e, f
 
@@ -1796,9 +2213,15 @@ def check_mesh_kinds(mw, ranks, resumed, e_ref, f_refs):
             + f"): {f0['status']} in {f0['iterations']} iterations (one process "
             f"{ref['iterations']}); max|x - x_one|/max|x_one| {err:.2e} (tol {tol:g}); "
             f"{f0['ms_per_iter']:.4f} ms/iter (one process {ref['ms_per_iter']:.4f}); set-up "
-            f"{f0['setup_s']:.2f} s; stacked bytes a rank {f0['stacked_bytes']}")
+            f"{f0['setup_s']:.2f} s; stacked bytes a rank {f0['stacked_bytes']}; K6, K7 "
+            f"launches a rank {[list(m_['f'][family]['launches'].values()) for m_ in metas]} "
+            f"(one process {list(ref['launches'].values())})")
         if not (f0["iterations"] == ref["iterations"] and err <= tol):
             failed.append(f"9f {family}")
+        # the TV family's rows run K7 on every rank and in one process
+        if family == "tv" and not (ref["launches"]["tv1d_pdas"] and all(
+                m_["f"][family]["launches"]["tv1d_pdas"] for m_ in metas)):
+            failed.append("9f tv: K7 not launched")
     # (g) the checkpoint, resumed on the same four ranks and on two
     g0 = metas[0]["g"]
     _same_on_all_ranks_arrays(ranks, "g_x")
@@ -1829,7 +2252,8 @@ def _same_on_all_ranks_arrays(ranks, name):
 
 def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
     """Phase 9; returns K1's launch count on rank 0 in (d), all on the
-    streaming path at ``K1_RANK_SHAPE``."""
+    streaming path at ``K1_RANK_SHAPE``, and K7's on rank 0 in (f)'s TV
+    family."""
     from tools import mesh_worker as mw
     from epsilon_tpu_torch.solvers import ProxADMMTwoBlockSolver, SolverParams
 
@@ -1976,7 +2400,7 @@ def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
         + ", ".join(f"({k}) {metas[0][f'{k}_seconds']:.1f}" for k in "abcdefg"))
     if failed:
         raise AssertionError(f"[9] failed: {failed}")
-    return d0["k1_launches"]
+    return d0["k1_launches"], metas[0]["f"]["tv"]["launches"]["tv1d_pdas"]
 
 
 def main():
@@ -1997,7 +2421,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"[1] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    modules = [sp, lu] + list({id(k["module"]): k["module"] for k in row_k.values()}.values())
+    modules = [sp, lu] + list({id(mod): mod for mod, _ in counted_kernels().values()}.values())
     sources = [mod.build for mod in modules] + [lambda: _rows.build("launch_floor")]
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(lambda build: build(), sources))
@@ -2064,8 +2488,7 @@ def main():
     try:
         # -- 7. the problem library at reference size ------------------------------------
         sp.launches = lu.launches = 0
-        for k in row_k.values():
-            setattr(k["module"], k["counter"], 0)
+        reset_launches()
         _, beside_launches = phase_library()
         launches = {name: n + beside_launches[name] for name, n in row_launches().items()}
         log(f"[7] hand-written kernel launches in phase 7: sym_packed {sp.launches}, "
@@ -2098,13 +2521,16 @@ def main():
         rec["launches_7c"] = sets_launches.get(name, dict.fromkeys(LIBRARY_SETS, 0))
         if name in row_k and not sum(rec["launches_7c"].values()):
             raise AssertionError(f"{name} was not launched in phase 7c")
+        if name in loop_kernels() and not all(rec["launches_7c"].values()):
+            raise AssertionError(f"{name} was not launched in phase 7c under every set: "
+                                 f"{rec['launches_7c']}")
 
     # -- 9. the meshed paths, four processes over one group ------------------------------
     A, b, lam = workload(2000, 1000)
     # K1's second record: the streaming path at one rank's shape, its count
     # rank 0's in (d) (each rank is a process of its own and sets its count
     # to 0 just before the solve)
-    record_k1_rank["launches"] = phase_mesh(
+    record_k1_rank["launches"], row_records["tv1d_pdas"]["launches_9f"] = phase_mesh(
         card, (A, b, lam, lasso_objective(A, b, lam, x_ref)),
         consensus_data, z_consensus, z_consensus_steady)
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import epi_neg_log
+from ..kernels import epi_neg_log, sum_logistic
 from .util import (as_tensor_like, newton_safeguarded, pwl_root,
                    solve_w_log_w, where_batch)
 
@@ -131,6 +131,16 @@ def epi_exp(v, s):
 
 
 def prox_sum_logistic(v, lam):
+    """x + lam sigmoid(x) = v elementwise: the plain version
+    (:func:`prox_sum_logistic_reference`) on a CPU tensor, one launch of
+    the ``sum_logistic`` kernel on a CUDA tensor; any other device raises."""
+    if v.device.type == "cpu":
+        return prox_sum_logistic_reference(v, lam)
+    return sum_logistic.prox(v, lam)
+
+
+def prox_sum_logistic_reference(v, lam):
+    """The safeguarded Newton of 40 steps, one eager operation a step."""
     lam = as_tensor_like(lam, v)
 
     def g(x):

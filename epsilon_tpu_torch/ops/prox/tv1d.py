@@ -8,8 +8,11 @@ by a primal-dual active-set method (semismooth Newton) on the dual box QP
 ``min_z (1/2)||D^T z - v||^2, |z| <= lam`` with parallel cyclic reduction
 for its tridiagonal systems (:func:`prox_tv1d_pdas`), certified by the
 duality gap of :func:`tv1d_gap`.  The JAX package's ``lax.while_loop``
-becomes a Python loop whose continuation test (one host sync per round)
-mirrors the JAX termination exactly.  Inside ADMM the kernel is warm
+becomes, in the plain version (:func:`prox_tv1d_pdas_reference`), a Python
+loop whose continuation test (one host sync per round) mirrors the JAX
+termination exactly; on a CUDA tensor one cooperative kernel launch
+(``ops/kernels/tv1d_pdas.py``) runs the whole loop, its stop test on the
+device.  Inside ADMM the kernel is warm
 started from the previous iteration's dual (:func:`prox_tv1d_registry_warm`).
 
 Off the registry path, as in the JAX module: Douglas-Rachford/ADMM
@@ -32,9 +35,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import tv1d_pdas
+
 __all__ = ["prox_tv1d", "prox_tv1d_certified", "prox_tv1d_multiscale",
            "neumann_laplacian_solve", "neumann_laplacian_solve_conv",
-           "prox_tv1d_pdas", "prox_tv1d_registry", "prox_tv1d_registry_warm",
+           "prox_tv1d_pdas", "prox_tv1d_pdas_reference", "prox_tv1d_registry",
+           "prox_tv1d_registry_warm",
            "tv1d_state_init", "pcr_tridiag_solve", "eval_tv1d", "tv1d_gap",
            "tv_gap_tol", "default_tv_tol", "pdas_default_tol",
            "tv1d_exact_numpy"]
@@ -275,7 +281,26 @@ def prox_tv1d_pdas(v, lam, tol=None, max_iters: int = 40, z0=None,
     the exactly quadratic dual objective; stops when the active set is a
     fixed point with a full step, after ``max_iters`` rounds, or as soon as
     the duality gap meets ``tv_gap_tol(v, tol)``.  Returns
-    ``(x, gap, iters)`` (and the dual with ``return_dual``)."""
+    ``(x, gap, iters)`` (and the dual with ``return_dual``).
+
+    On a CPU tensor (and for n <= 1) this is the plain version,
+    :func:`prox_tv1d_pdas_reference`, and ``iters`` an ``int``; on a CUDA
+    tensor one launch of the ``tv1d_pdas`` kernel runs every round with its
+    stop test on the device, and ``iters`` is a 0-d int32 tensor there
+    (reading it is the caller's sync); any other device raises."""
+    if v.device.type == "cpu" or v.shape[-1] <= 1:
+        return prox_tv1d_pdas_reference(v, lam, tol=tol, max_iters=max_iters, z0=z0,
+                                        return_dual=return_dual)
+    if tol is None:
+        tol = pdas_default_tol(v.dtype)
+    x, z, gap, it = tv1d_pdas.pdas(v, lam, tol, max_iters=max_iters, z0=z0)
+    return (x, gap, it, z) if return_dual else (x, gap, it)
+
+
+def prox_tv1d_pdas_reference(v, lam, tol=None, max_iters: int = 40, z0=None,
+                             return_dual: bool = False):
+    """The plain version of :func:`prox_tv1d_pdas`: each round as eager
+    operations, its stop test read on the host once a round."""
     dt = v.dtype
     n = v.shape[-1]
     if n <= 1:

@@ -5,10 +5,11 @@ leading batch of problems (axis mode runs one kernel per row or column of a
 matrix argument): vectors lie along the last axis and per-problem scalars
 have the batch shape.  The JAX package's fixed-count ``fori_loop`` loops
 are Python loops with the same counts, so both packages compute the same
-numbers; on a CUDA tensor the LOG_SUM_EXP prox and epigraph and the
-SUM_SQUARE and SUM_NEG_LOG epigraphs run their loops in one hand-written
-kernel each (``ops/kernels/lse_rows.py``, ``epi_sum_square.py``,
-``epi_neg_log.py``), with these routines as their plain versions.
+numbers; on a CUDA tensor the LOG_SUM_EXP prox and epigraph, the
+SUM_SQUARE and SUM_NEG_LOG epigraphs and the SUM_LOGISTIC prox run their
+loops in one hand-written kernel each (``ops/kernels/lse_rows.py``,
+``epi_sum_square.py``, ``epi_neg_log.py``, ``sum_logistic.py``), with these
+routines as their plain versions.
 
 - :func:`pwl_root` - root of a monotone piecewise-linear function by one
   sort and prefix sums.

@@ -4,7 +4,11 @@ against their plain PyTorch versions, K3-K5 (whose loops stop when their
 state repeats) against their full-count builds bitwise, K3's half-warp
 prox against the same kernel one row a warp bitwise, the factor
 apply, a small lasso, a small consensus lasso and the rows whose epigraphs
-K3 and K4 carry on the card.  They skip
+K3 and K4 carry on the card; K6 (the SUM_LOGISTIC prox) against its
+full-count build bitwise and its plain version, K7 (the TV-1D PDAS in one
+cooperative launch) against the plain PDAS and the exact oracle, its PCR
+solve against the plain one bitwise, each launching one kernel and no host
+sync, and the rows they carry.  They skip
 without a CUDA device.  This file imports neither JAX nor the JAX package,
 so it also runs where JAX is absent:
 
@@ -659,4 +663,284 @@ def test_launch_floor_runs(cuda):
     before = [getattr(mod, counter) for mod, counter in counters]
     launch_floor(torch.empty(1, device=cuda))
     torch.cuda.synchronize()
+    assert [getattr(mod, counter) for mod, counter in counters] == before
+
+
+# -- K6: the SUM_LOGISTIC prox, one thread an element ------------------------
+
+def _logistic_inputs(n, seed, dtype, device, lam_kind):
+    """v uniform over +-60; lam log-uniform over 1e-6..1e6 as a number, a
+    0-d CUDA tensor or one value an element."""
+    rng = np.random.RandomState(seed)
+    v = torch.as_tensor(rng.uniform(-60.0, 60.0, n), dtype=dtype, device=device)
+    lam = 10.0 ** rng.uniform(-6.0, 6.0, n)
+    if lam_kind == "number":
+        return v, float(lam[0])
+    if lam_kind == "0-d":
+        return v, torch.tensor(lam[0], dtype=dtype, device=device)
+    return v, torch.as_tensor(lam, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lam_kind", ["number", "0-d", "element"])
+@pytest.mark.parametrize("n", [1, 255, 257, 1500, 100_000])
+def test_sum_logistic_kernel_matches_full_count_and_plain(cuda, n, lam_kind, dtype):
+    """K6 through its dispatch (one launch) equals its full-count build
+    bitwise (the exit returns the full count's state) and a second run; its
+    steps lie in 1..40; against the plain version on the same CUDA tensors
+    within ROW_KERNEL_RTOL, elementwise relative to max(1, |x|) (the same
+    operations in the same order; the card's exp against torch's)."""
+    from epsilon_tpu_torch.ops.kernels import sum_logistic
+    from epsilon_tpu_torch.ops.prox import elementwise
+    v, lam = _logistic_inputs(n, n, dtype, cuda, lam_kind)
+    before = sum_logistic.launches
+    x = elementwise.prox_sum_logistic(v, lam)
+    assert sum_logistic.launches == before + 1
+    steps = torch.zeros(n, dtype=torch.int32, device=cuda)
+    full_steps = torch.zeros_like(steps)
+    assert _same_bits(x, sum_logistic.prox(v, lam, steps=steps))
+    assert _same_bits(x, sum_logistic.prox_full(v, lam, steps=full_steps))
+    assert bool(((steps >= 1) & (steps <= sum_logistic.STEPS)).all())
+    assert bool((full_steps == sum_logistic.STEPS).all())
+    want = elementwise.prox_sum_logistic_reference(v, lam)
+    assert x.shape == want.shape and x.dtype == want.dtype and torch.isfinite(x).all()
+    assert ((x - want).abs() / want.abs().clamp(min=1.0)).max().item() <= ROW_KERNEL_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sum_logistic_kernel_exit_on_special_values(cuda, dtype):
+    """Every pair of v in {NaN, +-inf, 0, -0, +-1e30, +-1e-30, 1, -7.5} and
+    lam in {NaN, inf, 0, -0, -1, 1e-30, 1, 1e30}: the exit's result equals
+    the full-count build's bits."""
+    from epsilon_tpu_torch.ops.kernels import sum_logistic
+    vs = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, 1e-30, -1e-30, 1.0, -7.5]
+    lams = [np.nan, np.inf, 0.0, -0.0, -1.0, 1e-30, 1.0, 1e30]
+    v, lam = (torch.as_tensor(a.ravel(), dtype=dtype, device=cuda)
+              for a in np.meshgrid(np.array(vs), np.array(lams), indexing="ij"))
+    assert _same_bits(sum_logistic.prox(v, lam), sum_logistic.prox_full(v, lam))
+
+
+def test_sum_logistic_kernel_broadcasts_lam(cuda):
+    """lam broadcasting against a batch of v (a row of lam, a column) and a
+    one-element CPU tensor give the plain version's shape and values; lam on
+    another card's device or of another shape raises."""
+    from epsilon_tpu_torch.ops.kernels import sum_logistic
+    from epsilon_tpu_torch.ops.prox import elementwise
+    rng = np.random.RandomState(5)
+    v = torch.as_tensor(rng.uniform(-5, 5, (3, 40)), dtype=torch.float64, device=cuda)
+    for lam in (torch.as_tensor(rng.uniform(0.1, 3, 40), dtype=torch.float64, device=cuda),
+                torch.as_tensor(rng.uniform(0.1, 3, (3, 1)), dtype=torch.float64, device=cuda),
+                torch.tensor([0.7], dtype=torch.float64), 2.0):
+        got = elementwise.prox_sum_logistic(v, lam)
+        want = elementwise.prox_sum_logistic_reference(
+            v, lam.to(cuda) if isinstance(lam, torch.Tensor) else lam)
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-10 * max(1.0, want.abs().max().item())
+    with pytest.raises(ValueError):
+        sum_logistic.prox(v, torch.ones(7, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        sum_logistic.prox(v, torch.ones(40, dtype=torch.float64))
+
+
+# -- K7: the TV-1D PDAS in one cooperative launch ----------------------------
+
+# K7 against the plain PDAS on the card, max |x - x_ref| / max(1, max |v|)
+# (z relative to max(1, lam)): the two differ only in the order of their
+# sums.  Against the exact oracle, the same at the default tolerance; at an
+# inner tolerance plus the PDAS certificate of the returned dual (||x - x*||
+# <= sqrt(2 gap), the gap of z evaluated in f64): at a loose inner
+# tolerance the PDAS stops that far from x*.  At the default PDAS tolerance the f32 gap test
+# reads rounding noise (and below 3e-4 the f32 gap floors above its
+# threshold, so the stop then rests on the full step's change of J, a sum
+# at the rounding scale), so the rounds may differ by one there; at the
+# inner tolerances the solver sets (config.prox_inner_tol_for: at least
+# 3e-4 in f32, 1e-7 in f64) they are the same.
+K7_RTOL = {torch.float32: 1e-4, torch.float64: 1e-9}
+K7_INNER_TOLS = {torch.float32: [1e-3, 3e-4], torch.float64: [1e-4, 1e-6]}
+
+
+def _tv_signal(n, seed):
+    rng = np.random.RandomState(seed)
+    return np.cumsum((rng.rand(n) < 0.05) * 3 * rng.randn(n)) + 0.3 * rng.randn(n)
+
+
+def _pdas_check(v, lam, tol, z0, slack):
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    from epsilon_tpu_torch.ops.prox import tv1d
+    before = tv1d_pdas.launches
+    x, gap, it, z = tv1d.prox_tv1d_pdas(v, lam, tol=tol, z0=z0, return_dual=True)
+    assert tv1d_pdas.launches == before + 1
+    assert it.shape == () and it.dtype == torch.int32 and it.device == v.device
+    assert gap.shape == () and gap.dtype == v.dtype
+    x2, gap2, it2, z2 = tv1d.prox_tv1d_pdas(v, lam, tol=tol, z0=z0, return_dual=True)
+    assert _same_bits(x, x2) and _same_bits(z, z2) and _same_bits(gap, gap2) and it == it2
+    xr, _, itr, zr = tv1d.prox_tv1d_pdas_reference(v, lam, tol=tol, z0=z0, return_dual=True)
+    assert abs(int(it) - itr) <= slack
+    scale = max(1.0, v.abs().max().item())
+    rtol = K7_RTOL[v.dtype]
+    assert torch.isfinite(x).all()
+    assert (x - xr).abs().max().item() <= rtol * scale
+    assert (z - zr).abs().max().item() <= rtol * max(1.0, abs(float(lam)))
+    exact = tv1d.tv1d_exact_numpy(v.double().cpu().numpy(), float(lam))
+    _, gap64 = tv1d.tv1d_gap(v.double().cpu(), float(lam), z.double().cpu())
+    reach = rtol * scale + (0.0 if tol is None else np.sqrt(2.0 * max(float(gap64), 0.0)))
+    assert np.abs(x.double().cpu().numpy() - exact).max() <= reach
+    return z
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 2, 3, 16, 17, 1023, 1025, 9999, 99_999])
+def test_tv1d_pcr_is_the_plain_pcr_bitwise(cuda, m, dtype):
+    """One PCR solve by K7's PCR code equals ``pcr_tridiag_solve`` on the
+    card bitwise, on a diagonally dominant random system and on one as a
+    PDAS round builds it (pinned rows, c = a)."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    from epsilon_tpu_torch.ops.prox import tv1d
+    rng = np.random.RandomState(m)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    free = rng.rand(m) < 0.7
+    a = t(np.where(free, -1.0, 0.0))
+    for system in ((t(-rng.rand(m)), t(2.5 + rng.rand(m)), t(-rng.rand(m)), t(rng.randn(m))),
+                   (a, t(np.where(free, 2.0, 1.0)), a, t(rng.randn(m)))):
+        assert _same_bits(tv1d_pdas.pcr(*system), tv1d.pcr_tridiag_solve(*system))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 3, 17, 1023, 1025, 4097, 100_000])
+def test_tv1d_pdas_matches_plain_and_oracle(cuda, n, dtype):
+    """K7 through its dispatch (one launch, the rounds a 0-d int32 CUDA
+    tensor) cold, warm from its own dual on a perturbed signal, and with
+    lam a 0-d CUDA tensor, at the default tolerance: bitwise repeatable,
+    within K7_RTOL of the plain PDAS on the card and of the exact oracle,
+    the rounds within one of the plain version's."""
+    lam = 0.5 * np.sqrt(n) if n > 3 else 0.3
+    v = torch.as_tensor(_tv_signal(n, n), dtype=dtype, device=cuda)
+    z = _pdas_check(v, lam, None, None, 1)
+    v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(1).randn(n), dtype=dtype, device=cuda)
+    _pdas_check(v2, lam, None, z, 1)
+    _pdas_check(v2, torch.tensor(lam, dtype=dtype, device=cuda), None, z, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [17, 1025, 100_000])
+def test_tv1d_pdas_rounds_at_inner_tolerances(cuda, n, dtype):
+    """At the inner tolerances the solver sets, K7 takes the plain
+    version's rounds, cold and warm."""
+    lam = 0.5 * np.sqrt(n)
+    v = torch.as_tensor(_tv_signal(n, 2 * n), dtype=dtype, device=cuda)
+    v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(3).randn(n), dtype=dtype, device=cuda)
+    for tol in K7_INNER_TOLS[dtype]:
+        z = _pdas_check(v, lam, tol, None, 0)
+        _pdas_check(v2, lam, tol, z, 0)
+
+
+def test_tv1d_pdas_round_cap_and_warm_projection(cuda):
+    """A cap of one or two rounds stops there, as the plain version does;
+    a warm dual from a larger lam is clamped into the box."""
+    from epsilon_tpu_torch.ops.prox import tv1d
+    v = torch.as_tensor(50 * _tv_signal(3000, 6), dtype=torch.float64, device=cuda)
+    for cap in (1, 2):
+        x, _, it = tv1d.prox_tv1d_pdas(v, 2.0, tol=1e-12, max_iters=cap)
+        xr, _, itr = tv1d.prox_tv1d_pdas_reference(v, 2.0, tol=1e-12, max_iters=cap)
+        assert int(it) == itr == cap
+        assert (x - xr).abs().max().item() <= 1e-9 * v.abs().max().item()
+    _, _, _, z = tv1d.prox_tv1d_pdas(v, 5.0, return_dual=True)
+    x, _, _ = tv1d.prox_tv1d_pdas(v, 0.5, z0=z)
+    exact = tv1d.tv1d_exact_numpy(v.cpu().numpy(), 0.5)
+    assert np.abs(x.cpu().numpy() - exact).max() <= 1e-9 * v.abs().max().item()
+
+
+def _host_calls(prof):
+    from torch.autograd import DeviceType
+    return sorted(e.key for e in prof.key_averages() if e.device_type == DeviceType.CPU
+                  and e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                "cudaMemcpyAsync", "cudaMemcpy"))
+
+
+def test_k6_k7_each_one_kernel_and_no_host_sync(cuda):
+    """On a CUDA tensor, K6 and K7's dispatch each launch one kernel and
+    neither synchronizes with the host nor copies to it: the profiled call
+    shows no host-blocking CUDA call beyond those of an empty profiled
+    window (the profiler's own), and PyTorch's sync debug mode raises on
+    none of its operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from epsilon_tpu_torch.ops.prox import elementwise, tv1d
+    v = torch.as_tensor(_tv_signal(100_000, 7), dtype=torch.float32, device=cuda)
+    lam = torch.tensor(316.0, device=cuda)
+    _, _, _, z = tv1d.prox_tv1d_pdas(v, lam, return_dual=True)
+    u = torch.as_tensor(np.random.RandomState(8).uniform(-9, 9, 1500), dtype=torch.float32,
+                        device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pass
+    baseline = _host_calls(prof)
+    for call, name in ((lambda: tv1d.prox_tv1d_pdas(v, lam, tol=1e-3, z0=z), "pdas_kernel"),
+                       (lambda: elementwise.prox_sum_logistic(u, lam), "prox_logistic")):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 1 and name in kernels[0].key and kernels[0].count == 1
+        assert _host_calls(prof) == baseline
+
+
+@pytest.mark.parametrize("row,kwargs,kernel", [
+    ("tv_1d", dict(n=400), "tv1d_pdas"),
+    ("fused_lasso", dict(m=40, ni=2, k=50), "tv1d_pdas"),
+    ("logreg_l1", dict(m=60, n=30), "sum_logistic"),
+])
+def test_k6_k7_rows_on_card_match_cpu_port(cuda, monkeypatch, row, kwargs, kernel):
+    """A row whose prox is K6 or K7, at the small size of the CPU library
+    tests, through Problem.solve on the card in f64 (the kernel launched)
+    against the port on the CPU in f64: objective within 1e-6 relative and
+    the same iteration count, or one epoch of 50 apart (the kernels sum in
+    another order)."""
+    import importlib
+    from epsilon_tpu_torch.problems import benchmark
+    module = importlib.import_module(f"epsilon_tpu_torch.ops.kernels.{kernel}")
+    monkeypatch.setattr(config, "default_dtype", lambda: torch.float64)
+    monkeypatch.setattr(config, "default_np_dtype", lambda: np.dtype(np.float64))
+    inst = next(p for p in benchmark.PROBLEMS_REFERENCE() if p.name == row)
+    inst = benchmark.ProblemInstance(row, inst.create, kwargs)
+    before = module.launches
+    prob = inst.create_problem()
+    obj_gpu = prob.solve(rel_tol=1e-3)
+    iters_gpu = prob.solver_status.num_iterations
+    assert prob.status == "optimal"
+    assert module.launches >= before + iters_gpu
+    config.set_device("cpu")
+    prob_cpu = inst.create_problem()
+    obj_cpu = prob_cpu.solve(rel_tol=1e-3)
+    assert prob_cpu.status == "optimal"
+    assert abs(iters_gpu - prob_cpu.solver_status.num_iterations) <= 50
+    np.testing.assert_allclose(obj_gpu, obj_cpu, rtol=1e-6)
+
+
+def test_k6_dispatch_never_reaches_the_full_count_entry(cuda, monkeypatch):
+    """The SUM_LOGISTIC dispatch launches the kernel that exits, never its
+    full-count build."""
+    from epsilon_tpu_torch.ops.kernels import sum_logistic
+    from epsilon_tpu_torch.ops.prox import elementwise
+    names = _Names(sum_logistic._library())
+    monkeypatch.setattr(sum_logistic, "_LIB", names)
+    for dtype in (torch.float32, torch.float64):
+        v, lam = _logistic_inputs(64, 1, dtype, cuda, "element")
+        elementwise.prox_sum_logistic(v, lam)
+    assert names.names == ["sum_logistic_prox_f32", "sum_logistic_prox_f64"]
+
+
+def test_grid_sync_floor_runs(cuda):
+    """The empty cooperative kernel that phase 7a times for K7's grid-sync
+    cost launches at K7's grid and leaves every launch counter alone."""
+    from chip_smoke import counted_kernels, grid_sync_ms
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    counters = list(counted_kernels().values())
+    before = [getattr(mod, counter) for mod, counter in counters]
+    v = torch.empty(100_000, device=cuda)
+    ms = grid_sync_ms(v, tv1d_pdas.grid("pdas", 100_000, v), tv1d_pdas.threads(), 10)
+    assert ms > 0
     assert [getattr(mod, counter) for mod, counter in counters] == before

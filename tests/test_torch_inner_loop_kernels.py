@@ -335,3 +335,175 @@ def test_out_shape():
         _rows.out_shape("f", "s", (3,), (2, 3))
     with pytest.raises(ValueError, match="broadcast"):
         _rows.out_shape("f", "s", (3,), (4,))
+
+
+# -- K6: the SUM_LOGISTIC prox -------------------------------------------------
+
+# The plain version against the JAX package, f64: the same 40 safeguarded
+# Newton steps from the same start; the packages differ in the rounding of
+# exp inside the sigmoid, which a converged root carries as a few ulps
+# (rtol 1e-12, and atol 1e-12 where the root is near 0).  For lam >= 1e2
+# and |v| of tens, 40 steps leave up to a third of the elements short of
+# the root in both packages (the JAX package's own count; ROADMAP watch
+# list).  There the iterates follow those ulps, so on the elements short of
+# the root the two are held to the bracket [v - lam - 1e-9, v + 1e-9]
+# alone, and the elements that one package solves and the other does not
+# (residual |x + lam sigmoid(x) - v| <= LOGISTIC_SOLVED (1 + |v|); the
+# root is unique, g increases) to at most LOGISTIC_ONE_SIDED of them (at
+# most 1.3 % on these inputs); for lam <= 10 both solve every element.
+LOGISTIC_RTOL, LOGISTIC_ATOL = 1e-12, 1e-12
+LOGISTIC_SOLVED = 1e-9
+LOGISTIC_ONE_SIDED = 0.02
+
+
+def _logistic_inputs(n, seed):
+    """v uniform over +-60, lam log-uniform over 1e-6..1e6 (one an
+    element)."""
+    rng = np.random.RandomState(seed)
+    return rng.uniform(-60.0, 60.0, n), 10.0 ** rng.uniform(-6.0, 6.0, n)
+
+
+def _check_logistic(x, want, v, lam):
+    """x (the port) against want (the JAX package) on (v, lam): see
+    LOGISTIC_RTOL.  Returns the share of elements both solve."""
+    x, want = _np(x), np.asarray(want)
+    v, lam = np.broadcast_arrays(v, lam)
+    x, want = np.broadcast_arrays(x, want)
+    reach = LOGISTIC_SOLVED * (1.0 + np.abs(v))
+    solved_x, solved_w = (np.abs(t + lam / (1.0 + np.exp(-t)) - v) <= reach for t in (x, want))
+    both = solved_x & solved_w
+    np.testing.assert_allclose(x[both], want[both], rtol=LOGISTIC_RTOL, atol=LOGISTIC_ATOL)
+    assert (solved_x != solved_w).mean() <= LOGISTIC_ONE_SIDED
+    for t in (x, want):
+        assert np.all((t >= v - lam - 1e-9) & (t <= v + 1e-9))
+    return both.mean()
+
+
+@pytest.mark.parametrize("lam_kind", ["number", "tensor_0d", "per_element"])
+@pytest.mark.parametrize("n", [1, 257, 1500])
+def test_prox_sum_logistic_reference_matches_jax(n, lam_kind):
+    v, lam = _logistic_inputs(n, n)
+    if lam_kind == "per_element":
+        x = ew.prox_sum_logistic_reference(_t(v), _t(lam))
+        _check_logistic(x, jew.prox_sum_logistic(jnp.asarray(v), jnp.asarray(lam)), v, lam)
+        return
+    # a scalar lam from each decade of the range
+    for lam0 in 10.0 ** np.arange(-6.0, 7.0):
+        p = _t(lam0) if lam_kind == "tensor_0d" else float(lam0)
+        x = ew.prox_sum_logistic_reference(_t(v), p)
+        both = _check_logistic(x, jew.prox_sum_logistic(jnp.asarray(v), lam0), v, lam0)
+        assert both == 1.0 or lam0 >= 1e2
+
+
+def test_prox_sum_logistic_batch_and_broadcast_lam_match_jax():
+    """A stacked leading axis with lam one a row (a column) and one an
+    element of a row (broadcast along the rows)."""
+    rng = np.random.RandomState(11)
+    v = rng.uniform(-60.0, 60.0, (4, 50))
+    for lam in (10.0 ** rng.uniform(-6.0, 6.0, (4, 1)), 10.0 ** rng.uniform(-6.0, 6.0, 50)):
+        x = ew.prox_sum_logistic_reference(_t(v), _t(lam))
+        assert x.shape == v.shape
+        _check_logistic(x, jew.prox_sum_logistic(jnp.asarray(v), jnp.asarray(lam)), v, lam)
+
+
+def _loop_counts():
+    from epsilon_tpu_torch.ops.kernels import sum_logistic, tv1d_pdas
+    return sum_logistic.launches, tv1d_pdas.launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lam_kind", ["number", "tensor_0d", "per_element"])
+def test_prox_sum_logistic_cpu_dispatch_is_the_plain_version_bitwise(lam_kind, dtype):
+    v, lam = _logistic_inputs(300, 4)
+    v = torch.as_tensor(v, dtype=dtype)
+    p = {"number": float(lam[0]), "tensor_0d": torch.tensor(lam[0], dtype=dtype),
+         "per_element": torch.as_tensor(lam, dtype=dtype)}[lam_kind]
+    before = _loop_counts()
+    got = ew.prox_sum_logistic(v, p)
+    assert torch.equal(got, ew.prox_sum_logistic_reference(v, p))
+    assert _loop_counts() == before
+
+
+def test_prox_sum_logistic_dispatch_and_entries_raise_without_a_card():
+    from epsilon_tpu_torch.ops.kernels import sum_logistic
+    before = _loop_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ew.prox_sum_logistic(torch.zeros(4, device="meta"), 1.0)
+    for entry in (sum_logistic.prox, sum_logistic.prox_full):
+        with pytest.raises(ValueError, match="CUDA"):
+            entry(torch.zeros(4, dtype=torch.float64), 1.0)
+        with pytest.raises(TypeError):
+            entry(torch.zeros(4, dtype=torch.int32), 1.0)
+        with pytest.raises(TypeError):
+            entry(torch.zeros(4, dtype=torch.float16), 1.0)
+        with pytest.raises(TypeError):
+            entry([1.0, 2.0], 1.0)
+    assert _loop_counts() == before
+
+
+def test_sum_logistic_epigraph_reaches_the_dispatch():
+    """The SUM_LOGISTIC epigraph of the registry calls the prox through its
+    dispatch (so that on the card each implicit-Newton step is one K6
+    launch); on the CPU it is the plain version there too."""
+    from epsilon_tpu_torch.ir import ProxKind
+    calls = []
+    real = ew.prox_sum_logistic_reference
+
+    def spy(v, lam):
+        calls.append(tuple(v.shape))
+        return real(v, lam)
+
+    entry = reg.KERNELS[ProxKind.SUM_LOGISTIC]
+    v = torch.as_tensor(np.random.RandomState(2).uniform(-3, 3, 20))
+    ew.prox_sum_logistic_reference = spy
+    try:
+        entry.epi(v, torch.tensor(1.0, dtype=torch.float64))
+    finally:
+        ew.prox_sum_logistic_reference = real
+    assert calls and all(shape[-1] == 20 for shape in calls)
+
+
+# -- K7: the TV-1D PDAS --------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("warm", [False, True])
+def test_prox_tv1d_pdas_cpu_dispatch_is_the_plain_version_bitwise(warm, dtype):
+    from epsilon_tpu_torch.ops.prox import tv1d
+    rng = np.random.RandomState(6)
+    v = torch.as_tensor(np.cumsum(rng.randn(300)), dtype=dtype)
+    z0 = torch.as_tensor(rng.uniform(-2, 2, 299), dtype=dtype) if warm else None
+    before = _loop_counts()
+    got = tv1d.prox_tv1d_pdas(v, 1.5, z0=z0, return_dual=True)
+    want = tv1d.prox_tv1d_pdas_reference(v, 1.5, z0=z0, return_dual=True)
+    assert isinstance(got[2], int) and got[2] == want[2]
+    assert all(torch.equal(a, b) for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]))
+    assert _loop_counts() == before
+
+
+def test_prox_tv1d_pdas_dispatch_and_entries_raise_without_a_card():
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    from epsilon_tpu_torch.ops.prox import tv1d
+    before = _loop_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        tv1d.prox_tv1d_pdas(torch.zeros(5, device="meta"), 1.0)
+    # n <= 1 stays on the host path: the identity, on any device
+    x, _, it = tv1d.prox_tv1d_pdas(torch.zeros(1, device="meta"), 1.0)
+    assert x.shape == (1,) and it == 0
+    v = torch.zeros(5, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tv1d_pdas.pdas(v, 1.0, 1e-6)
+    with pytest.raises(ValueError, match="CUDA"):
+        tv1d_pdas.pcr(v, v, v, v)
+    with pytest.raises(TypeError):
+        tv1d_pdas.pdas(torch.zeros(5, dtype=torch.int32), 1.0, 1e-6)
+    with pytest.raises(TypeError):
+        tv1d_pdas.pdas([1.0, 2.0], 1.0, 1e-6)
+    assert _loop_counts() == before
+
+
+def test_pcr_steps_is_the_plain_solves_count():
+    """K7's PCR runs the plain solve's ceil(log2 max(m, 2)) steps (at least
+    one): the least s with 2^s >= m."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    for m in list(range(1, 70)) + [1023, 1024, 1025, 99_999, 2 ** 20 + 1]:
+        assert tv1d_pdas.pcr_steps(m) == max(1, (m - 1).bit_length()), m

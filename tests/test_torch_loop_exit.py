@@ -20,6 +20,11 @@ lo, hi, glo, ghi)), whose state repeats on some rows once x settles at the
 root, so K3 and K4 exit there too; K4's widening of its bracket (state hi)
 repeats at its first step.
 
+K6 (``csrc/sum_logistic.cu``) runs ``newton_safeguarded``'s loop for
+each element of the SUM_LOGISTIC prox alone (one thread an element), and
+exits at its state's first repeat the same way; its premise is held here
+on v in +-60 with lam over 1e-6..1e6 and on special values.
+
 K3's prox runs rows of up to 16 two to a warp, its sums through 16-wide
 butterflies in place of 32-wide ones; a plain simulation of both holds
 them to the same bits here.
@@ -328,6 +333,64 @@ def test_safeguarded_newton_exit_is_exact(dtype):
     # the prox at the full count's nu is the plain version's
     x = v - util.solve_w_log_w(c0 - states[-1][0][..., None])
     assert torch.equal(_bits(x), _bits(vec.prox_log_sum_exp_reference(v, lam)))
+
+
+# -- elementwise.prox_sum_logistic_reference (K6): one Newton an element ---
+
+LOGISTIC_STEPS = 40
+
+
+def _logistic_loop(v, lam):
+    """Every state of the SUM_LOGISTIC prox's 40 safeguarded Newton steps
+    (``x + lam sigmoid(x) = v`` an element), anchored bitwise to the plain
+    version; returns their bits."""
+    lam = torch.broadcast_to(lam, v.shape)
+
+    def g(x):
+        return x + lam * torch.sigmoid(x) - v
+
+    def g_and_gp(x):
+        sig = torch.sigmoid(x)
+        return g(x), 1.0 + lam * sig * (1.0 - sig)
+
+    x0 = v - lam * torch.sigmoid(v)
+    lo, hi = v - lam - 1e-9, v + 1e-9
+    states, bits = _run(_nu_step(g_and_gp), (x0, lo, hi, g(lo), g(hi)), LOGISTIC_STEPS)
+    # the step is the plain version's, bitwise
+    assert torch.equal(_bits(states[-1][0]), _bits(ew.prox_sum_logistic_reference(v, lam)))
+    return bits
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sum_logistic_newton_exit_is_exact(dtype):
+    """K6's loop (one thread an element) on v in +-60 with lam over
+    1e-6..1e6, one an element and one decade a row: the state repeats
+    within the 40 steps on most elements (x settles between two
+    neighbouring floats and the Illinois halving undoes itself) or runs to
+    the count, and at a repeat the exit's state is the full count's
+    bitwise.  Special values (NaN, +-inf, 0, -0, lam <= 0) too.  In f32
+    about half the elements repeat; in f64 few do (6 % here: the iterate
+    rarely settles within 40 steps), and the rest run the count."""
+    rng = np.random.RandomState(12)
+    v = np.concatenate([rng.uniform(-60.0, 60.0, 3000), rng.uniform(-60.0, 60.0, 13 * 200)])
+    lam = np.concatenate([10.0 ** rng.uniform(-6.0, 6.0, 3000),
+                          np.repeat(10.0 ** np.arange(-6.0, 7.0), 200)])
+    vs = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, 1.0, -7.5]
+    lams = [np.nan, np.inf, 0.0, -0.0, -1.0, 1e-30, 1.0, 1e30]
+    sv, sl = (a.ravel() for a in np.meshgrid(np.array(vs), np.array(lams), indexing="ij"))
+    v, lam = (torch.as_tensor(np.concatenate(a), dtype=dtype) for a in ((v, sv), (lam, sl)))
+    share, _, periods = _exit_is_exact(_logistic_loop(v, lam))
+    assert share > (0.3 if dtype == torch.float32 else 0.03) and periods <= {1, 2, 3, 4}
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.lists(st.tuples(st.floats(-80.0, 80.0, allow_nan=False),
+                          st.floats(-6.0, 6.0, allow_nan=False)), min_size=1, max_size=64),
+       st.sampled_from(DTYPES))
+def test_sum_logistic_newton_exit_is_exact_hypothesis(pairs, dtype):
+    v = torch.tensor([a for a, _ in pairs], dtype=dtype)
+    lam = torch.tensor([10.0 ** b for _, b in pairs], dtype=dtype)
+    _exit_is_exact(_logistic_loop(v, lam))
 
 
 # -- registry._epi_sum_square_reference (K4): widening (hi), then Newton -----

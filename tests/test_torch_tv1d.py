@@ -318,3 +318,28 @@ def test_pdas_takes_lam_as_a_tensor():
     assert ia == ib and torch.equal(xa, xb) and torch.equal(za, zb)
     xw, _, _, _ = ttv.prox_tv1d_pdas(v, lam / 2, z0=za, return_dual=True)
     np.testing.assert_allclose(xw.numpy(), ttv.tv1d_exact_numpy(v.numpy(), 0.85), atol=ORACLE_ATOL)
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+@pytest.mark.parametrize("n,lam", [(2, 0.3), (3, 0.4), (1025, 1.0), (4097, 2.0)])
+def test_pdas_reference_matches_jax_at_the_inner_tolerance(n, lam, start):
+    """The plain PDAS (``prox_tv1d_pdas_reference``, which the CUDA kernel
+    K7 is held to on the card) against the JAX package at an inner
+    tolerance the solver sets: the same rounds, x and the dual within
+    RTOL/ATOL; warm from the JAX package's own dual of a nearby signal, lam a
+    0-d tensor."""
+    v = _signal(n, 11 * n)
+    z0 = None
+    if start == "warm":
+        _, _, _, zj0 = jtv.prox_tv1d_pdas(jnp.asarray(v), lam, return_dual=True)
+        v = v + 0.01 * np.random.RandomState(n).randn(n)
+        z0 = np.array(zj0)
+    xt, _, it_t, zt = ttv.prox_tv1d_pdas_reference(
+        torch.as_tensor(v), torch.tensor(lam, dtype=torch.float64), tol=1e-6,
+        z0=None if z0 is None else torch.as_tensor(z0), return_dual=True)
+    xj, _, it_j, zj = jtv.prox_tv1d_pdas(jnp.asarray(v), lam, tol=1e-6,
+                                         z0=None if z0 is None else jnp.asarray(z0),
+                                         return_dual=True)
+    assert isinstance(it_t, int) and it_t == int(it_j)
+    _close(xt, xj)
+    _close(zt, zj)

@@ -39,7 +39,8 @@ caller holds the results to its references.
 (f) One consensus family per operator kind stacked since (``FAMILIES``,
     ``tests/torch_mesh_cases.make_family_problem`` at the sizes of
     ``FULL["kinds"]``), 8 scenarios, at most ``FULL["kind_iters"]``
-    iterations each.
+    iterations each; each family's record holds the launches of the hand
+    loop kernels K6 and K7 during its solve (the TV family runs K7).
 (g) (e)'s problem stopped after ``CKPT_EPOCHS`` epochs under
     ``drive="host"`` with a checkpointer in ``<out_dir>/ckpt``, and resumed
     by a new solver on the same ranks; the ``resume`` form resumes the same
@@ -450,6 +451,13 @@ def part_e(ep, group, sizes, device_type, out, arrays):
     out["_e_problem"] = (prob, z, xs, solver.problem)
 
 
+def loop_kernel_launches():
+    """The launch counts of the hand loop kernels K6 (``sum_logistic``) and
+    K7 (``tv1d_pdas``) in this process."""
+    from epsilon_tpu_torch.ops.kernels import sum_logistic, tv1d_pdas
+    return {"sum_logistic_prox": sum_logistic.launches, "tv1d_pdas": tv1d_pdas.launches}
+
+
 def part_f(ep, group, sizes, device_type, out, arrays):
     from epsilon_tpu_torch.solvers import ProxADMMTwoBlockSolver, SolverParams
     world = dist.get_world_size(group)
@@ -459,9 +467,11 @@ def part_f(ep, group, sizes, device_type, out, arrays):
         t0 = time.perf_counter()
         solver = ProxADMMTwoBlockSolver(prob, SolverParams(
             mesh=group, max_iterations=sizes["kind_iters"][family], **KINDS))
+        before = loop_kernel_launches()
         x = solver.solve()
         _sync()
         wall = time.perf_counter() - t0
+        launched = {k: n - before[k] for k, n in loop_kernel_launches().items()}
         assert [g_.S for g_ in solver.scn_groups] == [sizes["kind_S"]], \
             f"(f) {family}: groups {[g_.S for g_ in solver.scn_groups]}"
         g = solver.scn_groups[0]
@@ -472,7 +482,7 @@ def part_f(ep, group, sizes, device_type, out, arrays):
             ms_per_iter=solver.status.timing.solve_usec / 1e3 / solver.status.num_iterations,
             d=g.d, rows=len(g.rows), mode=[str(v) for v in g.signature[:2]],
             state_rows=None if st is None else int(st.shape[0]),
-            stacked_bytes=g.stacked_bytes(), world=world)
+            stacked_bytes=g.stacked_bytes(), world=world, launches=launched)
         arrays[f"f_{family}_x"] = flat_x(x)
 
 

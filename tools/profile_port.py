@@ -55,6 +55,18 @@ several rounds): cold solves at the harness's rel_tol (at most
 (median and min-max).  Both sides compute the same bits, so they take the
 same iterations; the launch counters say which kernels ran.
 
+    python3 -m tools.profile_port --plain-ab logreg_l1,tv_1d@n_block,family:tv
+
+solves library rows (``row``, or ``row@set`` under a parameter set of
+``tests/data/library_reference.json``) at their reference sizes, or phase 9
+(f)'s family of a kind in one process (``family:tv``), with the hand
+kernels K6 (SUM_LOGISTIC prox) and K7 (TV-1D PDAS) and with their plain
+versions put in their place in the dispatch, in turns in this one process
+(kernel, plain, plain, kernel): ms and device operations an iteration of
+each side (the cold solve at the harness's rel_tol; the operations from a
+profiled warm re-solve of 10 iterations, a family's from a profiled solve),
+iterations and objectives, and the kernels' launches.
+
     python3 -m tools.profile_port --k1-tune
 
 times K1's ring path at other sizes (rows per item, lanes per row, slabs,
@@ -423,6 +435,118 @@ def exit_ab(rows, rounds=EXIT_AB_ROUNDS):
         torch.cuda.empty_cache()
 
 
+PLAIN_AB_ROUNDS = 1
+PLAIN_AB_PROFILE_ITERS = 10
+
+
+@contextlib.contextmanager
+def plain_entries():
+    """The dispatch of ``ops/prox`` sends K6's and K7's calls to their
+    plain versions while the context is open (``sum_logistic.prox`` to
+    ``prox_sum_logistic_reference``, ``tv1d_pdas.pdas`` to
+    ``prox_tv1d_pdas_reference``): the port as it ran before them."""
+    from epsilon_tpu_torch.ops.kernels import sum_logistic, tv1d_pdas
+    from epsilon_tpu_torch.ops.prox import elementwise, tv1d
+
+    def pdas_plain(v, lam, tol, max_iters=40, z0=None):
+        x, gap, it, z = tv1d.prox_tv1d_pdas_reference(v, lam, tol=tol, max_iters=max_iters,
+                                                      z0=z0, return_dual=True)
+        return x, z, gap, it
+
+    swaps = [(sum_logistic, "prox", elementwise.prox_sum_logistic_reference),
+             (tv1d_pdas, "pdas", pdas_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for (mod, name, _), entry in zip(swaps, saved):
+            setattr(mod, name, entry)
+
+
+def _family_solve(family):
+    """Phase 9 (f)'s family ``family`` in this one process (the solve that
+    ``chip_smoke.mesh_kind_references`` holds the ranks to): its cold solve
+    at the family's cap, then device operations an iteration of a profiled
+    solve of the same count."""
+    from torch.autograd import DeviceType
+    from tools import mesh_worker as mw
+    from epsilon_tpu_torch.solvers import ProxADMMTwoBlockSolver, SolverParams
+
+    def solver():
+        return ProxADMMTwoBlockSolver(mw.kind_problem(family, mw.FULL), SolverParams(
+            max_iterations=mw.FULL["kind_iters"][family], **mw.KINDS))
+    s = solver()
+    s.solve()
+    torch.cuda.synchronize()
+    st = s.status
+    row = dict(iterations=st.num_iterations, status=st.state.value,
+               ms_per_iter=st.timing.solve_usec / 1e3 / st.num_iterations)
+    s = solver()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s.solve()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    row["device_ops_per_iter"] = n / s.status.num_iterations
+    return row
+
+
+def plain_ab(specs, rounds=PLAIN_AB_ROUNDS):
+    """K6 and K7 against their plain versions end to end, in turns in this
+    process (kernel, plain, plain, kernel): each spec a library row at its
+    reference size (``row``, or ``row@set`` under a parameter set of
+    ``library_reference.json``), solved cold at the harness's rel_tol and
+    the reference's iteration cap with a profiled warm re-solve of
+    ``PLAIN_AB_PROFILE_ITERS`` iterations, or ``family:<kind>``, phase 9
+    (f)'s family in one process.  Prints ms and device operations an
+    iteration of both sides, iterations and objectives, and the launches."""
+    import json
+    from chip_smoke import LIBRARY_REL_TOL, REFERENCE_JSON, row_launches
+    from epsilon_tpu_torch.problems import benchmark
+    refs = json.loads(REFERENCE_JSON.read_text())
+    sides = {"kernel": contextlib.nullcontext, "plain": plain_entries}
+    for spec in specs:
+        if spec.startswith("family:"):
+            name, params = spec, None
+            run = lambda: _family_solve(spec.split(":", 1)[1])
+        else:
+            name, _, pset = spec.partition("@")
+            ref_set = refs[pset] if pset else refs
+            inst = next(p for p in benchmark.PROBLEMS_REFERENCE() if p.name == name)
+            params = ref_set.get("params", {}) if pset else {}
+            cap = ref_set["rows"][name]["max_iterations"]
+            run = lambda: benchmark.benchmark_epsilon(
+                inst, rel_tol=LIBRARY_REL_TOL, max_iterations=cap,
+                profile_iters=PLAIN_AB_PROFILE_ITERS, **params)
+        readings = {s: [] for s in sides}
+        launched = dict.fromkeys(sides, 0)
+        for _ in range(rounds):
+            for side in list(sides) + list(sides)[::-1]:
+                before = sum(row_launches().values())
+                with sides[side]():
+                    row = run()
+                launched[side] += sum(row_launches().values()) - before
+                readings[side].append(row)
+        if launched["plain"] != 0 or launched["kernel"] == 0:
+            raise AssertionError(f"{spec}: kernel launches {launched}")
+        parts = []
+        for side, rows in readings.items():
+            ms = [r["ms_per_iter"] for r in rows]
+            ops = [r["device_ops_per_iter"] for r in rows]
+            parts.append(f"{side} {statistics.median(ms):.4f} ms/iter ({min(ms):.4f}-"
+                         f"{max(ms):.4f}), {statistics.median(ops):.1f} device operations/iter, "
+                         f"iterations {sorted({r['iterations'] for r in rows})}"
+                         + (f", objective {rows[0]['objective']!r}" if "objective" in rows[0]
+                            else ""))
+        ratio = (statistics.median(r["ms_per_iter"] for r in readings["kernel"])
+                 / statistics.median(r["ms_per_iter"] for r in readings["plain"]))
+        print(f"[plain-ab] {spec} in turns ({rounds} round(s) of kernel, plain, plain, "
+              f"kernel): " + "; ".join(parts) + f"; ms ratio {ratio:.4f}; hand loop kernel "
+              f"launches {launched}", flush=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device available", file=sys.stderr)
@@ -445,6 +569,9 @@ def main():
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--exit-ab":
         exit_ab(sys.argv[2].split(","))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--plain-ab":
+        plain_ab(sys.argv[2].split(","))
         return 0
     if sys.argv[1:] == ["--k1"]:
         lu.build()
