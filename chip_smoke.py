@@ -72,15 +72,19 @@ Phases, in order; any failure exits non-zero:
    against its full-count build (special values too) and against its
    plain version at ``ROW_RTOL``, timed (kernel and full count in turns,
    plain, the launch floor, the chain bound of the steps taken).  And K7
-   ``tv1d_pdas`` (the whole TV-1D PDAS in one cooperative launch): its PCR
-   solve bitwise against the plain ``pcr_tridiag_solve`` on the card; the
-   PDAS against the plain version and the exact oracle within ``K7_RTOL``,
-   bitwise repeatable, cold and warm, lam a number and a 0-d tensor, with
-   the plain version's rounds at the inner tolerances (within one at the
-   default); at tv_1d's and fused_lasso's lengths in f32, cold and warm at
-   the main path's inner tolerance, timed against the plain version in
-   turns beside an empty cooperative kernel with the same grid syncs at the
-   same grid (the bound: syncs x their cost).
+   ``tv1d_pdas`` (the whole TV-1D PDAS in one cooperative launch, its first
+   PCR levels in shared memory): its PCR solve bitwise against the plain
+   ``pcr_tridiag_solve`` on the card, at the tile's edges too; the PDAS
+   bitwise against the levels build it replaced (``pdas_levels``: x, z,
+   gap, rounds), against the plain version and the exact oracle within
+   ``K7_RTOL``, bitwise repeatable, cold and warm, lam a number and a 0-d
+   tensor, with the plain version's rounds at the inner tolerances (within
+   one at the default), each build's grid syncs counted on the device
+   equal to its formula's for its rounds; at tv_1d's and fused_lasso's lengths in f32, cold
+   and warm at the main path's inner tolerance, the tile build, the levels
+   build and the plain version timed in turns, each build beside an empty
+   cooperative kernel with its grid syncs at its grid (its floor: syncs x
+   their cost).
 7. The problem library: every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes (full width), through ``problems.benchmark``
    (``Problem.solve``) in f32 at the harness's parameters, the rows of
@@ -169,7 +173,8 @@ spread; 565 s since K6 and K7 carry the logistic and TV rows), of which
 the build takes about 10 s (``lse_rows.cu``'s 20
 kernels: prox and epigraph per dtype, row in registers or not, with and
 without the exit, and the half-warp prox per dtype with and without it),
-phase 7a about 55 s (K6 and K7 about 10 s of it),
+phase 7a about 65 s (K6 and K7 about 25 s of it; K7's tile build held
+bitwise to its levels build at 15 lengths),
 phase 7 about 270-380 s (``max_gaussian``'s 50,000 iterations,
 215-250 s in the second process; beside it the other rows' host-side build and
 set-up at reference size and ``infinite_push``'s 19,860 iterations) and
@@ -194,9 +199,12 @@ it: (200, 200) on the ring path with phase 6's launches, and (50, 200) on
 the streaming path with rank 0's launches in phase 9 (d).  The records of
 K2-K7 also carry ``launches_7c``: their launches in phase 7c, per set; K7's
 ``launches_9f``, rank 0's in phase 9 (f)'s TV family, and its timings at
-both main lengths, cold and warm.  K6's and K7's ``bound_ms`` is the
-chain: K6's Newton steps on its longest element, K7's grid syncs times
-their measured cost at its grid.
+both main lengths, cold and warm.  K6's ``bound_ms`` is the chain of its
+Newton steps on its longest element; K7's is the bound of its work, bytes
+or operations, with its grid-sync floor beside it (``floor_ms``: its
+syncs, counted on the device (``tv1d_pdas.sync_counter``) and checked
+against ``tv1d_pdas.syncs_per_round``, times their measured cost at its
+grid) and the levels build's time (``levels_ms``).
 
 Prints a ``{"kernels": [...]}`` line, then a last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -370,9 +378,15 @@ K7_ROUND_SLACK = 1
 # of z evaluated in f64 (at a loose inner tolerance the PDAS stops that far
 # from x*).
 K7_RTOL = {torch.float32: 1e-4, torch.float64: 1e-9}
+# Rows of the PCR and lengths n = m + 1 of the PDAS at the tile build's
+# edges at its main-path tile (T = 511 rows, K = 8 levels, halo H = 255):
+# 2^K - 1, 2^K (the largest whole-row window) and 2^K + 1, T - 1, T, T + 1,
+# T + H.
+K7_TILE_ROWS = (255, 256, 257, 510, 511, 512, 766)
 # The plain PDAS at n = 100,000 takes about 160 ms a call on an H100: its
-# readings in turns are of K7_PLAIN_REPS calls.
-K7_AB_ROUNDS, K7_PLAIN_REPS = 3, 3
+# readings in turns are of K7_PLAIN_REPS calls, the builds' of
+# K7_KERNEL_REPS.
+K7_AB_ROUNDS, K7_PLAIN_REPS, K7_KERNEL_REPS = 3, 3, 20
 # Floating-point operations of one element a PDAS round (g, the system and
 # the active set about 16; a PCR step 12; the six trials 6 x 14; the step
 # and the gap 20), for the operations bound.
@@ -1381,7 +1395,7 @@ def phase_row_kernels(card):
     loops = loop_kernels()
     records["sum_logistic_prox"] = phase_sum_logistic(loops["sum_logistic_prox"], card,
                                                       floor_ms, clock_hz)
-    records["tv1d_pdas"] = phase_tv1d(loops["tv1d_pdas"], card, clock_hz)
+    records["tv1d_pdas"] = phase_tv1d(loops["tv1d_pdas"], card)
     return records
 
 
@@ -1565,19 +1579,52 @@ def grid_sync_ms(t, blocks, threads, syncs):
                                           (blocks, threads, syncs), t))
 
 
-def pdas_case(tv1d, v, lam, tol, z0, exact, label):
-    """K7 against the plain PDAS on the card and the exact oracle's x
-    (``exact``, numpy), and bitwise repeatable; returns the kernel's ``(x,
-    z, gap, rounds)``, the plain version's rounds and the errors (x and z
-    to the plain version's and x to the oracle's, relative; whether x and
-    z are the plain version's bits)."""
-    x, gap, it, z = tv1d.prox_tv1d_pdas(v, lam, tol=tol, z0=z0, return_dual=True)
+def counted_syncs(k7, v, call):
+    """``call()``'s result and the grid syncs K7 counted on v's device
+    while it ran (``tv1d_pdas.sync_counter``)."""
+    counter = k7.sync_counter(v.device)
+    counter.zero_()
+    out = call()
+    return out, int(counter)
+
+
+def check_syncs(k7, v, rounds, syncs, levels_rounds, levels_syncs, label):
+    """Each build's counted grid syncs against its formula for its rounds
+    (the tile build's plan at v's length and grid)."""
+    n = v.shape[0]
+    plan = k7.tile_plan(n - 1, k7.grid("pdas", n, v), v.element_size())
+    want = k7.grid_syncs(rounds, k7.syncs_per_round(plan))
+    want_levels = k7.grid_syncs(levels_rounds, k7.levels_syncs_per_round(plan.steps))
+    if (syncs, levels_syncs) != (want, want_levels):
+        raise AssertionError(f"tv1d_pdas {label}: grid syncs counted {syncs} (levels build "
+                             f"{levels_syncs}), the formulas {want} ({want_levels})")
+    return plan
+
+
+def pdas_case(tv1d, k7, v, lam, tol, z0, exact, label):
+    """K7 against the levels build it replaced (``tv1d_pdas.pdas_levels``:
+    the same x, z, gap and rounds, bitwise), the plain PDAS on the card and
+    the exact oracle's x (``exact``, numpy), and bitwise repeatable; each
+    build's grid syncs counted on the device against its formula
+    (``check_syncs``); returns the kernel's ``(x, z, gap, rounds)``, the
+    plain version's rounds and the errors (x and z to the plain version's
+    and x to the oracle's, relative; whether x and z are the plain
+    version's bits)."""
+    (x, gap, it, z), syncs = counted_syncs(
+        k7, v, lambda: tv1d.prox_tv1d_pdas(v, lam, tol=tol, z0=z0, return_dual=True))
     x2, gap2, it2, z2 = tv1d.prox_tv1d_pdas(v, lam, tol=tol, z0=z0, return_dual=True)
+    (xl, zl, gapl, itl), levels_syncs = counted_syncs(k7, v, lambda: k7.pdas_levels(
+        v, lam, tv1d.pdas_default_tol(v.dtype) if tol is None else tol, z0=z0))
     xr, _, itr, zr = tv1d.prox_tv1d_pdas_reference(v, lam, tol=tol, z0=z0, return_dual=True)
     torch.cuda.synchronize()
     if not (same_bits(x, x2) and same_bits(z, z2) and same_bits(gap, gap2)
             and int(it) == int(it2)):
         raise AssertionError(f"tv1d_pdas {label}: two runs differ")
+    check_syncs(k7, v, int(it), syncs, int(itl), levels_syncs, label)
+    if not (same_bits(x, xl) and same_bits(z, zl) and same_bits(gap, gapl)
+            and int(it) == int(itl)):
+        raise AssertionError(f"tv1d_pdas {label}: differs from the levels build ({int(it)} "
+                             f"rounds, the levels build {int(itl)})")
     lam_f = float(lam)
     scale = max(1.0, float(v.abs().max()))
     err_plain = float((x - xr).abs().max()) / scale
@@ -1609,24 +1656,28 @@ def pcr_systems(m, dtype, dev, seed):
     return {"random": rand, "pdas": pdas}
 
 
-def phase_tv1d(k, card, clock_hz):
-    """Phase 7a's K7: one PCR solve (``tv1d_pdas.pcr``, the kernel's PCR
-    code) bitwise against the plain ``pcr_tridiag_solve`` on the card; the
-    PDAS against the plain version and the exact oracle (``pdas_case``) at
-    K7_LENGTHS and the main path's lengths, f32 and f64, cold and warm, lam
-    a number and a 0-d tensor, at the default tolerance (rounds within
-    K7_ROUND_SLACK) and at K7_INNER_TOLS (the same rounds); then at each
-    main length in f32, cold and warm at the main path's inner tolerance,
-    timed against the plain version in turns, beside the grid-sync floor at
-    the kernel's grid and the bound.  Returns the ``kernels`` record (at
-    tv_1d's length, warm: the main path's call) and the other timings."""
+def phase_tv1d(k, card):
+    """Phase 7a's K7: one PCR solve (``tv1d_pdas.pcr``, the tile build's
+    PCR code) bitwise against the plain ``pcr_tridiag_solve`` on the card,
+    at K7's lengths and at its tile's edges; the PDAS against the levels
+    build bitwise, the plain version and the exact oracle (``pdas_case``)
+    at K7_LENGTHS, K7_TILE_ROWS and the main path's lengths, f32 and f64,
+    cold and warm, lam a number and a 0-d tensor, at the default tolerance
+    (rounds within K7_ROUND_SLACK of the plain version's) and at
+    K7_INNER_TOLS (the same rounds); then at each main length in f32, cold
+    and warm at the main path's inner tolerance, the tile build, the levels
+    build and the plain version timed in turns, beside each build's
+    grid-sync floor at its grid (its syncs as counted on the device, which
+    equal ``tv1d_pdas``'s formulas) and the bound of the work.  Returns the ``kernels`` record (at tv_1d's
+    length, warm: the main path's call) and the other timings."""
     from epsilon_tpu_torch.ops.kernels import tv1d_pdas as k7
     from epsilon_tpu_torch.ops.prox import tv1d
     dev = torch.device("cuda")
     main_lengths = k["main"]
+    lengths = tuple(sorted(set(K7_LENGTHS) | {m + 1 for m in K7_TILE_ROWS})) + main_lengths
     for dtype in (torch.float32, torch.float64):
         checked = []
-        for m in sorted({n - 1 for n in K7_LENGTHS + main_lengths} | {1}):
+        for m in sorted({n - 1 for n in lengths} | {1}):
             for name, system in pcr_systems(m, dtype, dev, m).items():
                 got, want = k7.pcr(*system), tv1d.pcr_tridiag_solve(*system)
                 torch.cuda.synchronize()
@@ -1637,11 +1688,11 @@ def phase_tv1d(k, card, clock_hz):
         log(f"[7a] tv1d_pcr {str(dtype)[6:]}: bitwise equal to the plain pcr_tridiag_solve on "
             f"the card, a random and a PDAS system at m = {', '.join(checked)}")
         parts, bitwise = [], 0
-        for n in K7_LENGTHS + main_lengths:
+        for n in lengths:
             v = torch.as_tensor(tv_signal(n, n), dtype=dtype, device=dev)
             lam = 0.5 * np.sqrt(n) if n > 3 else 0.3
             exact = tv1d.tv1d_exact_numpy(v.double().cpu().numpy(), lam)
-            cold, _, _ = pdas_case(tv1d, v, lam, None, None, exact, f"n={n} {dtype} cold")
+            cold, _, _ = pdas_case(tv1d, k7, v, lam, None, None, exact, f"n={n} {dtype} cold")
             v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(n + 1).randn(n),
                                             dtype=dtype, device=dev)
             exact = tv1d.tv1d_exact_numpy(v2.double().cpu().numpy(), lam)
@@ -1650,7 +1701,7 @@ def phase_tv1d(k, card, clock_hz):
                                         (torch.tensor(lam, dtype=dtype, device=dev), cold[1],
                                          "warm, lam 0-d")):
                     label = f"n={n} {dtype} tol {tol} {kind}"
-                    (_, _, _, it), itr, errs = pdas_case(tv1d, v2, lam_t, tol, z0, exact,
+                    (_, _, _, it), itr, errs = pdas_case(tv1d, k7, v2, lam_t, tol, z0, exact,
                                                          label)
                     slack = K7_ROUND_SLACK if tol is None else 0
                     if abs(it - itr) > slack:
@@ -1660,10 +1711,12 @@ def phase_tv1d(k, card, clock_hz):
                     if n in main_lengths or n == K7_LENGTHS[-1]:
                         parts.append(f"n={n} tol {tol} {kind}: {it} rounds (plain {itr}), "
                                      f"errors {errs[0]:.1e} / {errs[2]:.1e}")
-        cases = len(K7_LENGTHS + main_lengths) * (1 + len(K7_INNER_TOLS[dtype])) * 3
+        cases = len(lengths) * (1 + len(K7_INNER_TOLS[dtype])) * 3
         log(f"[7a] tv1d_pdas {str(dtype)[6:]}: {cases} cases at n = "
-            f"{', '.join(map(str, K7_LENGTHS + main_lengths))} (cold, warm, lam a 0-d tensor; "
-            f"default tolerance and {K7_INNER_TOLS[dtype]}) within {K7_RTOL[dtype]:g} of the "
+            f"{', '.join(map(str, lengths))} (cold, warm, lam a 0-d tensor; "
+            f"default tolerance and {K7_INNER_TOLS[dtype]}): x, z, gap and rounds bitwise equal "
+            f"to the levels build's, each build's grid syncs counted on the device equal to "
+            f"its formula's; within {K7_RTOL[dtype]:g} of the "
             f"plain PDAS (x and z) and of the exact oracle (plus the gap's certificate), "
             f"bitwise repeatable, the same rounds "
             f"at the inner tolerances; x and z bitwise equal to the plain version's in "
@@ -1679,59 +1732,74 @@ def phase_tv1d(k, card, clock_hz):
         _, _, _, z_cold = tv1d.prox_tv1d_pdas(v, lam, tol=inner_tol, return_dual=True)
         v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(2).randn(n), dtype=torch.float32,
                                         device=dev)
+        m = n - 1
         blocks = k7.grid("pdas", n, v)
-        steps = k7.pcr_steps(n - 1)
+        plan = k7.tile_plan(m, blocks, v.element_size())
         for kind, z0 in (("cold", None), ("warm", z_cold)):
-            kernel = lambda: tv1d.prox_tv1d_pdas(v2, lam, tol=inner_tol, z0=z0)
-            plain = lambda: tv1d.prox_tv1d_pdas_reference(v2, lam, tol=inner_tol, z0=z0)
-            x_k, _, rounds = kernel()
-            x_p, _, plain_rounds = plain()
+            sides = {"tiles": lambda: tv1d.prox_tv1d_pdas(v2, lam, tol=inner_tol, z0=z0),
+                     "levels": lambda: k7.pdas_levels(v2, lam, inner_tol, z0=z0),
+                     "plain": lambda: tv1d.prox_tv1d_pdas_reference(v2, lam, tol=inner_tol,
+                                                                    z0=z0)}
+            (x_k, _, rounds), syncs = counted_syncs(k7, v2, sides["tiles"])
+            (_, _, _, levels_rounds), levels_syncs = counted_syncs(k7, v2, sides["levels"])
+            x_p, _, plain_rounds = sides["plain"]()
             rounds, err = int(rounds), float((x_k - x_p).abs().max())
-            ms = device_ms(kernel)
-            plain_ms = device_ms(plain, reps=K7_PLAIN_REPS, warmup=1)
-            readings = {"kernel": [], "plain": []}
+            check_syncs(k7, v2, rounds, syncs, int(levels_rounds), levels_syncs,
+                        f"n={n} f32 {kind}")
+            ms = device_ms(sides["tiles"])
+            levels_ms = device_ms(sides["levels"])
+            plain_ms = device_ms(sides["plain"], reps=K7_PLAIN_REPS, warmup=1)
+            readings = {side: [] for side in sides}
             for _ in range(K7_AB_ROUNDS):
-                for side in ("kernel", "plain", "plain", "kernel"):
-                    fn = kernel if side == "kernel" else plain
-                    readings[side].append(device_ms(fn, reps=K7_PLAIN_REPS, warmup=1))
+                for side in list(sides) + list(sides)[::-1]:
+                    reps = K7_PLAIN_REPS if side == "plain" else K7_KERNEL_REPS
+                    readings[side].append(device_ms(sides[side], reps=reps, warmup=1))
             ab = {s: (statistics.median(r), min(r), max(r)) for s, r in readings.items()}
-            syncs = rounds * (steps + 3) + 2
             sync0 = grid_sync_ms(v, blocks, threads, 0)
-            sync_ms = grid_sync_ms(v, blocks, threads, syncs)
-            per_sync = (sync_ms - sync0) / syncs
-            chain_ms = sync_ms
-            m = n - 1
+            floor_ms = grid_sync_ms(v, blocks, threads, syncs)
+            levels_floor_ms = grid_sync_ms(v, blocks, threads, levels_syncs)
+            per_sync = (levels_floor_ms - sync0) / levels_syncs
             n_bytes = v.element_size() * (2 * n + 2 * m + (m if z0 is not None else 0))
-            flops = rounds * m * (K7_FLOPS_ROUND + K7_FLOPS_PCR_STEP * steps)
+            flops = rounds * m * (K7_FLOPS_ROUND + K7_FLOPS_PCR_STEP * plan.steps)
             bound_ms, bound_by = bound(n_bytes, flops)
-            if chain_ms > bound_ms:
-                bound_ms, bound_by = chain_ms, "operations"
-            (med, lo, hi), (p_med, p_lo, p_hi) = ab["kernel"], ab["plain"]
+            (med, lo, hi), (l_med, l_lo, l_hi), (p_med, p_lo, p_hi) = (
+                ab["tiles"], ab["levels"], ab["plain"])
             log(f"[7a] tv1d_pdas n={n} f32 {kind} (tol {inner_tol:g}, lam {lam:.4g}): {rounds} "
-                f"rounds (plain {plain_rounds}), max|x - x_plain| {err:.3e}; kernel {ms:.4f} ms "
-                f"(device time, median of 50), "
-                f"plain {plain_ms:.4f} ms (median of {K7_PLAIN_REPS}); in turns ({K7_AB_ROUNDS} "
-                f"rounds of kernel, plain, plain, kernel; {K7_PLAIN_REPS} calls a reading): "
-                f"kernel {med:.4f} ({lo:.4f}-{hi:.4f}), plain {p_med:.4f} ({p_lo:.4f}-{p_hi:.4f}), "
-                f"ratio {med / p_med:.4f}; grid {blocks} x {threads}, {steps} PCR steps, "
-                f"{syncs} grid syncs: an empty cooperative kernel with as many syncs at the same "
-                f"grid {sync_ms:.4f} ms ({per_sync * 1e3:.3f} us a sync, none {sync0:.4f} ms); "
-                f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {flops:.3g} "
-                f"operations, the syncs' chain {chain_ms:.4f} ms); kernel at "
-                f"{bound_ms / ms:.2f} of it; no PyTorch call computes this function (no "
-                f"tridiagonal solve in torch.linalg; a dense solve at n = {n} would take "
-                f"{4 * n * n / 1e9:.1f} GB); {card}")
+                f"rounds (plain {plain_rounds}), max|x - x_plain| {err:.3e}; tile build "
+                f"{ms:.4f} ms, levels build {levels_ms:.4f} ms (device time, medians of 50), "
+                f"plain {plain_ms:.4f} ms (median of {K7_PLAIN_REPS}); in turns "
+                f"({K7_AB_ROUNDS} rounds of tiles, levels, plain, plain, levels, tiles; "
+                f"{K7_KERNEL_REPS} calls a kernel's reading, {K7_PLAIN_REPS} a plain one's): "
+                f"tiles {med:.4f} ({lo:.4f}-{hi:.4f}), levels {l_med:.4f} ({l_lo:.4f}-"
+                f"{l_hi:.4f}), plain {p_med:.4f} ({p_lo:.4f}-{p_hi:.4f}), tiles / levels "
+                f"{med / l_med:.4f}, tiles / plain {med / p_med:.4f}; grid {blocks} x {threads}, "
+                f"{plan.steps} PCR levels, K = {plan.levels} in shared memory (tiles of "
+                f"{plan.tile} rows{', the whole row' if plan.whole else ''}, "
+                f"{plan.smem(v.element_size())} bytes), grid syncs counted on the device "
+                f"{syncs} = 2 + {rounds} x {k7.syncs_per_round(plan)} (levels build "
+                f"{levels_syncs} = 2 + {rounds} x {k7.levels_syncs_per_round(plan.steps)}); "
+                f"an empty cooperative kernel with as "
+                f"many syncs at the same grid {floor_ms:.4f} ms (levels build's "
+                f"{levels_floor_ms:.4f}; {per_sync * 1e3:.3f} us a sync, none {sync0:.4f} ms); "
+                f"bound of the work {bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes, "
+                f"{flops:.3g} operations); tile build at {floor_ms / ms:.2f} of its sync floor; "
+                f"no PyTorch call computes this function (no tridiagonal solve in "
+                f"torch.linalg; a dense solve at n = {n} would take {4 * n * n / 1e9:.1f} GB); "
+                f"{card}")
             records[(n, kind)] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "max_abs_err": err, "rounds": rounds, "plain_rounds": plain_rounds,
-                "grid_syncs": syncs,
-                "sync_us": per_sync * 1e3, "sync_floor_ms": sync_ms, "launch_floor_ms": sync0,
-                "ab_ms": {"kernel": ab["kernel"], "plain": ab["plain"]}}
+                "ms": ms, "levels_ms": levels_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": err, "rounds": rounds,
+                "plain_rounds": plain_rounds, "tile_levels": plan.levels, "tile": plan.tile,
+                "grid_syncs": syncs, "levels_grid_syncs": levels_syncs,
+                "sync_us": per_sync * 1e3, "floor_ms": floor_ms,
+                "levels_floor_ms": levels_floor_ms, "launch_floor_ms": sync0,
+                "ab_ms": {side: ab[side] for side in sides}}
     main = records[(main_lengths[0], "warm")]
     record = {"name": "tv1d_pdas", "route": "cuda", "source": k["source"],
               "replaces": k["replaces"], "library_ms": None,
               **{key: main[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                            "bound_by")},
+                                            "bound_by", "levels_ms", "floor_ms",
+                                            "grid_syncs", "tile_levels")},
               "timings": {f"n={n} {kind}": r for (n, kind), r in records.items()}}
     return record
 

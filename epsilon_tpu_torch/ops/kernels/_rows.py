@@ -28,17 +28,19 @@ from . import _build
 FLAGS = ("--fmad=false", "--split-compile=0")
 
 
-def build(name: str):
-    """Compile ``csrc/<name>.cu`` (see :func:`._build.build`)."""
-    return _build.build(name, FLAGS)
+def build(name: str, extra=()):
+    """Compile ``csrc/<name>.cu`` with the ``extra`` nvcc flags (see
+    :func:`._build.build`)."""
+    return _build.build(name, FLAGS + tuple(extra))
 
 
-def load(name: str, entries):
-    """Load the library of ``csrc/<name>.cu`` and type its entry points:
-    ``entries`` maps each C function to its argument types, where the
-    string ``"scalar"`` stands for the entry's float type (``c_float`` for
-    a name ending in ``_f32``, else ``c_double``)."""
-    path, _, _ = build(name)
+def load(name: str, entries, extra=()):
+    """Load the library of ``csrc/<name>.cu`` (built with the ``extra``
+    nvcc flags) and type its entry points: ``entries`` maps each C
+    function to its argument types, where the string ``"scalar"`` stands
+    for the entry's float type (``c_float`` for a name ending in ``_f32``,
+    else ``c_double``)."""
+    path, _, _ = build(name, extra)
     lib = ctypes.CDLL(str(path))
     for fn_name, args in entries.items():
         scalar = ctypes.c_float if fn_name.endswith("_f32") else ctypes.c_double

@@ -8,29 +8,56 @@ one ``lax.while_loop``) into one device program.  The port's plain version
 (:func:`~epsilon_tpu_torch.ops.prox.tv1d.prox_tv1d_pdas_reference`) issues
 each round as eager operations and reads its stop test back to the host.
 
+The kernel (the tile build) runs a round's first PCR levels in shared
+memory, a tile of rows and its halo a block (:func:`tile_plan` picks the
+levels and the tile), and merges passes, so that a round needs
+``steps - K + 2`` grid syncs (:func:`syncs_per_round`).  The build it
+replaced, a grid sync after every level and every pass, stays as
+:func:`pdas_levels` (uncounted): the tile build is held to it bitwise.
+Both builds count the grid syncs they run on the device
+(:func:`sync_counter`).
+
 These are the kernel entries: they take CUDA tensors only and raise on any
 other device.  The dispatch (the plain version on a CPU tensor) is in
-``ops/prox/tv1d.py``.  :func:`pcr` runs one PCR solve alone, the same
-device code as the PDAS's (uncounted; it is checked bitwise against the
-plain ``pcr_tridiag_solve``).
+``ops/prox/tv1d.py``.  :func:`pcr` runs the tile build's PCR solve alone
+(uncounted; it is checked bitwise against the plain ``pcr_tridiag_solve``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from . import _rows
 
-__all__ = ["pdas", "pcr", "pcr_steps", "grid", "threads", "build", "launches"]
+__all__ = ["pdas", "pdas_levels", "pcr", "pcr_steps", "tile_plan", "TilePlan",
+           "syncs_per_round", "levels_syncs_per_round", "grid_syncs", "sync_counter", "grid",
+           "threads", "build", "launches"]
 
-# Kernel launches made by pdas (pcr's are not counted).
+# Launches of the tile build (pdas's; pdas_levels' and pcr's are not
+# counted).
 launches = 0
+
+# Dynamic shared memory a block of the tile build may take, in bytes
+# (``SMEM_BUDGET`` in the source): two blocks of 512 threads stay resident
+# on an SM, so the tile build runs the levels build's grid and sums in its
+# order.
+SMEM_BUDGET = 110_592
+# A tile level writes a row two passes of 512 rows after computing it, so
+# it may read 2^k <= 1024 rows back: at most 11 levels in shared memory.
+MAX_TILE_LEVELS = 11
+# The PCR levels a tile runs in shared memory, by element size: the fastest
+# of K = 6..11 at n = 10,000 and 100,000, cold and warm, on an H100
+# (``python3 -m tools.profile_port --k7-tiles``): K = 8 in f32 (K = 7 ties
+# it at 100,000 and is 1-2 % slower at 10,000), K = 7 in f64.
+TILE_LEVELS = {4: 8, 8: 7}
 
 _LIB = None
 _GRIDS = {}
+_SYNCS = {}
 
 
 def build():
@@ -38,24 +65,127 @@ def build():
     return _rows.build("tv1d_pdas")
 
 
+def entries():
+    """The C entries of ``csrc/tv1d_pdas.cu`` and their argument types
+    (``_rows.load``'s form)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    out = {"tv1d_pdas_threads": [], "tv1d_pdas_smem_budget": []}
+    for t in ("f32", "f64"):
+        out[f"tv1d_pdas_{t}"] = [P, P, P, "scalar", "scalar", I, I, I, I, I, I, P, P, P, P, P,
+                                 P, P, P, I, P]
+        out[f"tv1d_pdas_levels_{t}"] = [P, P, P, "scalar", "scalar", I, I, I, P, P, P, P, P, P,
+                                        P, P, I, P]
+        out[f"tv1d_pcr_{t}"] = [P, P, I, I, I, I, I, P, I, P]
+        for entry in ("pdas", "pcr", "pdas_levels"):
+            out[f"tv1d_{entry}_grid_{t}"] = [I]
+    return out
+
+
 def _library():
     global _LIB
     if _LIB is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        entries = {"tv1d_pdas_threads": []}
-        for t in ("f32", "f64"):
-            entries[f"tv1d_pdas_{t}"] = [P, P, P, "scalar", "scalar", I, I, I, P, P, P, P,
-                                         P, P, P, I, P]
-            entries[f"tv1d_pcr_{t}"] = [P, P, P, P, P, I, I, P, I, P]
-            entries[f"tv1d_pdas_grid_{t}"] = [I]
-            entries[f"tv1d_pcr_grid_{t}"] = [I]
-        _LIB = _rows.load("tv1d_pdas", entries)
+        _LIB = _rows.load("tv1d_pdas", entries())
     return _LIB
+
+
+def padded(m: int) -> int:
+    """The length of each scratch array of a row of m: m rounded up to 32
+    elements, so that every array starts on 128 bytes and a warp's 32 rows
+    take whole cache lines (``padded`` in the source)."""
+    return -(-m // 32) * 32
 
 
 def pcr_steps(m: int) -> int:
     """The PCR steps of a system of m rows (``pcr_tridiag_solve``'s count)."""
     return max(1, int(np.ceil(np.log2(max(m, 2)))))
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """The tile build's solve of m rows: ``levels`` PCR levels in shared
+    memory (K), in tiles of ``tile`` rows (T) with a halo of ``2^K - 1``
+    rows on each side, tile t taken by block t mod grid, or, when
+    ``whole``, every level over the whole row in every block; ``window``
+    rows of a, b, c and d in shared memory (rows past the row's ends hold
+    identity rows)."""
+    steps: int
+    levels: int
+    tile: int
+    whole: bool
+    window: int
+
+    def smem(self, itemsize: int) -> int:
+        """Bytes of dynamic shared memory a block."""
+        return 4 * itemsize * self.window
+
+
+def _window(m, levels, tile, whole):
+    # csrc/tv1d_pdas.cu window_slots: the tile and its halos, or the whole
+    # row and 2^(steps-1) rows past each end (levels = steps)
+    return m + (1 << levels) if whole else tile + 2 * ((1 << levels) - 1)
+
+
+def _largest_tile(levels, itemsize):
+    """The most rows a tile with ``levels`` levels may hold within
+    SMEM_BUDGET (below 1: none)."""
+    return SMEM_BUDGET // (4 * itemsize) - 2 * ((1 << levels) - 1)
+
+
+def tile_plan(m: int, grid: int, itemsize: int, levels: int | None = None) -> TilePlan:
+    """The rule of the tile build for a system of m rows on ``grid`` blocks
+    in elements of ``itemsize`` bytes: K = TILE_LEVELS[itemsize] levels (or
+    ``levels``, for a sweep); when K reaches the solve's steps, every block
+    solves the whole row (K = steps); otherwise tiles of T = ceil(m / grid)
+    rows, one a block, fewer rows (and some blocks two tiles or more) where
+    the window would not fit SMEM_BUDGET.  Raises for a ``levels`` outside
+    1..MAX_TILE_LEVELS or one whose halos do not fit."""
+    if m < 1 or grid < 1 or itemsize not in TILE_LEVELS:
+        raise ValueError(f"tile_plan: m {m}, grid {grid}, itemsize {itemsize}")
+    steps = pcr_steps(m)
+    k = TILE_LEVELS[itemsize] if levels is None else levels
+    if not 1 <= k <= MAX_TILE_LEVELS:
+        raise ValueError(f"tile_plan: levels {k} outside 1..{MAX_TILE_LEVELS}")
+    if k >= steps:
+        return TilePlan(steps, steps, m, True, _window(m, steps, m, True))
+    most = _largest_tile(k, itemsize)
+    if most < 1:
+        raise ValueError(f"tile_plan: {k} levels' halos exceed {SMEM_BUDGET} bytes of shared "
+                         f"memory in elements of {itemsize} bytes")
+    tile = min(-(-m // grid), most)
+    return TilePlan(steps, k, tile, False, _window(m, k, tile, False))
+
+
+def syncs_per_round(plan: TilePlan) -> int:
+    """Grid syncs a PDAS round of the tile build: one after the tile stage,
+    one after each level in device memory (K..steps-2), one after the
+    trials (the last level merged), one after the step (the next start
+    merged); 2 when the whole solve runs in shared memory."""
+    return 2 if plan.whole else plan.steps - plan.levels + 2
+
+
+def levels_syncs_per_round(steps: int) -> int:
+    """Grid syncs a PDAS round of the levels build: after the start, each
+    PCR level, the trials and the step."""
+    return steps + 3
+
+
+def grid_syncs(rounds: int, per_round: int) -> int:
+    """Grid syncs of a PDAS call of ``rounds`` rounds: the rounds' and two
+    more (after the opening sums and before the final gap's)."""
+    return 2 + rounds * per_round
+
+
+def sync_counter(device) -> torch.Tensor:
+    """The grid syncs that launches of :func:`pdas` and :func:`pdas_levels`
+    have run on the CUDA ``device``: one int64 there, to which each launch
+    adds the syncs its block 0 counted.  Zero it with ``.zero_()``; reading
+    it is a host sync."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _SYNCS:
+        _SYNCS[device] = torch.zeros((), dtype=torch.int64, device=device)
+    return _SYNCS[device]
 
 
 def threads() -> int:
@@ -64,9 +194,9 @@ def threads() -> int:
 
 
 def grid(entry: str, length: int, t: torch.Tensor) -> int:
-    """The blocks of a launch of ``entry`` (``"pdas"`` or ``"pcr"``) over
-    ``length`` elements of t's dtype on t's device: the blocks the card
-    keeps resident, or the row's, whichever is fewer."""
+    """The blocks of a launch of ``entry`` (``"pdas"``, ``"pdas_levels"``
+    or ``"pcr"``) over ``length`` elements of t's dtype on t's device: the
+    blocks the card keeps resident, or the row's, whichever is fewer."""
     key = (entry, length, t.dtype, t.device)
     if key not in _GRIDS:
         with torch.cuda.device(t.device):
@@ -87,7 +217,7 @@ def _vector(fname, name, a, n=None):
     if a.dim() != 1 or (n is not None and a.shape[0] != n):
         want = "a vector" if n is None else f"a vector of {n}"
         raise ValueError(f"{fname}: {name} {tuple(a.shape)} must be {want}")
-    if a.shape[0] >= 2 ** 31 - 1:
+    if a.shape[0] >= 2 ** 31 - 1024:
         raise ValueError(f"{fname}: {name} {tuple(a.shape)} is too large")
     return a.contiguous()
 
@@ -99,13 +229,22 @@ def pdas(v, lam, tol: float, max_iters: int = 40, z0=None):
     box) or from 0; ``lam`` a number or a one-element tensor (on v's device
     it is read there, never on the host).  Returns ``(x, z, gap, rounds)``,
     gap a 0-d tensor of v's dtype and rounds a 0-d int32 tensor, all on v's
-    device.  One launch."""
-    fname = "tv1d_pdas"
+    device.  One launch of the tile build."""
+    return _launch_pdas(_pdas_args("tv1d_pdas", v, lam, z0), tol, max_iters, "tiles")
+
+
+def pdas_levels(v, lam, tol: float, max_iters: int = 40, z0=None):
+    """:func:`pdas` by the levels build (a grid sync after every PCR level
+    and every pass), which the tile build replaced: the same bits
+    (uncounted)."""
+    return _launch_pdas(_pdas_args("tv1d_pdas_levels", v, lam, z0), tol, max_iters, "levels")
+
+
+def _pdas_args(fname, v, lam, z0):
     v = _vector(fname, "v", v)
     n = v.shape[0]
     if n < 2:
         raise ValueError(f"{fname}: v {tuple(v.shape)} needs at least two elements")
-    m = n - 1
     lam_ptr, lam_value, keep = None, 0.0, None
     if isinstance(lam, torch.Tensor):
         if lam.numel() != 1:
@@ -119,34 +258,51 @@ def pdas(v, lam, tol: float, max_iters: int = 40, z0=None):
             lam_ptr = keep.data_ptr()
     else:
         lam_value = float(lam)
-    z0_ptr = None
     if z0 is not None:
         if not isinstance(z0, torch.Tensor) or z0.device != v.device:
             raise ValueError(f"{fname}: z0 must be a tensor on {v.device}")
-        z0 = _vector(fname, "z0", z0.to(v.dtype), m)
-        z0_ptr = z0.data_ptr()
-    g = grid("pdas", n, v)
+        z0 = _vector(fname, "z0", z0.to(v.dtype), n - 1)
+    return fname, v, lam_ptr, lam_value, keep, z0
+
+
+def _launch_pdas(args, tol, max_iters, build_name, plan=None):
+    """One launch of the tile build (``"tiles"``; its plan from
+    :func:`tile_plan`, or ``plan`` for a sweep; counted in ``launches``)
+    or of the levels build (``"levels"``)."""
+    global launches
+    fname, v, lam_ptr, lam_value, _, z0 = args   # args holds lam's tensor through the launch
+    n = v.shape[0]
+    m, mp = n - 1, padded(n - 1)
+    entry = "pdas" if build_name == "tiles" else "pdas_levels"
+    g = grid(entry, n, v)
     x = torch.empty_like(v)
     z = torch.empty(m, dtype=v.dtype, device=v.device)
     gap = torch.empty((), dtype=v.dtype, device=v.device)
     rounds = torch.empty((), dtype=torch.int32, device=v.device)
-    scratch = torch.empty(12 * m + 16 * g, dtype=v.dtype, device=v.device)
+    scratch = torch.empty(12 * mp + 16 * g, dtype=v.dtype, device=v.device)
     act = torch.empty(m, dtype=torch.int8, device=v.device)
     flags = torch.empty(2 * g, dtype=torch.int32, device=v.device)
-    fn = getattr(_library(), f"tv1d_pdas_{_rows.suffix(v)}")
-    global launches
-    launches += 1
-    _rows.launch(fname, fn, (v.data_ptr(), z0_ptr, lam_ptr, lam_value, float(tol), n,
-                             int(max_iters), pcr_steps(m), x.data_ptr(), z.data_ptr(),
-                             gap.data_ptr(), rounds.data_ptr(), scratch.data_ptr(),
-                             act.data_ptr(), flags.data_ptr(), g), v)
+    head = (v.data_ptr(), None if z0 is None else z0.data_ptr(), lam_ptr, lam_value,
+            float(tol), n, int(max_iters), pcr_steps(m))
+    tail = (x.data_ptr(), z.data_ptr(), gap.data_ptr(), rounds.data_ptr(),
+            sync_counter(v.device).data_ptr(), scratch.data_ptr(), act.data_ptr(),
+            flags.data_ptr(), g)
+    if build_name == "tiles":
+        plan = plan or tile_plan(m, g, v.element_size())
+        head += (plan.levels, plan.tile, int(plan.whole))
+    fn = getattr(_library(), f"tv1d_{entry}_{_rows.suffix(v)}")
+    if build_name == "tiles":
+        launches += 1
+    _rows.launch(fname, fn, head + tail, v)
     return x, z, gap, rounds
 
 
-def pcr(a, b, c, d):
+def pcr(a, b, c, d, levels=None):
     """``pcr_tridiag_solve(a, b, c, d)`` for vectors on the card (f32 or
-    f64) by the PDAS kernel's PCR code in one cooperative launch
-    (uncounted)."""
+    f64) by the tile build's PCR code in one cooperative launch
+    (uncounted), on the PDAS's grid for a row of m + 1: its plan from
+    :func:`tile_plan`, or ``levels`` levels in shared memory (a
+    sweep's)."""
     fname = "tv1d_pcr"
     a = _vector(fname, "a", a)
     m = a.shape[0]
@@ -156,9 +312,14 @@ def pcr(a, b, c, d):
     if not all(t.dtype == a.dtype and t.device == a.device for t in (b, c, d)):
         raise ValueError(f"{fname}: a, b, c and d must share a dtype and a device")
     g = grid("pcr", m, a)
+    plan = tile_plan(m, g, a.element_size(), levels)
+    mp = padded(m)
+    src = torch.zeros(4, mp, dtype=a.dtype, device=a.device)
+    for row, t in zip(src, (a, b, c, d)):
+        row[:m] = t
     out = torch.empty_like(a)
-    scratch = torch.empty(8 * m, dtype=a.dtype, device=a.device)
+    scratch = torch.empty(8 * mp, dtype=a.dtype, device=a.device)
     fn = getattr(_library(), f"tv1d_pcr_{_rows.suffix(a)}")
-    _rows.launch(fname, fn, (a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
-                             out.data_ptr(), m, pcr_steps(m), scratch.data_ptr(), g), a)
+    _rows.launch(fname, fn, (src.data_ptr(), out.data_ptr(), m, plan.steps, plan.levels,
+                             plan.tile, int(plan.whole), scratch.data_ptr(), g), a)
     return out

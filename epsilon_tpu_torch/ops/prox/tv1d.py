@@ -275,6 +275,68 @@ def pcr_tridiag_solve(a, b, c, d):
     return d / b
 
 
+def pcr_tiled_solve(a, b, c, d, levels: int, tile: int):
+    """:func:`pcr_tridiag_solve` of vectors on the schedule of the TV-1D
+    kernel's tile build (``csrc/tv1d_pdas.cu`` ``tile_stage``), in plain
+    PyTorch, for the tests: tiles of ``tile`` rows, each in a window of the
+    tile and ``2^levels - 1`` rows on each side, run levels ``0..levels-1``,
+    each level over the rows still needed after it; the tiles' rows of
+    level ``levels`` make the system that the remaining levels solve over
+    the whole row.  With ``levels`` at or past the solve's steps the whole row
+    is one window.  A row a window lacks reads NaN, and a row outside a
+    level's range becomes NaN, so a schedule that reads a row it has not
+    computed shows in the solve."""
+    m = a.shape[-1]
+    steps = tv1d_pdas.pcr_steps(m)
+    nan = float("nan")
+
+    def level(sys, first, lo, hi, k):
+        # level k over rows [lo, hi) of the window `sys` (row `first` in slot 0)
+        w = sys[0].shape[-1]
+        s = 1 << k
+        rows = torch.arange(lo, hi, device=a.device)
+
+        def at(x, off, fill):
+            j = rows + off
+            slot = j - first
+            got = torch.where((slot >= 0) & (slot < w), x[slot.clamp(0, w - 1)],
+                              torch.full_like(x[:1], nan))
+            return torch.where((j >= 0) & (j < m), got, torch.full_like(x[:1], fill))
+
+        ai, bi, ci, di = (x[rows - first] for x in sys)
+        bm, bp = at(sys[1], -s, 1.0), at(sys[1], s, 1.0)
+        am, ap = at(sys[0], -s, 0.0), at(sys[0], s, 0.0)
+        cm, cp = at(sys[2], -s, 0.0), at(sys[2], s, 0.0)
+        dm, dp = at(sys[3], -s, 0.0), at(sys[3], s, 0.0)
+        alpha = -ai / bm
+        gamma = -ci / bp
+        new = (alpha * am, bi + alpha * cm + gamma * ap, gamma * cp, di + alpha * dm + gamma * dp)
+        out = tuple(torch.full_like(x, nan) for x in sys)
+        for o, x in zip(out, new):
+            o[rows - first] = x
+        return out
+
+    if levels >= steps:
+        sys = (a, b, c, d)
+        for k in range(steps):
+            sys = level(sys, 0, 0, m, k)
+        return sys[3] / sys[1]
+    halo = (1 << levels) - 1
+    held = tuple(torch.full_like(a, nan) for _ in range(4))
+    for t0 in range(0, m, tile):
+        t1 = min(t0 + tile, m)
+        first, end = max(t0 - halo, 0), min(t1 + halo, m)
+        sys = tuple(x[first:end] for x in (a, b, c, d))
+        for k in range(levels):
+            keep = halo - ((2 << k) - 1)
+            sys = level(sys, first, max(t0 - keep, 0), min(t1 + keep, m), k)
+        for h, x in zip(held, sys):
+            h[t0:t1] = x[t0 - first:t1 - first]
+    for k in range(levels, steps):
+        held = level(held, 0, 0, m, k)
+    return held[3] / held[1]
+
+
 def prox_tv1d_pdas(v, lam, tol=None, max_iters: int = 40, z0=None,
                    return_dual: bool = False):
     """TV prox by PDAS on the dual box QP, with a projected line search on

@@ -6,7 +6,8 @@ prox against the same kernel one row a warp bitwise, the factor
 apply, a small lasso, a small consensus lasso and the rows whose epigraphs
 K3 and K4 carry on the card; K6 (the SUM_LOGISTIC prox) against its
 full-count build bitwise and its plain version, K7 (the TV-1D PDAS in one
-cooperative launch) against the plain PDAS and the exact oracle, its PCR
+cooperative launch) against the plain PDAS and the exact oracle and, at
+every tile depth, against the levels build it replaced bitwise, its PCR
 solve against the plain one bitwise, each launching one kernel and no host
 sync, and the rows they carry.  They skip
 without a CUDA device.  This file imports neither JAX nor the JAX package,
@@ -788,21 +789,56 @@ def _pdas_check(v, lam, tol, z0, slack):
     return z
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m", [1, 2, 3, 16, 17, 1023, 1025, 9999, 99_999])
-def test_tv1d_pcr_is_the_plain_pcr_bitwise(cuda, m, dtype):
-    """One PCR solve by K7's PCR code equals ``pcr_tridiag_solve`` on the
-    card bitwise, on a diagonally dominant random system and on one as a
-    PDAS round builds it (pinned rows, c = a)."""
-    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
-    from epsilon_tpu_torch.ops.prox import tv1d
+# Rows of K7's PCR at the tile build's edges at its main-path tile (T = 511
+# rows, K = 8 levels, halo H = 255): T - 1, T, T + 1, T + H, 2^K +- 1, and a
+# row past the whole-row window (2^K); the lengths n = m + 1 of the PDAS.
+K7_TILE_ROWS = (255, 256, 257, 510, 511, 512, 766, 4097, 10_000)
+
+
+def _pcr_systems(m, dtype, dev):
     rng = np.random.RandomState(m)
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
     free = rng.rand(m) < 0.7
     a = t(np.where(free, -1.0, 0.0))
-    for system in ((t(-rng.rand(m)), t(2.5 + rng.rand(m)), t(-rng.rand(m)), t(rng.randn(m))),
-                   (a, t(np.where(free, 2.0, 1.0)), a, t(rng.randn(m)))):
+    return ((t(-rng.rand(m)), t(2.5 + rng.rand(m)), t(-rng.rand(m)), t(rng.randn(m))),
+            (a, t(np.where(free, 2.0, 1.0)), a, t(rng.randn(m))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 2, 3, 16, 17, 1023, 1025, 9999, 99_999] + list(K7_TILE_ROWS))
+def test_tv1d_pcr_is_the_plain_pcr_bitwise(cuda, m, dtype):
+    """One PCR solve by K7's PCR code (the tile build's: its first levels
+    in shared memory, the rest in device memory) equals
+    ``pcr_tridiag_solve`` on the card bitwise, on a diagonally dominant
+    random system and on one as a PDAS round builds it (pinned rows, c =
+    a)."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    from epsilon_tpu_torch.ops.prox import tv1d
+    for system in _pcr_systems(m, dtype, cuda):
         assert _same_bits(tv1d_pdas.pcr(*system), tv1d.pcr_tridiag_solve(*system))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [3, 511, 2049, 99_999, 999_999])
+def test_tv1d_pcr_every_tile_depth_bitwise(cuda, m, dtype):
+    """The tile build's PCR at every depth K = 1..11 that fits the shared
+    memory budget (whole-row windows where K reaches the steps; several
+    tiles a block at m = 999,999) equals ``pcr_tridiag_solve`` bitwise."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    from epsilon_tpu_torch.ops.prox import tv1d
+    systems = _pcr_systems(m, dtype, cuda)
+    want = [tv1d.pcr_tridiag_solve(*system) for system in systems]
+    ran = 0
+    for levels in range(1, tv1d_pdas.MAX_TILE_LEVELS + 1):
+        try:
+            tv1d_pdas.tile_plan(m, tv1d_pdas.grid("pcr", m, systems[0][0]),
+                                systems[0][0].element_size(), levels)
+        except ValueError:
+            continue
+        for system, w in zip(systems, want):
+            assert _same_bits(tv1d_pdas.pcr(*system, levels=levels), w)
+        ran += 1
+    assert ran >= 10
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -832,6 +868,105 @@ def test_tv1d_pdas_rounds_at_inner_tolerances(cuda, n, dtype):
     for tol in K7_INNER_TOLS[dtype]:
         z = _pdas_check(v, lam, tol, None, 0)
         _pdas_check(v2, lam, tol, z, 0)
+
+
+def _levels_check(v, lam, tol, z0, plan=None):
+    """The tile build (the dispatch's, or at a sweep's depth) against the
+    levels build it replaced: the same x, z, gap and rounds, bitwise; one
+    counted launch of the tile build, none for the levels build; the grid
+    syncs each build counted on the device as ``tv1d_pdas``'s formulas
+    count them for its rounds."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    from epsilon_tpu_torch.ops.prox import tv1d
+    n = v.shape[0]
+    tol_ = tv1d.pdas_default_tol(v.dtype) if tol is None else tol
+    counter = tv1d_pdas.sync_counter(v.device)
+    before = tv1d_pdas.launches
+    counter.zero_()
+    if plan is None:
+        x, gap, it, z = tv1d.prox_tv1d_pdas(v, lam, tol=tol, z0=z0, return_dual=True)
+        plan = tv1d_pdas.tile_plan(n - 1, tv1d_pdas.grid("pdas", n, v), v.element_size())
+    else:
+        x, z, gap, it = tv1d_pdas._launch_pdas(tv1d_pdas._pdas_args("tv1d_pdas", v, lam, z0),
+                                               tol_, 40, "tiles", plan)
+    assert tv1d_pdas.launches == before + 1
+    assert int(counter) == tv1d_pdas.grid_syncs(int(it), tv1d_pdas.syncs_per_round(plan))
+    counter.zero_()
+    xl, zl, gapl, itl = tv1d_pdas.pdas_levels(v, lam, tol_, z0=z0)
+    assert tv1d_pdas.launches == before + 1
+    assert int(counter) == tv1d_pdas.grid_syncs(int(itl),
+                                                tv1d_pdas.levels_syncs_per_round(plan.steps))
+    assert _same_bits(x, xl) and _same_bits(z, zl) and _same_bits(gap, gapl)
+    assert int(it) == int(itl)
+    return z
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", sorted({2, 3, 17, 1023, 1025, 4097, 10_000, 100_000}
+                                     | {m + 1 for m in K7_TILE_ROWS}))
+def test_tv1d_tiles_equal_the_levels_build_bitwise(cuda, n, dtype):
+    """K7's tile build through the dispatch equals the levels build it
+    replaced bitwise (x, z, gap, rounds): cold, warm from its own dual on a
+    perturbed signal and with lam a 0-d CUDA tensor, at the default and at
+    the inner tolerances."""
+    lam = 0.5 * np.sqrt(n) if n > 3 else 0.3
+    v = torch.as_tensor(_tv_signal(n, n), dtype=dtype, device=cuda)
+    v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(1).randn(n), dtype=dtype, device=cuda)
+    for tol in [None] + K7_INNER_TOLS[dtype]:
+        z = _levels_check(v, lam, tol, None)
+        _levels_check(v2, lam, tol, z)
+        _levels_check(v2, torch.tensor(lam, dtype=dtype, device=cuda), tol, z)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [10_000, 100_000, 1_000_000])
+def test_tv1d_tiles_every_depth_bitwise(cuda, n, dtype):
+    """The tile build at every depth K = 1..11 that fits (several tiles a
+    block at n = 1,000,000) equals the levels build bitwise, warm at an
+    inner tolerance, and runs the syncs its plan counts."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    lam, tol = float(np.sqrt(n)), K7_INNER_TOLS[dtype][-1]
+    v = torch.as_tensor(_tv_signal(n, 5), dtype=dtype, device=cuda)
+    z = _levels_check(v, lam, tol, None)
+    v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(6).randn(n), dtype=dtype, device=cuda)
+    ran = 0
+    g = tv1d_pdas.grid("pdas", n, v)
+    for levels in range(1, tv1d_pdas.MAX_TILE_LEVELS + 1):
+        try:
+            plan = tv1d_pdas.tile_plan(n - 1, g, v.element_size(), levels)
+        except ValueError:
+            continue
+        _levels_check(v2, lam, tol, z, plan)
+        ran += 1
+    assert ran >= 10
+
+
+def test_tv1d_tile_build_runs_the_levels_builds_grid(cuda):
+    """The tile build runs the levels build's grid (the blocks of
+    512 the levels build keeps resident, two an SM in f32 and one in f64,
+    or the row's, whichever is fewer), so both sum in one order, and keeps
+    it resident itself; the PCR entry solves m rows on the grid of a row of
+    m + 1; the source's shared memory budget is the wrapper's."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    assert tv1d_pdas._library().tv1d_pdas_smem_budget() == tv1d_pdas.SMEM_BUDGET
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for dtype, per_sm in ((torch.float32, 2), (torch.float64, 1)):
+        v = torch.empty(1, dtype=dtype, device=cuda)
+        for n in (10_000, 100_000, 1_000_000):
+            want = min(per_sm * sms, -(-n // 512))
+            assert tv1d_pdas.grid("pdas", n, v) == tv1d_pdas.grid("pdas_levels", n, v) == want
+            assert tv1d_pdas.grid("pcr", n - 1, v) == want
+
+
+def test_k7_dispatch_never_reaches_the_levels_entry(cuda, monkeypatch):
+    """The TV-1D dispatch launches the tile build, never the levels build."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    from epsilon_tpu_torch.ops.prox import tv1d
+    names = _Names(tv1d_pdas._library())
+    monkeypatch.setattr(tv1d_pdas, "_LIB", names)
+    for dtype in (torch.float32, torch.float64):
+        tv1d.prox_tv1d_pdas(torch.as_tensor(_tv_signal(300, 4), dtype=dtype, device=cuda), 2.0)
+    assert [n for n in names.names if "grid" not in n] == ["tv1d_pdas_f32", "tv1d_pdas_f64"]
 
 
 def test_tv1d_pdas_round_cap_and_warm_projection(cuda):
@@ -875,7 +1010,7 @@ def test_k6_k7_each_one_kernel_and_no_host_sync(cuda):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pass
     baseline = _host_calls(prof)
-    for call, name in ((lambda: tv1d.prox_tv1d_pdas(v, lam, tol=1e-3, z0=z), "pdas_kernel"),
+    for call, name in ((lambda: tv1d.prox_tv1d_pdas(v, lam, tol=1e-3, z0=z), "pdas_tiles"),
                        (lambda: elementwise.prox_sum_logistic(u, lam), "prox_logistic")):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.set_sync_debug_mode("error")

@@ -43,17 +43,25 @@ solves the ``tv_1d`` row at its reference size twice, with float32 state
 (``config.default_dtype`` patched for the run; nothing in the port sets
 it), and prints objective, iterations and seconds of both.
 
-    python3 -m tools.profile_port --exit-ab oneclass_svm,mnist
+    python3 -m tools.profile_port --exit-ab oneclass_svm,mnist,tv_1d@n_block,family:tv
 
-solves library rows (reference sizes, f32) with the per-row loop kernels
-and with the builds each replaced put in their place in the dispatch (K3's
-prox one row a warp; K3's epigraph, K4 and K5 their full-count builds),
-in turns in this one process (kernel, replaced, replaced, kernel, for
-several rounds): cold solves at the harness's rel_tol (at most
-``EXIT_AB_COLD_ITERS`` iterations) and warm re-solves of
-``EXIT_AB_WARM_ITERS`` iterations, host wall ms/iteration of each side
-(median and min-max).  Both sides compute the same bits, so they take the
-same iterations; the launch counters say which kernels ran.
+solves specs (library rows at reference size, f32, ``row`` or ``row@set``
+as for ``--plain-ab`` below, or ``family:<kind>``) with the redesigned
+kernels and with the builds each replaced put in their place in the
+dispatch (K3's prox one row a warp; K3's epigraph, K4 and K5 their
+full-count builds; K7 its levels build), in turns in this one process
+(kernel, replaced, replaced, kernel, for several rounds): cold solves at
+the harness's rel_tol (at most ``EXIT_AB_COLD_ITERS`` iterations) and, for
+a library row, warm re-solves of ``EXIT_AB_WARM_ITERS`` iterations, host
+wall ms/iteration of each side (median and min-max).  Both sides compute
+the same bits, so they take the same iterations; the launch counters say
+which kernels ran.
+
+    python3 -m tools.profile_port --k7-tiles
+
+times K7's tile build at every depth K = 6..11 that fits and its levels
+build, in turns, at n = 10,000 and 100,000, f32 and f64, cold and warm: what
+``tile_plan``'s K was set from.
 
     python3 -m tools.profile_port --plain-ab logreg_l1,tv_1d@n_block,family:tv
 
@@ -367,14 +375,16 @@ EXIT_AB_ROUNDS = 3
 
 @contextlib.contextmanager
 def replaced_entries():
-    """The dispatch of ``ops/prox`` sends each per-row kernel's calls to the
-    build it replaced while the context is open: K3's prox to one row a
-    warp, K3's epigraph, K4 and K5 to their full-count builds."""
-    from epsilon_tpu_torch.ops.kernels import epi_neg_log, epi_sum_square, lse_rows
+    """The dispatch of ``ops/prox`` sends each redesigned kernel's calls to
+    the build it replaced while the context is open: K3's prox to one row a
+    warp, K3's epigraph, K4 and K5 to their full-count builds, K7 to its
+    levels build (a grid sync after every PCR level and every pass)."""
+    from epsilon_tpu_torch.ops.kernels import epi_neg_log, epi_sum_square, lse_rows, tv1d_pdas
     swaps = [(lse_rows, "prox_rows", lse_rows.prox_rows_wide),
              (lse_rows, "epi_rows", lse_rows.epi_rows_full),
              (epi_sum_square, "epi_rows", epi_sum_square.epi_rows_full),
-             (epi_neg_log, "epi_rows", epi_neg_log.epi_rows_full)]
+             (epi_neg_log, "epi_rows", epi_neg_log.epi_rows_full),
+             (tv1d_pdas, "pdas", tv1d_pdas.pdas_levels)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, full in swaps:
         setattr(mod, name, full)
@@ -385,54 +395,147 @@ def replaced_entries():
             setattr(mod, name, entry)
 
 
-def exit_ab(rows, rounds=EXIT_AB_ROUNDS):
-    """Library rows with the per-row kernels against the builds they
-    replaced, in turns: cold solves, then warm re-solves."""
-    from chip_smoke import LIBRARY_REL_TOL, row_launches
+def _spec_solves(spec, refs, cap=None, profile_iters=None, warm=True):
+    """The solves of a spec: a library row at its reference size (``row``,
+    or ``row@set`` under a parameter set of ``library_reference.json``), or
+    ``family:<kind>``, phase 9 (f)'s family in one process.  Returns
+    ``(cold, warm)``: ``cold()`` solves it cold at the harness's rel_tol and
+    the reference's iteration cap (at most ``cap``), with a profiled warm
+    re-solve of ``profile_iters`` iterations where given, and returns the
+    row's figures (``ms_per_iter``, ``iterations``, ...); with ``warm``,
+    ``warm(iters)`` re-solves one problem (set up and solved here first)
+    warm for ``iters`` iterations and returns the host wall ms an iteration
+    (None for a family, or without ``warm``)."""
+    from chip_smoke import LIBRARY_REL_TOL
     from epsilon_tpu_torch.problems import benchmark
+    if spec.startswith("family:"):
+        return (lambda: _family_solve(spec.split(":", 1)[1])), None
+    name, _, pset = spec.partition("@")
+    ref_set = refs[pset] if pset else refs
+    inst = next(p for p in benchmark.PROBLEMS_REFERENCE() if p.name == name)
+    params = ref_set.get("params", {}) if pset else {}
+    limit = ref_set["rows"][name]["max_iterations"]
+    limit = limit if cap is None else min(limit, cap)
+    extra = {} if profile_iters is None else {"profile_iters": profile_iters}
+
+    def cold():
+        return benchmark.benchmark_epsilon(inst, rel_tol=LIBRARY_REL_TOL, max_iterations=limit,
+                                           **extra, **params)
+    if not warm:
+        return cold, None
+    prob = inst.create_problem()
+    prob.solve(rel_tol=LIBRARY_REL_TOL, max_iterations=EXIT_AB_WARM_ITERS, warm_start=True,
+               **params)
+
+    def resolve(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prob.solve(rel_tol=0.0, abs_tol=0.0, warm_start=True, max_iterations=iters, **params)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / prob.solver_status.num_iterations
+    return cold, resolve
+
+
+def exit_ab(specs, rounds=EXIT_AB_ROUNDS):
+    """Specs (``_spec_solves``) with the redesigned kernels against the
+    builds they replaced, in turns: cold solves, then warm re-solves (a
+    library row's)."""
+    import json
+    from chip_smoke import REFERENCE_JSON, row_launches
+    refs = json.loads(REFERENCE_JSON.read_text())
     sides = {"kernel": contextlib.nullcontext, "replaced": replaced_entries}
-    for inst in benchmark.PROBLEMS_REFERENCE():
-        if inst.name not in rows:
-            continue
-        warm = dict(rel_tol=0.0, abs_tol=0.0, warm_start=True, max_iterations=EXIT_AB_WARM_ITERS)
-        prob = inst.create_problem()
-        prob.solve(rel_tol=LIBRARY_REL_TOL, max_iterations=EXIT_AB_WARM_ITERS, warm_start=True)
+    for spec in specs:
+        cold_solve, warm_solve = _spec_solves(spec, refs, cap=EXIT_AB_COLD_ITERS)
         cold, hot, runs, launched = {s: [] for s in sides}, {s: [] for s in sides}, {}, {}
         for _ in range(rounds):
             for side in list(sides) + list(sides)[::-1]:
                 before = sum(row_launches().values())
                 with sides[side]():
-                    row = benchmark.benchmark_epsilon(inst, rel_tol=LIBRARY_REL_TOL,
-                                                      max_iterations=EXIT_AB_COLD_ITERS)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    prob.solve(**warm)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
+                    row = cold_solve()
+                    if warm_solve is not None:
+                        hot[side].append(warm_solve(EXIT_AB_WARM_ITERS))
                 launched[side] = launched.get(side, 0) + sum(row_launches().values()) - before
                 cold[side].append(row["ms_per_iter"])
-                hot[side].append(1e3 * wall / prob.solver_status.num_iterations)
                 runs.setdefault(side, set()).add((row["iterations"], row["status"],
-                                                  row["objective"]))
+                                                  row.get("objective")))
         if launched["replaced"] != 0 or launched["kernel"] == 0:
-            raise AssertionError(f"{inst.name}: kernel launches {launched}")
+            raise AssertionError(f"{spec}: kernel launches {launched}")
         iters = sorted({it for side in sides for it, _, _ in runs[side]})
         parts = []
         for label, r in ((f"cold, {'/'.join(map(str, iters))} iterations", cold),
                          (f"warm, {EXIT_AB_WARM_ITERS} iterations", hot)):
+            if not r["kernel"]:
+                continue
             m = {side: statistics.median(r[side]) for side in sides}
             parts.append(f"{label}: kernel {m['kernel']:.4f} ms/iter ({min(r['kernel']):.4f}-"
                          f"{max(r['kernel']):.4f}), replaced {m['replaced']:.4f} "
                          f"({min(r['replaced']):.4f}-{max(r['replaced']):.4f}), ratio "
                          f"{m['kernel'] / m['replaced']:.3f}")
-        print(f"[exit-ab] {inst.name} in turns ({rounds} rounds of kernel, replaced, replaced, "
+        print(f"[exit-ab] {spec} in turns ({rounds} rounds of kernel, replaced, replaced, "
               f"kernel): "
               + "; ".join(parts) + f"; kernel launches {launched}; the cold solves "
               + "; ".join(f"{side} " + ", ".join(f"{it} iterations {st} objective {obj!r}"
                                                for it, st, obj in sorted(runs[side]))
-                          for side in sides))
-        del prob
+                          for side in sides), flush=True)
         torch.cuda.empty_cache()
+
+
+K7_SWEEP_LEVELS = tuple(range(6, 12))
+K7_SWEEP_ROUNDS, K7_SWEEP_REPS = 3, 20
+
+
+def k7_tiles(rounds=K7_SWEEP_ROUNDS):
+    """K7's tile depth, in turns in this process: at n =
+    10,000 and 100,000 (``fused_lasso``'s and ``tv_1d``'s lengths), f32 and
+    f64, cold and warm at the solver's inner tolerance for the harness's
+    rel_tol, the tile build at every K of K7_SWEEP_LEVELS that fits the
+    shared memory budget and the levels build; ``rounds`` rounds of every
+    side in order and reversed, each reading the median device ms of
+    K7_SWEEP_REPS calls.  Prints a line a case and a JSON line of all."""
+    import json
+    from chip_smoke import LIBRARY_REL_TOL, tv_signal
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas as k7
+    dev = torch.device("cuda")
+    cases = []
+    for dtype, floor in ((torch.float32, 3e-4), (torch.float64, 1e-7)):
+        tol = max(0.1 * LIBRARY_REL_TOL, floor)
+        for n in (10_000, 100_000):
+            v = torch.as_tensor(tv_signal(n, 1), dtype=dtype, device=dev)
+            lam = float(np.sqrt(n))
+            z_cold = k7.pdas(v, lam, tol)[1]
+            v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(2).randn(n), dtype=dtype,
+                                            device=dev)
+            g = k7.grid("pdas", n, v)
+            rule = k7.tile_plan(n - 1, g, v.element_size())
+            for kind, z0 in (("cold", None), ("warm", z_cold)):
+                args = k7._pdas_args("tv1d_pdas", v2, lam, z0)
+                sides = {}
+                for levels in K7_SWEEP_LEVELS:
+                    try:
+                        plan = k7.tile_plan(n - 1, g, v.element_size(), levels)
+                    except ValueError:
+                        continue
+                    sides[f"K={levels}"] = (
+                        lambda plan=plan: k7._launch_pdas(args, tol, 40, "tiles", plan))
+                sides["levels"] = lambda: k7.pdas_levels(v2, lam, tol, z0=z0)
+                rounds_run = int(sides["levels"]()[3])
+                readings = {side: [] for side in sides}
+                for _ in range(rounds):
+                    for side in list(sides) + list(sides)[::-1]:
+                        readings[side].append(device_ms(sides[side], reps=K7_SWEEP_REPS,
+                                                        warmup=2))
+                ms = {side: (statistics.median(r), min(r), max(r))
+                      for side, r in readings.items()}
+                best = min((s for s in ms if s.startswith("K=")), key=lambda s: ms[s][0])
+                print(f"[k7-tiles] n={n} {str(dtype)[6:]} {kind} (tol {tol:g}, {rounds_run} "
+                      f"rounds, grid {g}, rule K = {rule.levels}, tiles of {rule.tile} rows): "
+                      + "; ".join(f"{side} {med:.4f} ({lo:.4f}-{hi:.4f})"
+                                  for side, (med, lo, hi) in ms.items())
+                      + f"; fastest {best}", flush=True)
+                cases.append({"n": n, "dtype": str(dtype)[6:], "kind": kind, "tol": tol,
+                              "rounds": rounds_run, "grid": g, "rule_levels": rule.levels,
+                              "ms": ms, "fastest": best})
+    print(json.dumps({"k7_tiles": cases}))
 
 
 PLAIN_AB_ROUNDS = 1
@@ -502,23 +605,11 @@ def plain_ab(specs, rounds=PLAIN_AB_ROUNDS):
     (f)'s family in one process.  Prints ms and device operations an
     iteration of both sides, iterations and objectives, and the launches."""
     import json
-    from chip_smoke import LIBRARY_REL_TOL, REFERENCE_JSON, row_launches
-    from epsilon_tpu_torch.problems import benchmark
+    from chip_smoke import REFERENCE_JSON, row_launches
     refs = json.loads(REFERENCE_JSON.read_text())
     sides = {"kernel": contextlib.nullcontext, "plain": plain_entries}
     for spec in specs:
-        if spec.startswith("family:"):
-            name, params = spec, None
-            run = lambda: _family_solve(spec.split(":", 1)[1])
-        else:
-            name, _, pset = spec.partition("@")
-            ref_set = refs[pset] if pset else refs
-            inst = next(p for p in benchmark.PROBLEMS_REFERENCE() if p.name == name)
-            params = ref_set.get("params", {}) if pset else {}
-            cap = ref_set["rows"][name]["max_iterations"]
-            run = lambda: benchmark.benchmark_epsilon(
-                inst, rel_tol=LIBRARY_REL_TOL, max_iterations=cap,
-                profile_iters=PLAIN_AB_PROFILE_ITERS, **params)
+        run, _ = _spec_solves(spec, refs, profile_iters=PLAIN_AB_PROFILE_ITERS, warm=False)
         readings = {s: [] for s in sides}
         launched = dict.fromkeys(sides, 0)
         for _ in range(rounds):
@@ -569,6 +660,9 @@ def main():
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--exit-ab":
         exit_ab(sys.argv[2].split(","))
+        return 0
+    if sys.argv[1:] == ["--k7-tiles"]:
+        k7_tiles()
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--plain-ab":
         plain_ab(sys.argv[2].split(","))
