@@ -4,11 +4,11 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Card and build: the card's name and power limit, then the eight CUDA
+1. Card and build: the card's name and power limit, then the nine CUDA
    sources (sym_packed, local_update, lse_rows, epi_sum_square,
-   epi_neg_log, sum_logistic, tv1d_pdas, and launch_floor, the empty
-   kernels of phase 7a) are compiled from ``epsilon_tpu_torch/csrc``, one
-   ``nvcc`` each, started together.
+   epi_neg_log, sum_logistic, tv1d_pdas, epi_exp, and launch_floor, the
+   empty kernels and measured chains of phase 7a) are compiled from
+   ``epsilon_tpu_torch/csrc``, one ``nvcc`` each, started together.
 2. Kernel against its plain PyTorch version on the card, at the shape the
    main path gives it (n = 8192, R = 1) and at R = 8, in f32 and f64:
    maximum error, bitwise repeatability, and CUDA-event times of the
@@ -66,12 +66,16 @@ Phases, in order; any failure exits non-zero:
    the builds it replaces (kernel, full count, and for K3's prox one row a
    warp, then in reverse, 5 rounds of 20 calls a reading; median and
    min-max), beside the bound of the steps this run took.  Then K6
-   ``sum_logistic_prox`` (one thread an element; its Newton exits when its
-   state repeats) at the main path's 1,500 elements and at other sizes,
-   f32 and f64, lam a number, a 0-d tensor and one an element: bitwise
-   against its full-count build (special values too) and against its
-   plain version at ``ROW_RTOL``, timed (kernel and full count in turns,
-   plain, the launch floor, the chain bound of the steps taken).  And K7
+   ``sum_logistic_prox`` (one thread an element, the launch spread over
+   the SMs; its Newton exits when its state repeats, checked every fourth
+   step) at the main path's 1,500 elements and at other sizes, f32 and
+   f64, lam a number, a 0-d tensor and one an element: bitwise against its
+   full-count build and its plain version (on the special values against
+   the full-count build bitwise, the plain version's values), timed
+   (kernel and full count in turns, plain, the launch floor) beside its
+   bound, the measured chain of the steps its longest element took (an
+   empty-handed chain of its arithmetic, ``launch_floor.cu`` k6_chain).
+   And K7
    ``tv1d_pdas`` (the whole TV-1D PDAS in one cooperative launch, its first
    PCR levels in shared memory): its PCR solve bitwise against the plain
    ``pcr_tridiag_solve`` on the card, at the tile's edges too; the PDAS
@@ -84,7 +88,16 @@ Phases, in order; any failure exits non-zero:
    and warm at the main path's inner tolerance, the tile build, the levels
    build and the plain version timed in turns, each build beside an empty
    cooperative kernel with its grid syncs at its grid (its floor: syncs x
-   their cost).
+   their cost).  And K8 ``epi_exp`` (the EXP epigraph, one thread an
+   element: the bracket's widening, which stops once it leaves the end
+   unchanged, and the safeguarded Newton, K6's exit) at ``max_softmax``'s
+   2,000 elements under ``use_epigraph=False`` and at other sizes, f32 and
+   f64, s one an element, a number and a 0-d tensor, active and inactive
+   elements and s <= 0, and on the special values: as K6, bitwise against
+   its full-count build and its plain version, its step counts within the
+   loops' counts, the main shape against an f64 numpy test of the
+   projection (feasibility and the active elements' KKT conditions), and
+   timed as K6 beside its measured chain (``epi_exp_chain``).
 7. The problem library: every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes (full width), through ``problems.benchmark``
    (``Problem.solve``) in f32 at the harness's parameters, the rows of
@@ -97,7 +110,8 @@ Phases, in order; any failure exits non-zero:
    reaches the iteration cap in both), and the rows with hard constraints
    also pass a feasibility residual computed in f64 numpy.  K3, K4 and K5
    must each launch in it, K6 in both logistic rows and K7 in ``tv_1d`` and
-   ``fused_lasso`` (each row prints the hand loop kernels it launched).
+   ``fused_lasso`` (each row prints the hand loop kernels it launched; no
+   row runs K8 under these parameters).
 7c. The library under the oracle matrix's other two parameter sets
    (``LIBRARY_SETS``): every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes in f32, through ``problems.benchmark`` with
@@ -112,7 +126,8 @@ Phases, in order; any failure exits non-zero:
    phase (K3 (b) and K4 only under ``prox_admm``: without the epigraph
    ``max_softmax`` runs the EXP epigraph and ``oneclass_svm`` second-order
    cones), K6 in both logistic rows and K7 in ``tv_1d`` and ``fused_lasso``
-   under each set.  A failed row makes the phase raise after both sets.
+   under each set, and K8 in ``max_softmax`` under ``no_epi``.  A failed
+   row makes the phase raise after both sets.
 8. The rest of the solver's one-device surface at the flagship's width
    (lasso 2000 x 1000, phase 3's data, f32), each solve ``optimal`` and
    held to phase 3's f64 checks: (a) adaptive rho; (b) the data scaled by
@@ -153,7 +168,8 @@ Phases, in order; any failure exits non-zero:
    and per-slice families to convergence; the others, the costliest a
    call, stop short of it at 10-60 iterations; the nuclear-norm family's x
    within 1e-3, the bound of its f32 solution and the card's SVDs); K7 must
-   launch on every rank and in the one-process solve of the TV family.
+   launch on every rank and in the one-process solve of the TV family, K8
+   in those of the ``epigraph_elementwise`` family.
    (g) (e) stopped after three epochs under ``drive="host"`` with a
    checkpointer, resumed by a new solver on the
    four ranks and then on two ranks (a second launch): both reach (e)'s
@@ -192,15 +208,21 @@ the function must move (inputs read once, outputs written once) over
 3.35 TB/s and its operations over 67 TFLOP/s (the H100's published HBM
 rate and float32 rate outside the tensor cores), and for the per-row loop
 kernels their dependent chain at the card's maximum SM clock
-(``row_chain_ops``), which binds them.
+(``row_chain_ops``), which binds them.  K6's and K8's chain is measured:
+an empty-handed kernel of the same arithmetic, launched as they launch,
+run for the steps their longest element took (``k6_chain_ms``,
+``k8_chain_ms``).
 
 K1 has two records, one for each shape and path that a main path gives
 it: (200, 200) on the ring path with phase 6's launches, and (50, 200) on
 the streaming path with rank 0's launches in phase 9 (d).  The records of
-K2-K7 also carry ``launches_7c``: their launches in phase 7c, per set; K7's
+K2-K8 also carry ``launches_7c``: their launches in phase 7c, per set; K7's
 ``launches_9f``, rank 0's in phase 9 (f)'s TV family, and its timings at
-both main lengths, cold and warm.  K6's ``bound_ms`` is the chain of its
-Newton steps on its longest element; K7's is the bound of its work, bytes
+both main lengths, cold and warm; K8's ``launches_9f``, rank 0's in the
+``epigraph_elementwise`` family, and its ``launches`` those of phases 7
+and 7c (no phase 7 row runs it).  K6's and K8's ``bound_ms`` is the
+measured chain of the steps of their longest element (``chain_ms``;
+``full_count_chain_ms`` for the full counts); K7's is the bound of its work, bytes
 or operations, with its grid-sync floor beside it (``floor_ms``: its
 syncs, counted on the device (``tv1d_pdas.sync_counter``) and checked
 against ``tv1d_pdas.syncs_per_round``, times their measured cost at its
@@ -348,15 +370,22 @@ ENTRY_ATOL = 1e-6
 K1_RANK_SHAPE = (200 // MESH_WORLD, 200)
 REFERENCE_JSON = Path(__file__).resolve().parent / "tests" / "data" / "library_reference.json"
 # Phase 7a, K6 (the SUM_LOGISTIC prox): the sizes at which it is also held
-# (one element, a block short and over, a large vector), the range of v
-# and of lam (log-uniform), and the operations on one element's dependent
-# chain a Newton step (sigmoid: negate, exp, add, divide; g' and the step:
-# multiply, subtract, multiply, add, divide, subtract; the bracket test
-# and the select: 2) and at the start (x0 and the bracket's two g).
+# (one element, a block short and over, a large vector) and the range of v
+# and of lam (log-uniform).
 K6_SIZES = (1, 255, 257, 100_000)
 K6_V_RANGE = 60.0
 K6_LAM_EXP = (-6.0, 6.0)
-K6_CHAIN_PER_STEP, K6_CHAIN_START = 12, 16
+# Phase 7a, K8 (the EXP epigraph): the main path's elements (max_softmax's
+# EXP epigraph under use_epigraph=False: 2,000, s one an element), the
+# sizes at which it is also held, the range of v and of s / e^v (decades),
+# and the f64 numpy test of the projection at the main shape, relative to
+# the scale of each condition's terms (the f32 result rounds at 6e-8 of
+# e^2x; 25 Newton steps leave no element of this range short of its root).
+K8_MAIN_N = 2000
+K8_SIZES = (1, 255, 257, 20_000, 100_000)
+K8_V_RANGE = 10.0
+K8_S_DECADES = 3.0
+K8_KKT_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # Phase 7a, K7 (the TV-1D PDAS): the lengths at which it is also held (two
 # and three elements, odd, 2^k - 1 and 2^k + 1 around the PCR's step
 # counts), the PCR systems' sizes (m = n - 1 of those and of the main
@@ -934,8 +963,12 @@ def feasibility(name, kw, values):
 @functools.cache
 def _launch_floor_library():
     from epsilon_tpu_torch.ops.kernels import _rows
-    return _rows.load("launch_floor", {"row_launch_floor": [ctypes.c_void_p],
-                                       "grid_sync_floor": [ctypes.c_int] * 3 + [ctypes.c_void_p]})
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    entries = {"row_launch_floor": [P], "grid_sync_floor": [I] * 3 + [P]}
+    for t in ("f32", "f64"):
+        entries[f"k6_chain_{t}"] = [P, "scalar", P, L, I, P]
+        entries[f"epi_exp_chain_{t}"] = [P, P, P, L, I, I, P]
+    return _rows.load("launch_floor", entries)
 
 
 def launch_floor(t):
@@ -988,21 +1021,28 @@ def row_kernels():
 
 def loop_kernels():
     """The hand kernels of phase 7a that are not per-row loops (K6
-    ``sum_logistic_prox``, K7 ``tv1d_pdas``), each as ``name -> dict``:
-    its module and launch-count attribute, source, the JAX function it
-    stands for, the main path's shape in phase 7 and the library rows whose
-    main path launches it (phases 7 and 7c)."""
-    from epsilon_tpu_torch.ops.kernels import sum_logistic, tv1d_pdas
+    ``sum_logistic_prox``, K7 ``tv1d_pdas``, K8 ``epi_exp``), each as
+    ``name -> dict``: its module and launch-count attribute, source, the
+    JAX function it stands for, the main path's shape, the library rows
+    whose main path launches it in phase 7 (``rows``) and under each set of
+    phase 7c (``sets``), and for K8 the phase 9 (f) family that runs it."""
+    from epsilon_tpu_torch.ops.kernels import epi_exp, sum_logistic, tv1d_pdas
+    logreg = ("logreg_l1", "logreg_l1_sparse")
+    tv = ("tv_1d", "fused_lasso")
     return {
         "sum_logistic_prox": dict(
             module=sum_logistic, counter="launches",
             source="epsilon_tpu_torch/csrc/sum_logistic.cu",
             replaces="epsilon_tpu/ops/prox/elementwise.py:156", main=(1500,),
-            rows=("logreg_l1", "logreg_l1_sparse")),
+            rows=logreg, sets=dict.fromkeys(LIBRARY_SETS, logreg)),
         "tv1d_pdas": dict(
             module=tv1d_pdas, counter="launches", source="epsilon_tpu_torch/csrc/tv1d_pdas.cu",
             replaces="epsilon_tpu/ops/prox/tv1d.py:292", main=(100_000, 10_000),
-            rows=("tv_1d", "fused_lasso")),
+            rows=tv, sets=dict.fromkeys(LIBRARY_SETS, tv)),
+        "epi_exp": dict(
+            module=epi_exp, counter="launches", source="epsilon_tpu_torch/csrc/epi_exp.cu",
+            replaces="epsilon_tpu/ops/prox/elementwise.py:121", main=(K8_MAIN_N,),
+            rows=(), sets={"no_epi": ("max_softmax",)}, family="epigraph_elementwise"),
     }
 
 
@@ -1394,8 +1434,9 @@ def phase_row_kernels(card):
         records[name].update(exit_ab(name, k, v, p, n_bytes, clock_hz, card))
     loops = loop_kernels()
     records["sum_logistic_prox"] = phase_sum_logistic(loops["sum_logistic_prox"], card,
-                                                      floor_ms, clock_hz)
+                                                      floor_ms)
     records["tv1d_pdas"] = phase_tv1d(loops["tv1d_pdas"], card)
+    records["epi_exp"] = phase_epi_exp(loops["epi_exp"], card, floor_ms)
     return records
 
 
@@ -1447,6 +1488,39 @@ def exit_ab(name, k, v, p, n_bytes, clock_hz, card):
     return fields
 
 
+def k6_chain_ms(v, lam, steps):
+    """Device ms of ``launch_floor.cu`` ``k6_chain`` over v's elements with
+    lam a number: each thread runs ``steps`` dependent steps of K6's
+    arithmetic, launched as K6 launches, the launch included."""
+    from epsilon_tpu_torch.ops.kernels import _rows
+    fn = getattr(_launch_floor_library(), f"k6_chain_{_rows.suffix(v)}")
+    x = torch.empty_like(v)
+    return device_ms(lambda: _rows.launch("k6_chain", fn, (v.data_ptr(), float(lam),
+                                                          x.data_ptr(), v.numel(), steps), v))
+
+
+def k8_chain_ms(v, s, widen, newton):
+    """Device ms of ``launch_floor.cu`` ``epi_exp_chain`` over the elements
+    of (v, s): ``widen`` steps of K8's widening and ``newton`` Newton steps
+    a thread, launched as K8 launches, the launch included."""
+    from epsilon_tpu_torch.ops.kernels import _rows
+    fn = getattr(_launch_floor_library(), f"epi_exp_chain_{_rows.suffix(v)}")
+    s = torch.broadcast_to(torch.as_tensor(s, dtype=v.dtype, device=v.device),
+                           v.shape).contiguous()
+    x = torch.empty_like(v)
+    return device_ms(lambda: _rows.launch("epi_exp_chain", fn, (
+        v.data_ptr(), s.data_ptr(), x.data_ptr(), v.numel(), widen, newton), v))
+
+
+def same_values(a, b):
+    """Equal values with NaN in the same places (a NaN's payload and the
+    sign of a zero aside): how a kernel is held to its plain version on
+    special values, where the plain version's torch.maximum passes a NaN
+    operand through and the kernel's arithmetic makes the card's own."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()))
+
+
 def k6_inputs(n, dtype, seed, dev, lam_kind):
     """``(v, lam)`` for K6: v uniform over +-K6_V_RANGE; lam log-uniform
     over 10^K6_LAM_EXP, as a number, a 0-d tensor on the card or one value
@@ -1471,10 +1545,11 @@ def k6_special(dtype, dev):
     return as_t(v), as_t(lam)
 
 
-def k6_check(k6, plain, v, lam, label):
+def k6_check(k6, plain, v, lam, label, special=False):
     """K6 on (v, lam): two runs and the full-count build bitwise equal (so
-    the exit returns the full count's state), its steps within 1..STEPS
-    and the full count's all STEPS; returns ``(x, plain x, steps)``."""
+    the exit returns the full count's state) and equal to the plain
+    version, bitwise (``same_values`` on the special values), its steps
+    within 1..STEPS and the full count's all STEPS; returns ``(x, steps)``."""
     steps = torch.zeros(v.shape, dtype=torch.int32, device=v.device)
     full_steps = torch.zeros_like(steps)
     x = k6.prox(v, lam, steps=steps)
@@ -1485,20 +1560,22 @@ def k6_check(k6, plain, v, lam, label):
     if not (same_bits(x, x2) and same_bits(x, full)):
         raise AssertionError(f"sum_logistic_prox {label}: differs from its full-count build "
                              "or from a second run")
+    if not (same_values(x, ref) if special else same_bits(x, ref)):
+        raise AssertionError(f"sum_logistic_prox {label}: differs from the plain version")
     if not (bool(((steps >= 1) & (steps <= k6.STEPS)).all())
             and bool((full_steps == k6.STEPS).all())):
         raise AssertionError(f"sum_logistic_prox {label}: steps out of 1..{k6.STEPS}")
-    return x, ref, steps
+    return x, steps
 
 
-def phase_sum_logistic(k, card, floor_ms, clock_hz):
-    """Phase 7a's K6: against its plain version (at ROW_RTOL, elementwise
-    relative to max(1, |x|)) and bitwise against its full-count build at
-    the main path's 1,500 elements and at K6_SIZES, f32 and f64, lam a
-    number, a 0-d tensor on the card and one an element, and on the
-    special values; timed at the main path's shape in f32 (kernel and full
-    count in turns, plain, launch floor) beside the chain bound of the
-    steps taken.  Returns the ``kernels`` record."""
+def phase_sum_logistic(k, card, floor_ms):
+    """Phase 7a's K6: bitwise against its full-count build and its plain
+    version at the main path's 1,500 elements and at K6_SIZES, f32 and
+    f64, lam a number, a 0-d tensor on the card and one an element, and on
+    the special values; timed at the main path's shape in f32 (kernel and
+    full count in turns, plain, launch floor) beside its bound, the
+    measured chain of the steps its longest element ran (``k6_chain_ms``).
+    Returns the ``kernels`` record."""
     from epsilon_tpu_torch.ops.kernels import sum_logistic as k6
     from epsilon_tpu_torch.ops.prox import elementwise
     plain = elementwise.prox_sum_logistic_reference
@@ -1509,23 +1586,17 @@ def phase_sum_logistic(k, card, floor_ms, clock_hz):
         for seed, n in enumerate((main_n,) + K6_SIZES):
             for lam_kind in ("number", "0-d", "element"):
                 v, lam = k6_inputs(n, dtype, seed, dev, lam_kind)
-                x, ref, steps = k6_check(k6, plain, v, lam, f"{n} {lam_kind} {dtype}")
-                err = float(((x - ref).abs() / ref.abs().clamp(min=1.0)).max())
-                if not (bool(torch.isfinite(x).all()) and err <= ROW_RTOL[dtype]):
-                    raise AssertionError(f"sum_logistic_prox {n} {lam_kind} {dtype}: relative "
-                                         f"error {err} > {ROW_RTOL[dtype]}")
+                x, steps = k6_check(k6, plain, v, lam, f"{n} {lam_kind} {dtype}")
                 if n == main_n and lam_kind == "number" and dtype == torch.float32:
-                    main_err = float((x - ref).abs().max())
-                parts.append(f"{n} lam {lam_kind}: {err:.2e}"
-                             + (" (bitwise)" if same_bits(x, ref) else "")
-                             + f", steps {steps.float().mean().item():.1f} mean, "
+                    main_err = 0.0
+                parts.append(f"{n} lam {lam_kind}: steps {steps.float().mean().item():.1f} mean, "
                              f"{int(steps.max())} most")
         v, lam = k6_special(dtype, dev)
-        k6_check(k6, plain, v, lam, f"special {dtype}")
+        k6_check(k6, plain, v, lam, f"special {dtype}", special=True)
         log(f"[7a] sum_logistic_prox {str(dtype)[6:]}: bitwise repeatable and equal to its "
-            f"full-count build; relative error to the plain version (rtol "
-            f"{ROW_RTOL[dtype]:g}), Newton steps: " + "; ".join(parts)
-            + f"; the special values (NaN, inf, 0, -0, +-1e30, lam <= 0) bitwise too")
+            f"full-count build and to the plain version; Newton steps: " + "; ".join(parts)
+            + "; the special values (NaN, inf, 0, -0, +-1e30, lam <= 0) bitwise equal to the "
+            "full-count build, equal values to the plain version")
     v, lam = k6_inputs(main_n, torch.float32, 0, dev, "number")
     ms = device_ms(lambda: k6.prox(v, lam))
     plain_ms = device_ms(lambda: plain(v, lam), reps=10, warmup=1)
@@ -1535,28 +1606,189 @@ def phase_sum_logistic(k, card, floor_ms, clock_hz):
     taken = int(steps.max())
     n_bytes = _nbytes(v, x)
     flops = 20 * int(steps.sum()) + 10 * main_n
-    chain = K6_CHAIN_START + K6_CHAIN_PER_STEP * taken
-    chain_ms = 1e3 * chain * ROW_CYCLES_PER_OP / clock_hz
+    # the chain: the start (x0, whose sigmoid runs beside the bracket ends'
+    # g) as one step, then the longest element's Newton steps
+    chain_ms = k6_chain_ms(v, lam, taken + 1)
+    full_chain_ms = k6_chain_ms(v, lam, k6.STEPS + 1)
     bound_ms, bound_by = bound(n_bytes, flops)
     if chain_ms > bound_ms:
         bound_ms, bound_by = chain_ms, "operations"
-    full_chain = K6_CHAIN_START + K6_CHAIN_PER_STEP * k6.STEPS
-    full_chain_ms = 1e3 * full_chain * ROW_CYCLES_PER_OP / clock_hz
     (med, lo, hi), (f_med, f_lo, f_hi) = ab["exit"], ab["full"]
-    log(f"[7a] sum_logistic_prox {main_n} f32 (logreg_l1's shape, lam a number): kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms (device time, medians of 50 and 10); in turns "
-        f"({AB_ROUNDS} rounds of {AB_REPS} calls): exit {med:.4f} ms ({lo:.4f}-{hi:.4f}), full "
-        f"count {f_med:.4f} ms ({f_lo:.4f}-{f_hi:.4f}), ratio {med / f_med:.3f}; steps "
-        f"{steps.float().mean().item():.1f} mean, {taken} on the longest chain ({chain} "
-        f"operations, {chain_ms:.4f} ms at {ROW_CYCLES_PER_OP} cycles and {clock_hz / 1e6:.0f} "
-        f"MHz; the full count's {full_chain_ms:.4f}); bound {bound_ms:.4f} ms by {bound_by} "
-        f"({n_bytes} bytes, {flops:.3g} operations); launch floor {floor_ms:.4f} ms; no PyTorch "
-        f"call computes this function; {card}")
+    log(f"[7a] sum_logistic_prox {main_n} f32 (logreg_l1's shape, lam a number, "
+        f"{k6.threads(main_n)} threads a block): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(device time, medians of 50 and 10); in turns ({AB_ROUNDS} rounds of {AB_REPS} "
+        f"calls): exit {med:.4f} ms ({lo:.4f}-{hi:.4f}), full count {f_med:.4f} ms "
+        f"({f_lo:.4f}-{f_hi:.4f}), ratio {med / f_med:.3f}; steps "
+        f"{steps.float().mean().item():.1f} mean, {taken} on the longest chain; the measured "
+        f"chain of {taken} + 1 steps {chain_ms:.4f} ms (launch_floor.cu k6_chain, launch "
+        f"included; of the full count's {k6.STEPS} + 1: {full_chain_ms:.4f}); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {flops:.3g} operations), kernel at "
+        f"{bound_ms / med:.2f} of it; launch floor {floor_ms:.4f} ms; no PyTorch call computes "
+        f"this function; {card}")
     return {"name": "sum_logistic_prox", "route": "cuda", "source": k["source"],
             "replaces": k["replaces"], "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms,
+            "chain_ms": chain_ms, "full_count_chain_ms": full_chain_ms,
             "full_count_ms": f_med, "ab_ms": {"exit": ab["exit"], "full_count": ab["full"]},
             "steps_taken": taken}
+
+
+def k8_inputs(n, dtype, seed, dev, s_kind="element"):
+    """``(v, s)`` for K8: v uniform over +-K8_V_RANGE; s = e^v 10^u with u
+    uniform over +-K8_S_DECADES (about half the elements inactive, e^v <=
+    s), and every tenth element's s <= 0 (0, -0 or -e^v 10^u); s one an
+    element or (``"number"``) the first element's as a number."""
+    rng = np.random.RandomState(seed)
+    v = rng.uniform(-K8_V_RANGE, K8_V_RANGE, n)
+    s = np.exp(v) * 10.0 ** rng.uniform(-K8_S_DECADES, K8_S_DECADES, n)
+    nonpos = np.arange(n) % 10 == 3
+    s[nonpos] = np.choose(np.arange(nonpos.sum()) % 3, [np.zeros(nonpos.sum()),
+                                                         -np.zeros(nonpos.sum()), -s[nonpos]])
+    v = torch.as_tensor(v, dtype=dtype, device=dev)
+    if s_kind == "number":
+        return v, float(s[0])
+    return v, torch.as_tensor(s, dtype=dtype, device=dev)
+
+
+def k8_special(dtype, dev):
+    """Every pair of the values NaN, +-inf, 0, -0, +-1e30, 1, -1 and 50 for
+    v and for s."""
+    vals = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, 1.0, -1.0, 50.0])
+    v, s = np.meshgrid(vals, vals, indexing="ij")
+    as_t = lambda a: torch.as_tensor(a.ravel(), dtype=dtype, device=dev)
+    return as_t(v), as_t(s)
+
+
+def k8_kkt(v, s, x, t):
+    """The projection of (v, s) onto {e^x <= t} tested in f64 numpy, apart
+    from the kernel: inactive elements (e^v <= s) returned as they came;
+    active ones on the boundary (t = e^x), feasible, x <= v, mu = t - s >=
+    0 and stationary (x + mu e^x = v), each relative to the scale of its
+    terms.  Returns the largest relative violation."""
+    v, s, x, t = (np.asarray(a.double().cpu().numpy(), dtype=np.float64)
+                  for a in torch.broadcast_tensors(v, torch.as_tensor(s, dtype=v.dtype,
+                                                                        device=v.device), x, t))
+    inactive = np.exp(v) <= s
+    worst = float(np.abs(np.where(inactive, x - v, 0.0)).max()
+                  + np.abs(np.where(inactive, t - s, 0.0)).max())
+    a = ~inactive
+    ex = np.exp(x[a])
+    mu = t[a] - s[a]
+    scale = np.maximum.reduce([np.ones_like(ex), np.abs(v[a]), ex * ex, np.abs(s[a]) * ex])
+    for r in (np.abs(t[a] - ex) / np.maximum(1.0, ex),
+              np.maximum(x[a] - v[a], 0.0) / np.maximum(1.0, np.abs(v[a])),
+              np.maximum(-mu, 0.0) / np.maximum(1.0, np.maximum(np.abs(s[a]), t[a])),
+              np.abs(x[a] + mu * ex - v[a]) / scale):
+        if r.size:
+            worst = max(worst, float(r.max()))
+    return worst
+
+
+def k8_check(k8, plain, v, s, label, special=False):
+    """K8 on (v, s): two runs and the full-count build bitwise equal (so
+    the exits return the full counts' states) and equal to the plain
+    version, bitwise (``same_values`` on the special values); its widening
+    steps within 1..WIDEN_STEPS, its Newton steps within 4..NEWTON_STEPS,
+    the full count's all both counts.  Returns ``((x, t), steps)``."""
+    shape = tuple(torch.broadcast_shapes(v.shape, torch.as_tensor(s).shape)) + (2,)
+    steps = torch.zeros(shape, dtype=torch.int32, device=v.device)
+    full_steps = torch.zeros_like(steps)
+    out = k8.epi(v, s, steps=steps)
+    out2 = k8.epi(v, s)
+    full = k8.epi_full(v, s, steps=full_steps)
+    ref = plain(v, s)
+    torch.cuda.synchronize()
+    if not all(same_bits(a, b) and same_bits(a, c) for a, b, c in zip(out, out2, full)):
+        raise AssertionError(f"epi_exp {label}: differs from its full-count build or from a "
+                             "second run")
+    if not all((same_values(a, b) if special else same_bits(a, b)) for a, b in zip(out, ref)):
+        raise AssertionError(f"epi_exp {label}: differs from the plain version")
+    widen, newton = steps[..., 0], steps[..., 1]
+    if not (bool(((widen >= 1) & (widen <= k8.WIDEN_STEPS)).all())
+            and bool(((newton >= 4) & (newton <= k8.NEWTON_STEPS)).all())
+            and bool((full_steps[..., 0] == k8.WIDEN_STEPS).all())
+            and bool((full_steps[..., 1] == k8.NEWTON_STEPS).all())):
+        raise AssertionError(f"epi_exp {label}: steps out of their counts")
+    return out, steps
+
+
+def phase_epi_exp(k, card, floor_ms):
+    """Phase 7a's K8: bitwise against its full-count build and its plain
+    version at the main path's shape (``max_softmax``'s EXP epigraph under
+    ``use_epigraph=False``) and at K8_SIZES, f32 and f64, s one an element,
+    a number and (at the main shape) a 0-d tensor, and on the special
+    values; the main shape's results against the f64 numpy test of the
+    projection (``k8_kkt``); timed at the main shape in f32 (kernel and full
+    count in turns, plain, launch floor) beside its bound, the measured
+    chain of its longest element's steps (``k8_chain_ms``).  Returns the
+    ``kernels`` record."""
+    from epsilon_tpu_torch.ops.kernels import epi_exp as k8
+    from epsilon_tpu_torch.ops.prox import elementwise
+    plain = elementwise.epi_exp_reference
+    dev = torch.device("cuda")
+    (main_n,) = k["main"]
+    for dtype in (torch.float32, torch.float64):
+        parts = []
+        for seed, n in enumerate((main_n,) + K8_SIZES):
+            for s_kind in ("element", "number") + (("0-d",) if n == main_n else ()):
+                v, s = k8_inputs(n, dtype, seed, dev, "number" if s_kind == "0-d" else s_kind)
+                if s_kind == "0-d":
+                    s = torch.tensor(s, dtype=dtype, device=dev)
+                (x, t), steps = k8_check(k8, plain, v, s, f"{n} s {s_kind} {dtype}")
+                kkt = k8_kkt(v, s, x, t)
+                if n == main_n and s_kind == "element":
+                    if not kkt <= K8_KKT_RTOL[dtype]:
+                        raise AssertionError(f"epi_exp {n} {dtype}: projection test {kkt:.3e} "
+                                             f"> {K8_KKT_RTOL[dtype]}")
+                    if dtype == torch.float32:
+                        main_err, main_in = 0.0, (v, s)
+                active = int((torch.exp(v) > s).sum())
+                parts.append(f"{n} s {s_kind}: {active} active, widening "
+                             f"{steps[..., 0].float().mean().item():.1f} mean "
+                             f"{int(steps[..., 0].max())} most, Newton "
+                             f"{steps[..., 1].float().mean().item():.1f} mean "
+                             f"{int(steps[..., 1].max())} most, projection test {kkt:.1e}")
+        v, s = k8_special(dtype, dev)
+        k8_check(k8, plain, v, s, f"special {dtype}", special=True)
+        log(f"[7a] epi_exp {str(dtype)[6:]}: bitwise repeatable and equal to its full-count "
+            f"build and to the plain version; " + "; ".join(parts) + f" (the main shape's "
+            f"projection test in f64 numpy within {K8_KKT_RTOL[dtype]:g}); the special values "
+            "(NaN, +-inf, 0, -0, +-1e30 in v and s) bitwise equal to the full-count build, "
+            "equal values to the plain version")
+    v, s = main_in
+    ms = device_ms(lambda: k8.epi(v, s))
+    plain_ms = device_ms(lambda: plain(v, s), reps=10, warmup=1)
+    ab = interleaved_ms({"exit": lambda: k8.epi(v, s), "full": lambda: k8.epi_full(v, s)})
+    steps = torch.zeros(main_n, 2, dtype=torch.int32, device=dev)
+    x, t = k8.epi(v, s, steps=steps)
+    longest = int(torch.argmax(steps.sum(dim=1)))
+    widen, newton = (int(c) for c in steps[longest])
+    n_bytes = _nbytes(v, s, x, t)
+    flops = 8 * int(steps[:, 0].sum()) + 24 * int(steps[:, 1].sum()) + 20 * main_n
+    chain_ms = k8_chain_ms(v, s, widen, newton)
+    full_chain_ms = k8_chain_ms(v, s, k8.WIDEN_STEPS, k8.NEWTON_STEPS)
+    bound_ms, bound_by = bound(n_bytes, flops)
+    if chain_ms > bound_ms:
+        bound_ms, bound_by = chain_ms, "operations"
+    (med, lo, hi), (f_med, f_lo, f_hi) = ab["exit"], ab["full"]
+    log(f"[7a] epi_exp {main_n} f32 (max_softmax's EXP epigraph under use_epigraph=False, s "
+        f"one an element): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (device time, medians "
+        f"of 50 and 10); in turns ({AB_ROUNDS} rounds of {AB_REPS} calls): exit {med:.4f} ms "
+        f"({lo:.4f}-{hi:.4f}), full count {f_med:.4f} ms ({f_lo:.4f}-{f_hi:.4f}), ratio "
+        f"{med / f_med:.3f}; steps: widening {steps[:, 0].float().mean().item():.1f} mean, "
+        f"Newton {steps[:, 1].float().mean().item():.1f} mean, on the longest chain (element "
+        f"{longest}) {widen} + {newton}; the measured chain of those steps {chain_ms:.4f} ms "
+        f"(launch_floor.cu epi_exp_chain, launch included; of the full counts "
+        f"{k8.WIDEN_STEPS} + {k8.NEWTON_STEPS}: {full_chain_ms:.4f}); bound {bound_ms:.4f} ms "
+        f"by {bound_by} ({n_bytes} bytes, {flops:.3g} operations), kernel at "
+        f"{bound_ms / med:.2f} of it; launch floor {floor_ms:.4f} ms; no PyTorch call computes "
+        f"this function; {card}")
+    return {"name": "epi_exp", "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"], "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms,
+            "chain_ms": chain_ms, "full_count_chain_ms": full_chain_ms,
+            "full_count_ms": f_med, "ab_ms": {"exit": ab["exit"], "full_count": ab["full"]},
+            "steps_taken": {"widening": widen, "newton": newton}}
 
 
 def tv_signal(n, seed):
@@ -1929,7 +2161,7 @@ def phase_library_sets(pool, futures, t0):
                 for k, n in r["launches"].items():
                     launches.setdefault(k, dict.fromkeys(LIBRARY_SETS, 0))[name] += n
             failed += [f"{kernel} not launched in {row} ({name})"
-                       for kernel, k in loop_kernels().items() for row in k["rows"]
+                       for kernel, k in loop_kernels().items() for row in k["sets"].get(name, ())
                        if not next(r for r in rows if r["name"] == row)["launches"].get(kernel)]
     log(f"[7c] both sets done {time.perf_counter() - t0:.1f} s after they started; "
         f"launches per kernel and set: {json.dumps(launches)}")
@@ -2281,7 +2513,7 @@ def check_mesh_kinds(mw, ranks, resumed, e_ref, f_refs):
             + f"): {f0['status']} in {f0['iterations']} iterations (one process "
             f"{ref['iterations']}); max|x - x_one|/max|x_one| {err:.2e} (tol {tol:g}); "
             f"{f0['ms_per_iter']:.4f} ms/iter (one process {ref['ms_per_iter']:.4f}); set-up "
-            f"{f0['setup_s']:.2f} s; stacked bytes a rank {f0['stacked_bytes']}; K6, K7 "
+            f"{f0['setup_s']:.2f} s; stacked bytes a rank {f0['stacked_bytes']}; K6, K7, K8 "
             f"launches a rank {[list(m_['f'][family]['launches'].values()) for m_ in metas]} "
             f"(one process {list(ref['launches'].values())})")
         if not (f0["iterations"] == ref["iterations"] and err <= tol):
@@ -2290,6 +2522,10 @@ def check_mesh_kinds(mw, ranks, resumed, e_ref, f_refs):
         if family == "tv" and not (ref["launches"]["tv1d_pdas"] and all(
                 m_["f"][family]["launches"]["tv1d_pdas"] for m_ in metas)):
             failed.append("9f tv: K7 not launched")
+        # the elementwise epigraph's rows run K8 on every rank and in one process
+        if family == "epigraph_elementwise" and not (ref["launches"]["epi_exp"] and all(
+                m_["f"][family]["launches"]["epi_exp"] for m_ in metas)):
+            failed.append("9f epigraph_elementwise: K8 not launched")
     # (g) the checkpoint, resumed on the same four ranks and on two
     g0 = metas[0]["g"]
     _same_on_all_ranks_arrays(ranks, "g_x")
@@ -2468,7 +2704,8 @@ def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
         + ", ".join(f"({k}) {metas[0][f'{k}_seconds']:.1f}" for k in "abcdefg"))
     if failed:
         raise AssertionError(f"[9] failed: {failed}")
-    return d0["k1_launches"], metas[0]["f"]["tv"]["launches"]["tv1d_pdas"]
+    return (d0["k1_launches"], metas[0]["f"]["tv"]["launches"]["tv1d_pdas"],
+            metas[0]["f"]["epigraph_elementwise"]["launches"]["epi_exp"])
 
 
 def main():
@@ -2565,7 +2802,7 @@ def main():
                         for name, n in launches.items()))
         for name, n in launches.items():
             row_records[name]["launches"] = n
-            if n == 0:
+            if n == 0 and loop_kernels().get(name, {"rows": True})["rows"]:
                 raise AssertionError(f"{name} was not launched in phase 7")
         records += list(row_records.values())
 
@@ -2589,16 +2826,21 @@ def main():
         rec["launches_7c"] = sets_launches.get(name, dict.fromkeys(LIBRARY_SETS, 0))
         if name in row_k and not sum(rec["launches_7c"].values()):
             raise AssertionError(f"{name} was not launched in phase 7c")
-        if name in loop_kernels() and not all(rec["launches_7c"].values()):
-            raise AssertionError(f"{name} was not launched in phase 7c under every set: "
-                                 f"{rec['launches_7c']}")
+        if name in loop_kernels() and not all(
+                rec["launches_7c"][set_name] for set_name in loop_kernels()[name]["sets"]):
+            raise AssertionError(f"{name} was not launched in phase 7c under "
+                                 f"{list(loop_kernels()[name]['sets'])}: {rec['launches_7c']}")
+    # K8 runs in no library row under the default parameters: its launches
+    # are those of the set that runs it
+    row_records["epi_exp"]["launches"] += row_records["epi_exp"]["launches_7c"]["no_epi"]
 
     # -- 9. the meshed paths, four processes over one group ------------------------------
     A, b, lam = workload(2000, 1000)
     # K1's second record: the streaming path at one rank's shape, its count
     # rank 0's in (d) (each rank is a process of its own and sets its count
     # to 0 just before the solve)
-    record_k1_rank["launches"], row_records["tv1d_pdas"]["launches_9f"] = phase_mesh(
+    (record_k1_rank["launches"], row_records["tv1d_pdas"]["launches_9f"],
+     row_records["epi_exp"]["launches_9f"]) = phase_mesh(
         card, (A, b, lam, lasso_objective(A, b, lam, x_ref)),
         consensus_data, z_consensus, z_consensus_steady)
 

@@ -1,5 +1,7 @@
 // Device helpers shared by the per-row loop kernels (lse_rows.cu,
-// epi_sum_square.cu, epi_neg_log.cu).
+// epi_sum_square.cu, epi_neg_log.cu), the one-thread-an-element loop
+// kernels (sum_logistic.cu, epi_exp.cu: iterate4(), newton_element(),
+// element_threads()) and launch_floor.cu's chains.
 //
 // These kernels replace fixed-count loops that the JAX package leaves to
 // XLA (epsilon_tpu/ops/prox/util.py, newton_epi.py, registry.py), so that a
@@ -350,6 +352,109 @@ __device__ __forceinline__ T newton_safeguarded(G gfun, T x, T lo, T hi, int ite
   }, k, live);
   if (ran != nullptr) *ran += k;
   return b.x;
+}
+
+// -- one thread an element (K6 sum_logistic.cu, K8 epi_exp.cu) -------------
+//
+// The lanes of these loops are independent (no shuffles), so each exits
+// alone, and a warp runs at the pace of its slowest lane: the exit pays
+// where it is checked.  The rule stays iterate()'s: once the state after
+// step k equals the state after step k - p (p <= 4), the state after all N
+// steps is the state of that cycle which step N reaches, and finding the
+// repeat at a later step changes nothing.  So iterate4() runs four steps
+// at a time, the states named s0 (before them) .. s4 (rotated by their
+// names at compile time, not by moves), and compares s4 with s3, s2, s1,
+// s0 once, x first: the other fields only where an x matches.  Where none
+// repeats by the last whole four, the rest of the count runs after the
+// body; no check follows the last step, whose state is the result whatever
+// a check would find.  `ran` gets the steps run (a multiple of 4 at an
+// exit).  Without EXIT every step of the count runs.
+template <bool EXIT, typename T, typename F>
+__device__ __forceinline__ Bracket<T> iterate4(Bracket<T> s, int iters, F step, int& ran) {
+  if constexpr (EXIT) {
+    int k = 0;
+#pragma unroll 1
+    for (; k + 4 <= iters; k += 4) {
+      const Bracket<T> s0 = s;
+      const Bracket<T> s1 = step(s0);
+      const Bracket<T> s2 = step(s1);
+      const Bracket<T> s3 = step(s2);
+      s = step(s3);
+      if (same(s.x, s3.x) || same(s.x, s2.x) || same(s.x, s1.x) || same(s.x, s0.x)) {
+        const int p = same(s, s3) ? 1 : same(s, s2) ? 2 : same(s, s1) ? 3 : same(s, s0) ? 4 : 0;
+        if (p != 0) {
+          ran = k + 4;
+          // the full count's state: step k + 4 + r of the cycle, r =
+          // (iters - k - 4) mod p, which is the state 4 + r - p of the slots
+          const int slot = 4 + (iters - k - 4) % p - p;
+          return slot == 0 ? s0 : slot == 1 ? s1 : slot == 2 ? s2 : slot == 3 ? s3 : s;
+        }
+      }
+    }
+#pragma unroll 1
+    for (; k < iters; ++k) s = step(s);
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < iters; ++k) s = step(s);
+  }
+  ran = iters;
+  return s;
+}
+
+// util.newton_safeguarded for one element a thread, on iterate4(): the
+// same operations in the same order as newton_safeguarded() above, with
+// the bracket's update and the Newton step as selects.  gfun(x, gp) as for
+// newton_safeguarded(); `ran` gets the steps run.
+template <typename T, bool EXIT, typename G>
+__device__ __forceinline__ T newton_element(G gfun, T x, T lo, T hi, int iters, int& ran) {
+  T gp;
+  const T glo = gfun(lo, gp);
+  const T ghi = gfun(hi, gp);
+  return iterate4<EXIT>(Bracket<T>{x, lo, hi, glo, ghi}, iters, [&](Bracket<T> b) {
+    T gpx;
+    const T gx = gfun(b.x, gpx);
+    const bool neg = gx < T(0);
+    b.lo = neg ? tmax(b.lo, b.x) : b.lo;
+    b.hi = neg ? b.hi : tmin(b.hi, b.x);
+    const T glo_n = neg ? gx : T(0.5) * b.glo;
+    b.ghi = neg ? T(0.5) * b.ghi : gx;
+    b.glo = glo_n;
+    // each quotient and clamp taken whatever its guard says and then
+    // selected: no branch around them on the step's chain, the same bits
+    const T quotient = gx / gpx;
+    const T step = gpx != T(0) ? quotient : T(0);
+    const T xn = b.x - step;
+    const T denom = b.ghi - b.glo;
+    const T mid = T(0.5) * (b.lo + b.hi);
+    const T ratio = (b.lo * b.ghi - b.hi * b.glo) / denom;
+    const T falsi = denom != T(0) ? ratio : mid;
+    const T clamped = tmin(tmax(falsi, b.lo), b.hi);
+    const T fallback = is_finite(falsi) ? clamped : mid;
+    const bool bad = xn <= b.lo || xn >= b.hi || !is_finite(xn);
+    b.x = bad ? fallback : xn;
+    return b;
+  }, ran).x;
+}
+
+// The threads a block of a one-thread-an-element launch of n (K6, K8):
+// enough warps a block to spread n over every SM of the current device,
+// at least one warp and at most 256 threads.  A small launch (logreg_l1's
+// 1,500 elements) then takes one-warp blocks on 47 SMs, one warp to a
+// scheduler, where 256-thread blocks would put 8 warps on each of 6 SMs.
+// Elements are independent, so the mapping changes no bit.
+inline int element_threads(long long n) {
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (sms[dev] == 0) {
+    int count = 0;
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    sms[dev] = count > 0 ? count : 1;
+  }
+  const long long per_sm = (n + sms[dev] - 1) / sms[dev];
+  const long long threads = 32 * ((per_sm + 31) / 32);
+  return (int)(threads < 32 ? 32 : threads > 256 ? 256 : threads);
 }
 
 // newton_epi.implicit_newton_epigraph's state.

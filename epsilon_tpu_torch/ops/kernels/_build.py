@@ -33,14 +33,17 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str, flags=()):
+def build(name: str, flags=(), csrc=None):
     """Compile ``csrc/<name>.cu`` for sm_90a, with the extra nvcc ``flags``,
-    into a shared library under ``build/kernels/``.  Returns ``(path,
+    into a shared library under ``build/kernels/``; ``csrc``, where given,
+    is another tree's kernel directory (``tools/profile_port.py --k6``
+    builds an earlier tree's kernel beside this one's).  Returns ``(path,
     seconds, compiler_log)``; seconds is 0 when the library was already
     built."""
-    src = _CSRC / f"{name}.cu"
+    csrc = _CSRC if csrc is None else Path(csrc)
+    src = csrc / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes())
-    for header in sorted(_CSRC.glob("*.cuh")):
+    for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(flags).encode())
     out = _BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"

@@ -1,5 +1,6 @@
 """Argument handling shared by the per-row loop kernels (``lse_rows``,
-``epi_sum_square``, ``epi_neg_log``).
+``epi_sum_square``, ``epi_neg_log``) and the one-thread-an-element loop
+kernels (``sum_logistic``, ``epi_exp``: :func:`element_args`).
 
 Each kernel takes a batch of rows (any leading shape, the row along the
 last axis, flattened to ``rows x n``) and a per-row scalar (``lam`` or
@@ -28,19 +29,19 @@ from . import _build
 FLAGS = ("--fmad=false", "--split-compile=0")
 
 
-def build(name: str, extra=()):
+def build(name: str, extra=(), csrc=None):
     """Compile ``csrc/<name>.cu`` with the ``extra`` nvcc flags (see
-    :func:`._build.build`)."""
-    return _build.build(name, FLAGS + tuple(extra))
+    :func:`._build.build`; ``csrc`` another tree's kernel sources)."""
+    return _build.build(name, FLAGS + tuple(extra), csrc)
 
 
-def load(name: str, entries, extra=()):
+def load(name: str, entries, extra=(), csrc=None):
     """Load the library of ``csrc/<name>.cu`` (built with the ``extra``
-    nvcc flags) and type its entry points: ``entries`` maps each C
-    function to its argument types, where the string ``"scalar"`` stands
-    for the entry's float type (``c_float`` for a name ending in ``_f32``,
-    else ``c_double``)."""
-    path, _, _ = build(name, extra)
+    nvcc flags, from the directory ``csrc`` where given) and type its entry
+    points: ``entries`` maps each C function to its argument types, where
+    the string ``"scalar"`` stands for the entry's float type (``c_float``
+    for a name ending in ``_f32``, else ``c_double``)."""
+    path, _, _ = build(name, extra, csrc)
     lib = ctypes.CDLL(str(path))
     for fn_name, args in entries.items():
         scalar = ctypes.c_float if fn_name.endswith("_f32") else ctypes.c_double
@@ -48,6 +49,14 @@ def load(name: str, entries, extra=()):
         fn.argtypes = [scalar if a == "scalar" else a for a in args]
         fn.restype = ctypes.c_int
     return lib
+
+
+def broadcast_shape(*shapes):
+    """The shapes' broadcast shape, by numpy's rule (torch's); raises
+    ValueError where they do not broadcast.  ``torch.broadcast_shapes``
+    imports sympy at its first call in a process: seconds on a fresh rank
+    of phase 9, where this costs microseconds."""
+    return tuple(int(d) for d in np.broadcast_shapes(*(tuple(sh) for sh in shapes)))
 
 
 def rows_of(fname: str, v: torch.Tensor):
@@ -97,8 +106,8 @@ def out_shape(fname: str, name: str, batch, shape):
     """The shape of a per-row output: the rows' batch shape broadcast with
     the scalar's (which must not add rows)."""
     try:
-        out = tuple(torch.broadcast_shapes(tuple(batch), tuple(shape)))
-    except RuntimeError:
+        out = broadcast_shape(batch, shape)
+    except ValueError:
         raise ValueError(f"{fname}: {name} {tuple(shape)} does not broadcast to the rows "
                          f"{tuple(batch)}") from None
     if int(np.prod(out, dtype=np.int64)) != int(np.prod(batch, dtype=np.int64)):
@@ -116,6 +125,61 @@ def epi_args(fname: str, v, s):
     x = torch.empty_like(v)
     t = torch.empty(out_shape(fname, "s", batch, s_shape), dtype=v.dtype, device=v.device)
     return x, t, (v.data_ptr(), ptr, stride, value, x.data_ptr(), t.data_ptr(), rows, n), (v, keep)
+
+
+def element_args(fname: str, name: str, v, a):
+    """Check the arguments of a one-thread-an-element kernel: ``v`` a CUDA
+    tensor and ``a`` (``lam`` or ``s``) a number, a one-element CPU tensor
+    (both passed by value), a one-element tensor on v's device (read there
+    with stride 0, never on the host) or a tensor that broadcasts with v.
+    Returns ``(v, pointer, stride, value, keep)``: v broadcast to the joint
+    shape and contiguous, the pointer of ``a`` (None when passed by value)
+    with its stride (0 or 1), its value, and the tensor that must live
+    through the launch."""
+    if not isinstance(v, torch.Tensor):
+        raise TypeError(f"{fname}: v must be a tensor, got {type(v).__name__}")
+    if v.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{fname}: v must be float32 or float64, got {v.dtype}")
+    if v.device.type != "cuda":
+        raise ValueError(f"{fname}: the kernel needs a CUDA tensor, got one on {v.device}")
+    ptr, stride, value, keep = None, 0, 0.0, None
+    shape = tuple(v.shape)
+    if isinstance(a, torch.Tensor) and not (a.device.type == "cpu" and a.numel() == 1):
+        if a.device != v.device:
+            raise ValueError(f"{fname}: {name} on {a.device}, v on {v.device}")
+        try:
+            shape = broadcast_shape(shape, a.shape)
+        except ValueError:
+            raise ValueError(f"{fname}: {name} {tuple(a.shape)} does not broadcast with v "
+                             f"{tuple(v.shape)}") from None
+        keep = a.to(v.dtype)
+        if keep.numel() != 1:
+            keep = torch.broadcast_to(keep, shape).contiguous()
+            stride = 1
+        ptr = keep.data_ptr()
+    elif isinstance(a, torch.Tensor):
+        shape = broadcast_shape(shape, a.shape)
+        value = float(a.reshape(()))
+    else:
+        value = float(a)
+    v = torch.broadcast_to(v, shape).contiguous()
+    if v.numel() >= 2 ** 62:
+        raise ValueError(f"{fname}: v {tuple(v.shape)} is too large")
+    return v, ptr, stride, value, keep
+
+
+def element_steps_ptr(fname: str, steps, shape, device):
+    """The pointer of ``steps`` for a one-thread-an-element kernel's C
+    entry (None for None): a contiguous int32 tensor of ``shape`` on
+    ``device``, which the kernel fills."""
+    if steps is None:
+        return None
+    if (not isinstance(steps, torch.Tensor) or steps.dtype != torch.int32
+            or tuple(steps.shape) != tuple(shape) or not steps.is_contiguous()
+            or steps.device != device):
+        raise ValueError(f"{fname}: steps must be a contiguous int32 tensor of shape "
+                         f"{tuple(shape)} on {device}")
+    return steps.data_ptr()
 
 
 # Step counts a row: epigraph Newton steps on lam, safeguarded Newton steps

@@ -14,7 +14,8 @@ other device.  The dispatch (the plain version on a CPU tensor) is in
 repeats, which gives the full-count result bitwise; :func:`prox_full`
 launches the build that runs the loop to its count, the reference that
 exit is checked against (no dispatch calls it).  ``steps``, where given,
-receives each element's Newton steps.
+receives each element's Newton steps.  A launch spreads its elements over
+every SM (:func:`threads`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from . import _rows
 
-__all__ = ["prox", "prox_full", "build", "launches", "STEPS"]
+__all__ = ["prox", "prox_full", "build", "entries", "threads", "launches", "STEPS"]
 
 # Kernel launches made by prox (the full-count build's are not counted).
 launches = 0
@@ -41,61 +42,34 @@ def build():
     return _rows.build("sum_logistic")
 
 
+def entries():
+    """The C entries of ``csrc/sum_logistic.cu`` and their argument types
+    (``_rows.load``'s form)."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    out = {f"sum_logistic_prox_{build}{t}": [P, P, I, "scalar", P, P, L, P]
+           for build in ("", "full_") for t in ("f32", "f64")}
+    out["sum_logistic_threads"] = [L]
+    return out
+
+
 def _library():
     global _LIB
     if _LIB is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        args = [P, P, I, "scalar", P, P, L, P]
-        _LIB = _rows.load("sum_logistic", {f"sum_logistic_prox_{build}{t}": args
-                                           for build in ("", "full_") for t in ("f32", "f64")})
+        _LIB = _rows.load("sum_logistic", entries())
     return _LIB
 
 
-def _args(fname, v, lam):
-    """``(v, x, lam pointer, stride, value, keep)``: v and lam broadcast
-    to one shape, x allocated for it."""
-    if not isinstance(v, torch.Tensor):
-        raise TypeError(f"{fname}: v must be a tensor, got {type(v).__name__}")
-    if v.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{fname}: v must be float32 or float64, got {v.dtype}")
-    if v.device.type != "cuda":
-        raise ValueError(f"{fname}: the kernel needs a CUDA tensor, got one on {v.device}")
-    ptr, stride, value, keep = None, 0, 0.0, None
-    shape = tuple(v.shape)
-    if isinstance(lam, torch.Tensor) and not (lam.device.type == "cpu" and lam.numel() == 1):
-        if lam.device != v.device:
-            raise ValueError(f"{fname}: lam on {lam.device}, v on {v.device}")
-        try:
-            shape = tuple(torch.broadcast_shapes(shape, tuple(lam.shape)))
-        except RuntimeError:
-            raise ValueError(f"{fname}: lam {tuple(lam.shape)} does not broadcast with v "
-                             f"{tuple(v.shape)}") from None
-        keep = lam.to(v.dtype)
-        if keep.numel() != 1:
-            keep = torch.broadcast_to(keep, shape).contiguous()
-            stride = 1
-        ptr = keep.data_ptr()
-    elif isinstance(lam, torch.Tensor):
-        shape = tuple(torch.broadcast_shapes(shape, tuple(lam.shape)))
-        value = float(lam.reshape(()))
-    else:
-        value = float(lam)
-    v = torch.broadcast_to(v, shape).contiguous()
-    if v.numel() >= 2 ** 62:
-        raise ValueError(f"{fname}: v {tuple(v.shape)} is too large")
-    return v, torch.empty_like(v), ptr, stride, value, keep
+def threads(n: int) -> int:
+    """The threads a block of a launch of n elements on the current CUDA
+    device (``row_loops.cuh`` ``element_threads``: the launch spread over
+    every SM, 32-256)."""
+    return int(_library().sum_logistic_threads(n))
 
 
 def _prox(fname, build, v, lam, steps):
-    v, x, ptr, stride, value, _keep = _args(fname, v, lam)
-    steps_ptr = None
-    if steps is not None:
-        if (not isinstance(steps, torch.Tensor) or steps.dtype != torch.int32
-                or tuple(steps.shape) != tuple(x.shape) or not steps.is_contiguous()
-                or steps.device != x.device):
-            raise ValueError(f"{fname}: steps must be a contiguous int32 tensor of shape "
-                             f"{tuple(x.shape)} on {x.device}")
-        steps_ptr = steps.data_ptr()
+    v, ptr, stride, value, _keep = _rows.element_args(fname, "lam", v, lam)
+    x = torch.empty_like(v)
+    steps_ptr = _rows.element_steps_ptr(fname, steps, x.shape, x.device)
     fn = getattr(_library(), f"sum_logistic_prox_{build}{_rows.suffix(x)}")
     if not build:
         global launches

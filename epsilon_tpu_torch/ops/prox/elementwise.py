@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import epi_exp as epi_exp_kernel
 from ..kernels import epi_neg_log, sum_logistic
 from .util import (as_tensor_like, newton_safeguarded, pwl_root,
                    solve_w_log_w, where_batch)
@@ -102,6 +103,17 @@ def eval_sum_exp(x):
 
 
 def epi_exp(v, s):
+    """Projection of (v, s) onto {(x, t): e^x <= t} elementwise: the plain
+    version (:func:`epi_exp_reference`) on a CPU tensor, one launch of the
+    ``epi_exp`` kernel on a CUDA tensor; any other device raises."""
+    if v.device.type == "cpu":
+        return epi_exp_reference(v, s)
+    return epi_exp_kernel.epi(v, s)
+
+
+def epi_exp_reference(v, s):
+    """The bracket's 40-step widening and the safeguarded Newton of 25
+    steps, one eager operation a step."""
     s = as_tensor_like(s, v)
     inactive = torch.exp(v) <= s
 

@@ -688,9 +688,9 @@ def _logistic_inputs(n, seed, dtype, device, lam_kind):
 def test_sum_logistic_kernel_matches_full_count_and_plain(cuda, n, lam_kind, dtype):
     """K6 through its dispatch (one launch) equals its full-count build
     bitwise (the exit returns the full count's state) and a second run; its
-    steps lie in 1..40; against the plain version on the same CUDA tensors
-    within ROW_KERNEL_RTOL, elementwise relative to max(1, |x|) (the same
-    operations in the same order; the card's exp against torch's)."""
+    steps lie in 1..40; and it equals the plain version on the same CUDA
+    tensors bitwise (the same operations in the same order, the card's
+    exp as torch's)."""
     from epsilon_tpu_torch.ops.kernels import sum_logistic
     from epsilon_tpu_torch.ops.prox import elementwise
     v, lam = _logistic_inputs(n, n, dtype, cuda, lam_kind)
@@ -704,21 +704,25 @@ def test_sum_logistic_kernel_matches_full_count_and_plain(cuda, n, lam_kind, dty
     assert bool(((steps >= 1) & (steps <= sum_logistic.STEPS)).all())
     assert bool((full_steps == sum_logistic.STEPS).all())
     want = elementwise.prox_sum_logistic_reference(v, lam)
-    assert x.shape == want.shape and x.dtype == want.dtype and torch.isfinite(x).all()
-    assert ((x - want).abs() / want.abs().clamp(min=1.0)).max().item() <= ROW_KERNEL_RTOL[dtype]
+    assert torch.isfinite(x).all() and _same_bits(x, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_sum_logistic_kernel_exit_on_special_values(cuda, dtype):
     """Every pair of v in {NaN, +-inf, 0, -0, +-1e30, +-1e-30, 1, -7.5} and
     lam in {NaN, inf, 0, -0, -1, 1e-30, 1, 1e30}: the exit's result equals
-    the full-count build's bits."""
+    the full-count build's bits, and the plain version's values (NaN in the
+    same places; ``chip_smoke.same_values``)."""
+    from chip_smoke import same_values
     from epsilon_tpu_torch.ops.kernels import sum_logistic
+    from epsilon_tpu_torch.ops.prox import elementwise
     vs = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, 1e-30, -1e-30, 1.0, -7.5]
     lams = [np.nan, np.inf, 0.0, -0.0, -1.0, 1e-30, 1.0, 1e30]
     v, lam = (torch.as_tensor(a.ravel(), dtype=dtype, device=cuda)
               for a in np.meshgrid(np.array(vs), np.array(lams), indexing="ij"))
-    assert _same_bits(sum_logistic.prox(v, lam), sum_logistic.prox_full(v, lam))
+    x = sum_logistic.prox(v, lam)
+    assert _same_bits(x, sum_logistic.prox_full(v, lam))
+    assert same_values(x, elementwise.prox_sum_logistic_reference(v, lam))
 
 
 def test_sum_logistic_kernel_broadcasts_lam(cuda):
@@ -741,6 +745,118 @@ def test_sum_logistic_kernel_broadcasts_lam(cuda):
         sum_logistic.prox(v, torch.ones(7, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         sum_logistic.prox(v, torch.ones(40, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1500, 4224, 4225, 100_000])
+def test_one_thread_an_element_launches_spread_over_the_sms(cuda, n):
+    """K6's and K8's blocks: 32 x ceil(n / (32 x SMs)) threads, at least 32
+    and at most 256 (``row_loops.cuh`` element_threads): logreg_l1's 1,500
+    elements take one-warp blocks."""
+    from epsilon_tpu_torch.ops.kernels import sum_logistic
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = min(256, max(32, 32 * -(-n // (32 * sms))))
+    assert sum_logistic.threads(n) == want
+    if n == 1500 and sms >= 47:
+        assert want == 32
+
+
+# -- K8: the EXP epigraph, one thread an element -----------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s_kind", ["element", "number", "0-d"])
+@pytest.mark.parametrize("n", [1, 255, 257, 2000, 20_000, 100_000])
+def test_epi_exp_kernel_matches_full_count_and_plain(cuda, n, s_kind, dtype):
+    """K8 through its dispatch (one launch) equals its full-count build and
+    the plain version bitwise, x and t, with its widening steps in 1..40
+    and its Newton steps in 4..25 (``chip_smoke.k8_check``), on chip_smoke's
+    phase 7a inputs (active and inactive elements, s <= 0); at max_softmax's
+    2,000 elements it passes the f64 numpy test of the projection."""
+    from chip_smoke import K8_KKT_RTOL, k8_check, k8_inputs, k8_kkt
+    from epsilon_tpu_torch.ops.kernels import epi_exp
+    from epsilon_tpu_torch.ops.prox import elementwise
+    v, s = k8_inputs(n, dtype, n, cuda, "number" if s_kind == "0-d" else s_kind)
+    if s_kind == "0-d":
+        s = torch.tensor(s, dtype=dtype, device=cuda)
+    before = epi_exp.launches
+    x, t = elementwise.epi_exp(v, s)
+    assert epi_exp.launches == before + 1
+    (x2, t2), _ = k8_check(epi_exp, elementwise.epi_exp_reference, v, s, f"{n} {s_kind}")
+    assert _same_bits(x, x2) and _same_bits(t, t2)
+    if n == 2000:
+        assert k8_kkt(v, s, x, t) <= K8_KKT_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_epi_exp_kernel_on_special_values(cuda, dtype):
+    """Every pair of v and s in {NaN, +-inf, 0, -0, +-1e30, 1, -1, 50}: the
+    full-count build's bits, the plain version's values (NaN in the same
+    places)."""
+    from chip_smoke import k8_check, k8_special
+    from epsilon_tpu_torch.ops.kernels import epi_exp
+    from epsilon_tpu_torch.ops.prox import elementwise
+    v, s = k8_special(dtype, cuda)
+    k8_check(epi_exp, elementwise.epi_exp_reference, v, s, "special", special=True)
+
+
+def test_epi_exp_kernel_broadcasts_s(cuda):
+    """A stacked row's (rows, d) with s of the same shape, s broadcast along
+    the rows, a one-element CPU tensor and a number give the plain
+    version's shapes and bits; s on the CPU of another shape, or of a shape
+    that does not broadcast, raises."""
+    from epsilon_tpu_torch.ops.kernels import epi_exp
+    from epsilon_tpu_torch.ops.prox import elementwise
+    rng = np.random.RandomState(5)
+    v = torch.as_tensor(rng.uniform(-5, 5, (3, 40)), dtype=torch.float64, device=cuda)
+    for s in (torch.as_tensor(rng.uniform(-5, 50, (3, 40)), dtype=torch.float64, device=cuda),
+              torch.as_tensor(rng.uniform(-5, 50, 40), dtype=torch.float64, device=cuda),
+              torch.tensor([0.7], dtype=torch.float64), 2.0):
+        got = elementwise.epi_exp(v, s)
+        want = elementwise.epi_exp_reference(
+            v, s.to(cuda) if isinstance(s, torch.Tensor) else s)
+        assert all(_same_bits(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError):
+        epi_exp.epi(v, torch.ones(7, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        epi_exp.epi(v, torch.ones(40, dtype=torch.float64))
+
+
+def test_k8_dispatch_never_reaches_the_full_count_entry(cuda, monkeypatch):
+    """The EXP epigraph's dispatch launches the kernel that exits, never its
+    full-count build."""
+    from chip_smoke import k8_inputs
+    from epsilon_tpu_torch.ops.kernels import epi_exp
+    from epsilon_tpu_torch.ops.prox import elementwise
+    names = _Names(epi_exp._library())
+    monkeypatch.setattr(epi_exp, "_LIB", names)
+    for dtype in (torch.float32, torch.float64):
+        elementwise.epi_exp(*k8_inputs(64, dtype, 1, cuda))
+    assert names.names == ["epi_exp_f32", "epi_exp_f64"]
+
+
+def test_k8_max_softmax_without_epigraph_on_card_matches_cpu_port(cuda, monkeypatch):
+    """max_softmax under ``use_epigraph=False`` (its conic form holds EXP
+    epigraphs) at the CPU library tests' size (``torch_library_rows.SMALL``),
+    on the card in f64 with K8 launched, against the port on the CPU in
+    f64: iterations within one epoch of 50 and the objective within 1e-6
+    relative, as the K6 and K7 rows are held (the rest of the loop sums in
+    the card's order)."""
+    from epsilon_tpu_torch.ops.kernels import epi_exp
+    from epsilon_tpu_torch.problems import benchmark
+    monkeypatch.setattr(config, "default_dtype", lambda: torch.float64)
+    monkeypatch.setattr(config, "default_np_dtype", lambda: np.dtype(np.float64))
+    inst = next(p for p in benchmark.PROBLEMS_REFERENCE() if p.name == "max_softmax")
+    inst = benchmark.ProblemInstance("max_softmax", inst.create, dict(m=6, k=3, n=4))
+    before = epi_exp.launches
+    prob = inst.create_problem()
+    obj_gpu = prob.solve(use_epigraph=False, rel_tol=1e-3, max_iterations=400)
+    iters_gpu = prob.solver_status.num_iterations
+    assert epi_exp.launches >= before + iters_gpu
+    config.set_device("cpu")
+    prob_cpu = inst.create_problem()
+    obj_cpu = prob_cpu.solve(use_epigraph=False, rel_tol=1e-3, max_iterations=400)
+    assert prob_cpu.status == prob.status
+    assert abs(iters_gpu - prob_cpu.solver_status.num_iterations) <= 50
+    np.testing.assert_allclose(obj_gpu, obj_cpu, rtol=1e-6)
 
 
 # -- K7: the TV-1D PDAS in one cooperative launch ----------------------------
@@ -993,25 +1109,32 @@ def _host_calls(prof):
 
 
 def test_k6_k7_each_one_kernel_and_no_host_sync(cuda):
-    """On a CUDA tensor, K6 and K7's dispatch each launch one kernel and
-    neither synchronizes with the host nor copies to it: the profiled call
-    shows no host-blocking CUDA call beyond those of an empty profiled
-    window (the profiler's own), and PyTorch's sync debug mode raises on
-    none of its operations."""
+    """On a CUDA tensor, K6, K7 and K8's dispatch each launch one kernel and
+    neither synchronizes with the host nor copies to it (K8 with s one an
+    element and a 0-d tensor on the card): the profiled call shows no
+    host-blocking CUDA call beyond those of an empty profiled window (the
+    profiler's own), and PyTorch's sync debug mode raises on none of its
+    operations.  The one test of the file that starts the profiler: a
+    profiled window opened after an earlier test's windows and the K7 tests
+    recorded no device events on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import k8_inputs
     from epsilon_tpu_torch.ops.prox import elementwise, tv1d
     v = torch.as_tensor(_tv_signal(100_000, 7), dtype=torch.float32, device=cuda)
     lam = torch.tensor(316.0, device=cuda)
     _, _, _, z = tv1d.prox_tv1d_pdas(v, lam, return_dual=True)
     u = torch.as_tensor(np.random.RandomState(8).uniform(-9, 9, 1500), dtype=torch.float32,
                         device=cuda)
+    w, s = k8_inputs(2000, torch.float32, 3, cuda)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pass
     baseline = _host_calls(prof)
     for call, name in ((lambda: tv1d.prox_tv1d_pdas(v, lam, tol=1e-3, z0=z), "pdas_tiles"),
-                       (lambda: elementwise.prox_sum_logistic(u, lam), "prox_logistic")):
+                       (lambda: elementwise.prox_sum_logistic(u, lam), "prox_logistic"),
+                       (lambda: elementwise.epi_exp(w, s), "epi_exp"),
+                       (lambda: elementwise.epi_exp(w, s[0]), "epi_exp")):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.set_sync_debug_mode("error")
             try:

@@ -340,10 +340,9 @@ def test_safeguarded_newton_exit_is_exact(dtype):
 LOGISTIC_STEPS = 40
 
 
-def _logistic_loop(v, lam):
-    """Every state of the SUM_LOGISTIC prox's 40 safeguarded Newton steps
-    (``x + lam sigmoid(x) = v`` an element), anchored bitwise to the plain
-    version; returns their bits."""
+def _logistic_start(v, lam):
+    """The SUM_LOGISTIC prox's Newton step and its start (``x + lam
+    sigmoid(x) = v`` an element)."""
     lam = torch.broadcast_to(lam, v.shape)
 
     def g(x):
@@ -355,7 +354,13 @@ def _logistic_loop(v, lam):
 
     x0 = v - lam * torch.sigmoid(v)
     lo, hi = v - lam - 1e-9, v + 1e-9
-    states, bits = _run(_nu_step(g_and_gp), (x0, lo, hi, g(lo), g(hi)), LOGISTIC_STEPS)
+    return _nu_step(g_and_gp), (x0, lo, hi, g(lo), g(hi))
+
+
+def _logistic_loop(v, lam):
+    """Every state of the SUM_LOGISTIC prox's 40 safeguarded Newton steps,
+    anchored bitwise to the plain version; returns their bits."""
+    states, bits = _run(*_logistic_start(v, lam), LOGISTIC_STEPS)
     # the step is the plain version's, bitwise
     assert torch.equal(_bits(states[-1][0]), _bits(ew.prox_sum_logistic_reference(v, lam)))
     return bits
@@ -391,6 +396,212 @@ def test_sum_logistic_newton_exit_is_exact_hypothesis(pairs, dtype):
     v = torch.tensor([a for a, _ in pairs], dtype=dtype)
     lam = torch.tensor([10.0 ** b for _, b in pairs], dtype=dtype)
     _exit_is_exact(_logistic_loop(v, lam))
+
+
+# -- K6 and K8: the exit checked every fourth step (row_loops.cuh iterate4) --
+
+def _kernel_slot(iters, k, p):
+    """iterate4()'s rule: at the check after step k, a repeat of period p
+    returns the slot 4 + ((iters - k) mod p) - p of s0 .. s4 (steps k - 4
+    .. k)."""
+    return 4 + (iters - k) % p - p
+
+
+def _iterate4(step, state, iters, slot=_kernel_slot, tail=None):
+    """iterate4() emulated on a batch, one element a lane: four steps at a
+    time, the newest state compared with the four before it (x first, then
+    the whole state), an element leaving at its first repeat with the
+    state of ``slot``; the rest of the count (``tail``, iters mod 4 steps)
+    after the last whole four.  Returns the states reached and the steps
+    each element ran."""
+    tail = iters % 4 if tail is None else tail
+    out = [a.clone() for a in state]
+    shape = state[0].shape
+    done = torch.zeros(shape, dtype=torch.bool)
+    ran = torch.full(shape, iters, dtype=torch.long)
+    k = 0
+    while k + 4 <= iters:
+        slots = [state]
+        for _ in range(4):
+            slots.append(step(slots[-1]))
+        k += 4
+        bits = [torch.stack([_bits(a) for a in sl]) for sl in slots]
+        x_hit = torch.zeros(shape, dtype=torch.bool)
+        for j in range(4):
+            x_hit |= bits[4][0] == bits[j][0]
+        p = torch.zeros(shape, dtype=torch.long)
+        for j, period in ((3, 1), (2, 2), (1, 3), (0, 4)):
+            hit = x_hit & (p == 0) & (bits[4] == bits[j]).all(dim=0)
+            p[hit] = period
+        new = ~done & (p > 0)
+        for period in range(1, 5):
+            at = new & (p == period)
+            if at.any():
+                chosen = slots[slot(iters, k, period)]
+                for a, c in zip(out, chosen):
+                    a[at] = c[at]
+                ran[at] = k
+        done |= new
+        state = slots[4]
+    for _ in range(tail):
+        state = step(state)
+    for a, c in zip(out, state):
+        a[~done] = c[~done]
+    return out, ran
+
+
+def _every4_is_exact(step, state, iters):
+    """The emulated exit's states equal the full count's bitwise; returns
+    the share of elements that left early and the steps they ran."""
+    full = state
+    for _ in range(iters):
+        full = step(full)
+    got, ran = _iterate4(step, state, iters)
+    for a, b in zip(got, full):
+        assert torch.equal(_bits(a), _bits(b))
+    early = ran < iters
+    assert bool((ran[early] % 4 == 0).all())
+    return early.double().mean().item(), ran
+
+
+def _logistic_cases(dtype):
+    """test_sum_logistic_newton_exit_is_exact's inputs."""
+    rng = np.random.RandomState(12)
+    v = np.concatenate([rng.uniform(-60.0, 60.0, 3000), rng.uniform(-60.0, 60.0, 13 * 200)])
+    lam = np.concatenate([10.0 ** rng.uniform(-6.0, 6.0, 3000),
+                          np.repeat(10.0 ** np.arange(-6.0, 7.0), 200)])
+    vs = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, 1.0, -7.5]
+    lams = [np.nan, np.inf, 0.0, -0.0, -1.0, 1e-30, 1.0, 1e30]
+    sv, sl = (a.ravel() for a in np.meshgrid(np.array(vs), np.array(lams), indexing="ij"))
+    return (torch.as_tensor(np.concatenate(a), dtype=dtype) for a in ((v, sv), (lam, sl)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sum_logistic_every_fourth_step_exit_is_exact(dtype):
+    """K6's exit as iterate4() runs it (a check after every fourth step,
+    the full count's state from the slot of the cycle step 40 reaches) on
+    the inputs of ``test_sum_logistic_newton_exit_is_exact``: the full
+    count's state bitwise, and most f32 elements leave early."""
+    v, lam = _logistic_cases(dtype)
+    _logistic_loop(v, lam)                        # anchors the step to the plain version
+    share, _ = _every4_is_exact(*_logistic_start(v, lam), LOGISTIC_STEPS)
+    assert share > (0.3 if dtype == torch.float32 else 0.03)
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.lists(st.tuples(st.floats(-80.0, 80.0, allow_nan=False),
+                          st.floats(-6.0, 6.0, allow_nan=False)), min_size=1, max_size=64),
+       st.sampled_from(DTYPES))
+def test_sum_logistic_every_fourth_step_exit_is_exact_hypothesis(pairs, dtype):
+    v = torch.tensor([a for a, _ in pairs], dtype=dtype)
+    lam = torch.tensor([10.0 ** b for _, b in pairs], dtype=dtype)
+    _every4_is_exact(*_logistic_start(v, lam), LOGISTIC_STEPS)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_fourth_step_rule_catches_a_wrong_slot_or_tail(dtype):
+    """The emulation is the kernels' rule: a slot one off (the state a step
+    later in the cycle) or a tail one step short gives another state than
+    the full count's on these inputs, so the tests above would fail."""
+    v, lam = _logistic_cases(dtype)
+    step, state = _logistic_start(v, lam)
+    full = state
+    for _ in range(LOGISTIC_STEPS):
+        full = step(full)
+    got, _ = _iterate4(step, state, LOGISTIC_STEPS,
+                       slot=lambda iters, k, p: 4 + (iters - k + 1) % p - p)
+    assert not torch.equal(_bits(got[0]), _bits(full[0]))
+    # K8's Newton runs 25 steps: 6 whole fours and a tail of one
+    step, state = _epi_exp_loops(*_epi_exp_inputs(dtype))[1]
+    full = state
+    for _ in range(EPI_EXP_NEWTON):
+        full = step(full)
+    got, _ = _iterate4(step, state, EPI_EXP_NEWTON)
+    assert torch.equal(_bits(got[0]), _bits(full[0]))
+    got, _ = _iterate4(step, state, EPI_EXP_NEWTON, tail=0)
+    assert not torch.equal(_bits(got[0]), _bits(full[0]))
+
+
+# -- elementwise.epi_exp_reference (K8): widening (lo), then Newton -------------
+
+EPI_EXP_WIDEN, EPI_EXP_NEWTON = 40, 25
+
+
+def _epi_exp_inputs(dtype):
+    """v and s over +-10 (inactive, active and s <= 0 elements), over +-60
+    with s up to e^60 (where 25 steps leave some elements short of the
+    root), and every pair of NaN, +-inf, 0, -0, +-1e30, 1, -1 and 50."""
+    rng = np.random.RandomState(14)
+    v = [rng.uniform(-10.0, 10.0, 2000),
+         rng.uniform(30.0, 60.0, 1000) * rng.choice([-1.0, 1.0], 1000)]
+    s = [rng.uniform(-10.0, 10.0, 2000),
+         np.exp(rng.uniform(0.0, 60.0, 1000)) * rng.choice([-1.0, 1.0, 1.0], 1000)]
+    vals = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, 1.0, -1.0, 50.0])
+    sv, ss = (a.ravel() for a in np.meshgrid(vals, vals, indexing="ij"))
+    return (torch.as_tensor(np.concatenate(a + [b]), dtype=dtype) for a, b in ((v, sv), (s, ss)))
+
+
+def _epi_exp_loops(v, s):
+    """The widening's step and start, the Newton's step and start (after
+    the full widening and the bracket's clamp), with the plain version's
+    operations; the result after both full counts is
+    ``epi_exp_reference``'s, bitwise."""
+    def g(x):
+        ex = torch.exp(x)
+        return x + ex * ex - s * ex - v
+
+    def g_and_gp(x):
+        ex = torch.exp(x)
+        return g(x), 1.0 + 2.0 * ex * ex - s * ex
+
+    def widen(state):
+        lo = state[0]
+        return (torch.where(g(lo) > 0, lo - 2.0 * torch.abs(lo) - 2.0, lo),)
+
+    lo0 = (torch.clamp(v, max=0.0) - 1.0,)
+    lo = lo0
+    for _ in range(EPI_EXP_WIDEN):
+        lo = widen(lo)
+    lo = lo[0]
+    tiny = torch.finfo(v.dtype).tiny
+    lo = torch.where(s > 0, torch.maximum(lo, torch.log(torch.clamp(s, min=tiny) * 0.5)), lo)
+    newton = (_nu_step(g_and_gp), (0.5 * (lo + v), lo, v, g(lo), g(v)))
+    state = newton[1]
+    for _ in range(EPI_EXP_NEWTON):
+        state = newton[0](state)
+    inactive = torch.exp(v) <= s
+    out = (torch.where(inactive, v, state[0]), torch.where(inactive, s, torch.exp(state[0])))
+    for a, b in zip(out, ew.epi_exp_reference(v, s)):
+        assert torch.equal(_bits(a), _bits(b))
+    return (widen, lo0), newton
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_epi_exp_widening_stays_once_lo_stops(dtype):
+    """The widening's state is lo alone: once a step leaves lo's bits as
+    they were, every later step does (K8 leaves the loop there, period 1),
+    on NaN, +-inf and s <= 0 too; every element stops within the 40 steps
+    on these inputs."""
+    v, s = _epi_exp_inputs(dtype)
+    (widen, lo0), _ = _epi_exp_loops(v, s)
+    states, bits = _run(widen, lo0, EPI_EXP_WIDEN)
+    k, p = _first_repeat(bits)
+    assert bool((k > 0).all()) and bool((p == 1).all())
+    for j in range(1, EPI_EXP_WIDEN + 1):
+        stopped = k <= j
+        assert torch.equal(bits[j][:, stopped], bits[EPI_EXP_WIDEN][:, stopped])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_epi_exp_newton_every_fourth_step_exit_is_exact(dtype):
+    """K8's Newton (25 steps: six checks after every fourth step, then the
+    last step alone) as iterate4() runs it: the full count's state
+    bitwise on every element; about a quarter of the f32 elements and a
+    sixth of the f64 ones leave early on these inputs."""
+    v, s = _epi_exp_inputs(dtype)
+    _, (step, state) = _epi_exp_loops(v, s)
+    share, _ = _every4_is_exact(step, state, EPI_EXP_NEWTON)
+    assert share > (0.2 if dtype == torch.float32 else 0.1)
 
 
 # -- registry._epi_sum_square_reference (K4): widening (hi), then Newton -----

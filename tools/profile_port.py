@@ -68,12 +68,28 @@ build, in turns, at n = 10,000 and 100,000, f32 and f64, cold and warm: what
 solves library rows (``row``, or ``row@set`` under a parameter set of
 ``tests/data/library_reference.json``) at their reference sizes, or phase 9
 (f)'s family of a kind in one process (``family:tv``), with the hand
-kernels K6 (SUM_LOGISTIC prox) and K7 (TV-1D PDAS) and with their plain
-versions put in their place in the dispatch, in turns in this one process
+kernels K6 (SUM_LOGISTIC prox), K7 (TV-1D PDAS) and K8 (EXP epigraph) and
+with their plain versions put in their place in the dispatch, in turns in this one process
 (kernel, plain, plain, kernel): ms and device operations an iteration of
 each side (the cold solve at the harness's rel_tol; the operations from a
 profiled warm re-solve of 10 iterations, a family's from a profiled solve),
 iterations and objectives, and the kernels' launches.
+
+    python3 -m tools.profile_port --k6 [tree,tree,...]
+
+measures K6 (``csrc/sum_logistic.cu``, the SUM_LOGISTIC prox) at 1,500
+elements (``logreg_l1``'s) and 100,000, f32 and f64, lam a number (phase
+7a's inputs): element 0's cycles a step of the exit build and of the
+full-count build, read from ``clock64`` marks of the source built with
+``-DK6_STEP_MARKS``; the instructions of each kernel and of its loop body
+and the IEEE divisions that call a slow path, from ``cuobjdump -sass`` of
+the built library (the listings under ``build/k6_sass/``); and the exit
+build, the full-count build and the exit build of each other tree (the
+root of a checkout, its ``epsilon_tpu_torch/csrc/sum_logistic.cu`` with
+the same C entries, say the parent unpacked by ``git archive`` under
+``build/``) timed in turns (``interleaved_ms``), each held bitwise to the
+full-count build, beside the launch floor and the measured chain
+(``chip_smoke.k6_chain_ms``).  Prints a line a case and a JSON line.
 
     python3 -m tools.profile_port --k1-tune
 
@@ -538,17 +554,210 @@ def k7_tiles(rounds=K7_SWEEP_ROUNDS):
     print(json.dumps({"k7_tiles": cases}))
 
 
+K6_SASS_DIR = "build/k6_sass"
+K6_MARK_COUNT = 64           # csrc/sum_logistic.cu MARK_COUNT
+
+
+def _sass(path):
+    """``(listing, {function: [(address, instruction), ...]})`` from
+    ``cuobjdump -sass`` of a library."""
+    import re
+    from pathlib import Path
+    from epsilon_tpu_torch.ops.kernels._build import _nvcc
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(path)], check=True, capture_output=True,
+                          text=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    return text, funcs
+
+
+def _opcode(text):
+    return (text.split()[1] if text.startswith("@") else text.split()[0]).split(".")[0]
+
+
+def _sass_summary(funcs):
+    """Per kernel: its instructions up to its last EXIT (the subroutines
+    after it apart), its loops (a backward branch's range) and the
+    longest one's opcodes, and each call site with its target and kind:
+    an f64 division's slow path (``MUFU.RCP64H`` before it), an f32 IEEE
+    division's (``FCHK`` just before it) or an f32 reciprocal's (the
+    exponent's range test: the sigmoid's 1 / (1 + e^-x))."""
+    import re
+    out = {}
+    for name, ins in funcs.items():
+        exits = [a for a, t in ins if _opcode(t) == "EXIT"]
+        body_end = exits[-1] if exits else ins[-1][0]
+        main = [(a, t) for a, t in ins if a <= body_end]
+        loops = []
+        for addr, text in main:
+            m = re.search(r"\bBRA\S*\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                start = int(m.group(1), 16)
+                loops.append((start, addr, [t for a, t in main if start <= a <= addr]))
+        calls = []
+        for i, (addr, text) in enumerate(main):
+            m = re.search(r"CALL\S*\s+(0x[0-9a-f]+)", text)
+            if not m:
+                continue
+            before = [t for _, t in main[max(0, i - 40):i]]
+            kind = ("f64 division" if any("MUFU.RCP64H" in t for t in before)
+                    else "division" if any(_opcode(t) == "FCHK" for t in before[-14:])
+                    else "reciprocal")
+            inside = [hex(a) for a, b, _ in loops if a <= addr <= b]
+            calls.append({"at": hex(addr), "target": m.group(1), "kind": kind,
+                          "in_loop": bool(inside)})
+        body = max(loops, key=lambda lp: len(lp[2])) if loops else None
+        ops = {}
+        for t in (body[2] if body else []):
+            ops[_opcode(t)] = ops.get(_opcode(t), 0) + 1
+        out[name] = {"instructions": len(main), "subroutines": len(ins) - len(main),
+                     "loops": [(hex(a), hex(b), len(t)) for a, b, t in loops],
+                     "body": len(body[2]) if body else 0,
+                     "body_ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+                     "calls": calls}
+    return out
+
+
+def k6_profile(trees=(), rounds=5):
+    """``--k6``: see the module docstring."""
+    import ctypes
+    import json
+    import os
+    from pathlib import Path
+    from chip_smoke import (K6_SIZES, k6_chain_ms, k6_inputs, launch_floor, same_bits)
+    from epsilon_tpu_torch.ops.kernels import _rows
+    from epsilon_tpu_torch.ops.kernels import sum_logistic as k6
+    dev = torch.device("cuda")
+    here = Path(__file__).resolve().parents[1] / "epsilon_tpu_torch" / "csrc"
+    sides = {"this": here}
+    for tree in trees:
+        sides[Path(tree).name] = Path(tree).resolve() / "epsilon_tpu_torch" / "csrc"
+    base = {n: a for n, a in k6.entries().items() if n != "sum_logistic_threads"}
+    libs, marked, results = {}, {}, {"sass": {}, "marks": {}, "cases": []}
+    os.makedirs(K6_SASS_DIR, exist_ok=True)
+    for label, csrc in sides.items():
+        path, _, build_log = _rows.build("sum_logistic", (), csrc)
+        libs[label] = _rows.load("sum_logistic", base, (), csrc)
+        text, funcs = _sass(path)
+        Path(K6_SASS_DIR, f"{label}.sass").write_text(text)
+        Path(K6_SASS_DIR, f"{label}.ptxas").write_text(build_log)
+        summary = _sass_summary(funcs)
+        results["sass"][label] = summary
+        for name, f in summary.items():
+            looped = [c for c in f["calls"] if c["in_loop"]]
+            print(f"[k6-sass] {label} {name}: {f['instructions']} instructions (subroutines "
+                  f"{f['subroutines']} more); loops {f['loops']}, the longest "
+                  f"{f['body']} instructions ({f['body_ops']}); slow-path calls in loops: "
+                  + (", ".join(f"{c['kind']} at {c['at']} -> {c['target']}" for c in looped)
+                     or "none")
+                  + f"; outside: {len(f['calls']) - len(looped)}", flush=True)
+        if "K6_STEP_MARKS" in (csrc / "sum_logistic.cu").read_text():
+            lib = _rows.load("sum_logistic", base, ("-DK6_STEP_MARKS",), csrc)
+            lib.sum_logistic_set_marks.argtypes = [ctypes.c_void_p]
+            lib.sum_logistic_set_marks.restype = ctypes.c_int
+            marked[label] = lib
+    k6.threads(1)            # loads the port's own library
+    saved = k6._LIB
+    anchor = torch.empty(1, device=dev)
+    launch_floor(anchor)
+    floor_ms = device_ms(lambda: launch_floor(anchor))
+    try:
+        # cycles a step: element 0 of phase 7a's main input, both builds
+        for label, lib in marked.items():
+            k6._LIB = lib
+            for dtype in (torch.float32, torch.float64):
+                v, lam = k6_inputs(1500, dtype, 0, dev, "number")
+                for build, call in (("exit", k6.prox), ("full", k6.prox_full)):
+                    marks = torch.zeros(K6_MARK_COUNT, dtype=torch.int64, device=dev)
+                    steps = torch.zeros(v.shape, dtype=torch.int32, device=dev)
+                    readings = []
+                    for _ in range(5):
+                        marks.zero_()
+                        if lib.sum_logistic_set_marks(marks.data_ptr()) != 0:
+                            raise RuntimeError("sum_logistic_set_marks failed")
+                        call(v, lam, steps=steps)
+                        torch.cuda.synchronize()
+                        lib.sum_logistic_set_marks(None)
+                        ran = int(steps[0])
+                        t = marks.cpu().numpy()
+                        # marks: 0 start, 1-2 the bracket ends' g, 3.. each
+                        # step's g, then the end
+                        readings.append(((t[2 + ran] - t[3]) / max(ran - 1, 1),
+                                         t[3 + ran] - t[0], ran))
+                    per_step = statistics.median(r[0] for r in readings)
+                    total = statistics.median(r[1] for r in readings)
+                    key = f"{label} {build} {str(dtype)[6:]}"
+                    results["marks"][key] = {"cycles_a_step": float(per_step),
+                                             "cycles": float(total), "steps": readings[0][2]}
+                    print(f"[k6-marks] {key}: element 0 ran {readings[0][2]} steps, "
+                          f"{per_step:.1f} cycles a step, {total:.0f} cycles in all (median "
+                          f"of 5 launches)", flush=True)
+        # the builds in turns
+        for dtype in (torch.float32, torch.float64):
+            for n in (1500,) + K6_SIZES[-1:]:
+                v, lam = k6_inputs(n, dtype, 0, dev, "number")
+                k6._LIB = saved
+                threads = k6.threads(n)
+                want = k6.prox_full(v, lam)
+                steps = torch.zeros(v.shape, dtype=torch.int32, device=dev)
+                k6.prox(v, lam, steps=steps)
+                calls = {}
+                for label, lib in libs.items():
+                    def side(lib=lib, full=False):
+                        k6._LIB = lib
+                        return (k6.prox_full if full else k6.prox)(v, lam)
+                    if not same_bits(side(), want):
+                        raise AssertionError(f"k6 {label} n={n} {dtype}: differs from the "
+                                             "full-count build")
+                    calls[label] = side
+                    if label == "this":
+                        calls["full"] = lambda lib=lib: side(lib, True)
+                readings = {side: [] for side in calls}
+                for _ in range(rounds):
+                    for name in list(calls) + list(calls)[::-1]:
+                        readings[name].append(device_ms(calls[name], reps=20))
+                ms = {name: (statistics.median(r), min(r), max(r))
+                      for name, r in readings.items()}
+                taken = int(steps.max())
+                chain = k6_chain_ms(v, lam, taken + 1)
+                case = {"n": n, "dtype": str(dtype)[6:], "threads": threads,
+                        "steps_mean": float(steps.float().mean()), "steps_most": taken,
+                        "chain_ms": chain, "floor_ms": floor_ms, "ms": ms}
+                results["cases"].append(case)
+                print(f"[k6-ab] n={n} {str(dtype)[6:]} ({case['threads']} threads a block, "
+                      f"steps {case['steps_mean']:.1f} mean, {taken} most; {rounds} rounds, "
+                      f"in order and reversed, of 20 calls a reading): "
+                      + "; ".join(f"{name} {med:.4f} ({lo:.4f}-{hi:.4f})"
+                                  for name, (med, lo, hi) in ms.items())
+                      + f"; measured chain of {taken} + 1 steps {chain:.4f}; launch floor "
+                      f"{floor_ms:.4f}; every side bitwise equal to the full-count build",
+                      flush=True)
+    finally:
+        k6._LIB = saved
+    print(json.dumps({"k6": results}))
+
+
 PLAIN_AB_ROUNDS = 1
 PLAIN_AB_PROFILE_ITERS = 10
 
 
 @contextlib.contextmanager
 def plain_entries():
-    """The dispatch of ``ops/prox`` sends K6's and K7's calls to their
-    plain versions while the context is open (``sum_logistic.prox`` to
-    ``prox_sum_logistic_reference``, ``tv1d_pdas.pdas`` to
-    ``prox_tv1d_pdas_reference``): the port as it ran before them."""
-    from epsilon_tpu_torch.ops.kernels import sum_logistic, tv1d_pdas
+    """The dispatch of ``ops/prox`` sends K6's, K7's and K8's calls to
+    their plain versions while the context is open (``sum_logistic.prox``
+    to ``prox_sum_logistic_reference``, ``tv1d_pdas.pdas`` to
+    ``prox_tv1d_pdas_reference``, ``epi_exp.epi`` to ``epi_exp_reference``):
+    the port as it ran before them."""
+    from epsilon_tpu_torch.ops.kernels import epi_exp, sum_logistic, tv1d_pdas
     from epsilon_tpu_torch.ops.prox import elementwise, tv1d
 
     def pdas_plain(v, lam, tol, max_iters=40, z0=None):
@@ -557,7 +766,7 @@ def plain_entries():
         return x, z, gap, it
 
     swaps = [(sum_logistic, "prox", elementwise.prox_sum_logistic_reference),
-             (tv1d_pdas, "pdas", pdas_plain)]
+             (tv1d_pdas, "pdas", pdas_plain), (epi_exp, "epi", elementwise.epi_exp_reference)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -596,7 +805,7 @@ def _family_solve(family):
 
 
 def plain_ab(specs, rounds=PLAIN_AB_ROUNDS):
-    """K6 and K7 against their plain versions end to end, in turns in this
+    """K6, K7 and K8 against their plain versions end to end, in turns in this
     process (kernel, plain, plain, kernel): each spec a library row at its
     reference size (``row``, or ``row@set`` under a parameter set of
     ``library_reference.json``), solved cold at the harness's rel_tol and
@@ -666,6 +875,9 @@ def main():
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--plain-ab":
         plain_ab(sys.argv[2].split(","))
+        return 0
+    if sys.argv[1:2] == ["--k6"] and len(sys.argv) <= 3:
+        k6_profile(sys.argv[2].split(",") if len(sys.argv) == 3 else ())
         return 0
     if sys.argv[1:] == ["--k1"]:
         lu.build()
