@@ -4,10 +4,11 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Card and build: the card's name and power limit, then the nine CUDA
+1. Card and build: the card's name and power limit, then the twelve CUDA
    sources (sym_packed, local_update, lse_rows, epi_sum_square,
-   epi_neg_log, sum_logistic, tv1d_pdas, epi_exp, and launch_floor, the
-   empty kernels and measured chains of phase 7a) are compiled from
+   epi_neg_log, sum_logistic, tv1d_pdas, epi_exp, sum_kl_div, sum_inv_pos,
+   w_log_w, and launch_floor, the empty kernels and measured chains of
+   phase 7a) are compiled from
    ``epsilon_tpu_torch/csrc``, one ``nvcc`` each, started together.
 2. Kernel against its plain PyTorch version on the card, at the shape the
    main path gives it (n = 8192, R = 1) and at R = 8, in f32 and f64:
@@ -97,7 +98,26 @@ Phases, in order; any failure exits non-zero:
    its full-count build and its plain version, its step counts within the
    loops' counts, the main shape against an f64 numpy test of the
    projection (feasibility and the active elements' KKT conditions), and
-   timed as K6 beside its measured chain (``epi_exp_chain``).
+   timed as K6 beside its measured chain (``epi_exp_chain``).  And K9
+   ``sum_kl_div`` (the SUM_KL_DIV prox: a widening of the bracket's upper
+   end, which stops once it leaves the end unchanged, and a 60-step
+   safeguarded Newton, K6's exit), K10 ``sum_inv_pos`` (the SUM_INV_POS
+   prox: the same design, its cube root torch's sign and pow) and K11
+   ``w_log_w`` (the SUM_EXP and SUM_NEG_ENTR proxes on the 30-step Lambert
+   solve of K3, exiting at its state's first repeat), one thread an
+   element, at their main paths' shapes (K9 10,000 elements, the
+   two-argument family's; K10 and K11 10^6, eval_prox's in phase 8 (g)) and
+   at other sizes, f32 and f64, lam a number, a 0-d tensor on the card, one
+   an element and one a row (K9 also with u and v the halves of one packed
+   tensor's rows, read where they lie), and on the special values: as K8,
+   bitwise against their full-count builds and their plain versions, their
+   step counts within the loops' counts, K10's cube root
+   (``launch_floor.cu`` cube_root) bitwise against the plain version's on
+   the card, and timed as K8, in turns with their full counts and their
+   measured chains (``kl_div_chain``, ``inv_pos_chain``, ``w_log_w_chain``:
+   lam by value, each warp running its slowest element's steps).  At 10^6
+   elements they are checked with lam a number only (eval_prox's), every
+   kind of lam at 10,000.
 7. The problem library: every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes (full width), through ``problems.benchmark``
    (``Problem.solve``) in f32 at the harness's parameters, the rows of
@@ -135,8 +155,11 @@ Phases, in order; any failure exits non-zero:
    adaptive; (c) the N-block solver at rho 1 and 4; (d) a ``Parameter``
    right-hand side re-solved five times on one cached solver; (e) a stop
    callback under ``drive="host"``; (f) a checkpoint, resumed by a new
-   solver; (g) ``eval_prox`` of three kinds at 1e6 elements against the
-   port on the CPU in f64.
+   solver; (g) ``eval_prox`` of six kinds at 1e6 elements against the
+   port on the CPU in f64: three with closed forms and
+   ``sum_entries(exp(x))``, ``sum_entries(-entr(x))`` (K11) and
+   ``sum_entries(power(x, -1))`` (K10), on inputs from the seed inside
+   their domains, each of which must launch its kernel.
 9. The meshed two-block solver and the sharded consensus solver, run by
    four processes over one process group (``tools/mesh_worker.py``, one
    rank each): NCCL with a card a rank where the machine has four cards,
@@ -169,7 +192,8 @@ Phases, in order; any failure exits non-zero:
    call, stop short of it at 10-60 iterations; the nuclear-norm family's x
    within 1e-3, the bound of its f32 solution and the card's SVDs); K7 must
    launch on every rank and in the one-process solve of the TV family, K8
-   in those of the ``epigraph_elementwise`` family.
+   in those of the ``epigraph_elementwise`` family, K9 in those of the
+   ``two_arg`` family.
    (g) (e) stopped after three epochs under ``drive="host"`` with a
    checkpointer, resumed by a new solver on the
    four ranks and then on two ranks (a second launch): both reach (e)'s
@@ -220,9 +244,15 @@ K2-K8 also carry ``launches_7c``: their launches in phase 7c, per set; K7's
 ``launches_9f``, rank 0's in phase 9 (f)'s TV family, and its timings at
 both main lengths, cold and warm; K8's ``launches_9f``, rank 0's in the
 ``epigraph_elementwise`` family, and its ``launches`` those of phases 7
-and 7c (no phase 7 row runs it).  K6's and K8's ``bound_ms`` is the
+and 7c (no phase 7 row runs it).  K9's ``launches`` are rank 0's in phase 9
+(f)'s ``two_arg`` family (``launches_7`` those of phase 7: none), K10's
+and K11's those of phase 8 (g) (K11's record also carries its SUM_NEG_ENTR
+entry's times under ``sum_neg_entr``).  K6's and K8's ``bound_ms`` is the
 measured chain of the steps of their longest element (``chain_ms``;
-``full_count_chain_ms`` for the full counts); K7's is the bound of its work, bytes
+``full_count_chain_ms`` for the full counts), K9's-K11's the measured chain
+of each warp's slowest element's steps (``chain_ms``; timed in turns with
+the kernel, its full count and the full counts' chain, which should read
+at most the full-count build); K7's is the bound of its work, bytes
 or operations, with its grid-sync floor beside it (``floor_ms``: its
 syncs, counted on the device (``tv1d_pdas.sync_counter``) and checked
 against ``tv1d_pdas.syncs_per_round``, times their measured cost at its
@@ -386,6 +416,21 @@ K8_SIZES = (1, 255, 257, 20_000, 100_000)
 K8_V_RANGE = 10.0
 K8_S_DECADES = 3.0
 K8_KKT_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# Phase 7a, K9 (the SUM_KL_DIV prox), K10 (SUM_INV_POS) and K11 (the
+# SUM_EXP and SUM_NEG_ENTR proxes): the main path's elements (K9: phase 9
+# (f)'s two-argument family, d = 10,000; K10 and K11: eval_prox's 10^6 of
+# phase 8 (g)), the sizes at which each is also held, the rows of the
+# per-row lam case, and the inputs: u and v (K9) or v (K10, K11) uniform
+# over -V/2..V and +-V, lam log-uniform over 10^+-LAM_EXP.
+K9_MAIN_N = 10_000
+K9_SIZES = (1, 255, 257, 100_000)
+K10_K11_SIZES = (1, 255, 257, 10_000)
+ELEMENT_LOOP_ROWS = 8
+ELEMENT_LOOP_V = 10.0
+ELEMENT_LOOP_LAM_EXP = 3.0
+# Phase 7a checks K9-K11 with every kind of lam up to this many elements,
+# and above it with lam a number only
+ELEMENT_LOOP_ALL_KINDS_N = 100_000
 # Phase 7a, K7 (the TV-1D PDAS): the lengths at which it is also held (two
 # and three elements, odd, 2^k - 1 and 2^k + 1 around the PCR's step
 # counts), the PCR systems' sizes (m = n - 1 of those and of the main
@@ -968,6 +1013,10 @@ def _launch_floor_library():
     for t in ("f32", "f64"):
         entries[f"k6_chain_{t}"] = [P, "scalar", P, L, I, P]
         entries[f"epi_exp_chain_{t}"] = [P, P, P, L, I, I, P]
+        entries[f"kl_div_chain_{t}"] = [P, P, "scalar", P, P, L, I, I, P]
+        entries[f"inv_pos_chain_{t}"] = [P, "scalar", P, P, L, I, I, P]
+        entries[f"w_log_w_chain_{t}"] = [P, "scalar", P, P, L, I, I, P]
+        entries[f"cube_root_{t}"] = [P, P, L, P]
     return _rows.load("launch_floor", entries)
 
 
@@ -1025,8 +1074,12 @@ def loop_kernels():
     ``name -> dict``: its module and launch-count attribute, source, the
     JAX function it stands for, the main path's shape, the library rows
     whose main path launches it in phase 7 (``rows``) and under each set of
-    phase 7c (``sets``), and for K8 the phase 9 (f) family that runs it."""
-    from epsilon_tpu_torch.ops.kernels import epi_exp, sum_logistic, tv1d_pdas
+    phase 7c (``sets``), and for K8 the phase 9 (f) family that runs it.
+    K9-K11 run in no library row: K9's main path is phase 9 (f)'s
+    two-argument family, K10's and K11's ``eval_prox`` of their kinds in
+    phase 8 (g)."""
+    from epsilon_tpu_torch.ops.kernels import (epi_exp, sum_inv_pos, sum_kl_div, sum_logistic,
+                                               tv1d_pdas, w_log_w)
     logreg = ("logreg_l1", "logreg_l1_sparse")
     tv = ("tv_1d", "fused_lasso")
     return {
@@ -1043,6 +1096,20 @@ def loop_kernels():
             module=epi_exp, counter="launches", source="epsilon_tpu_torch/csrc/epi_exp.cu",
             replaces="epsilon_tpu/ops/prox/elementwise.py:121", main=(K8_MAIN_N,),
             rows=(), sets={"no_epi": ("max_softmax",)}, family="epigraph_elementwise"),
+        "sum_kl_div_prox": dict(
+            module=sum_kl_div, counter="launches",
+            source="epsilon_tpu_torch/csrc/sum_kl_div.cu",
+            replaces="epsilon_tpu/ops/prox/elementwise.py:254", main=(K9_MAIN_N,),
+            rows=(), sets={}, family="two_arg"),
+        "sum_inv_pos_prox": dict(
+            module=sum_inv_pos, counter="launches",
+            source="epsilon_tpu_torch/csrc/sum_inv_pos.cu",
+            replaces="epsilon_tpu/ops/prox/elementwise.py:179", main=(EVAL_PROX_N,),
+            rows=(), sets={}),
+        "w_log_w_prox": dict(
+            module=w_log_w, counter="launches", source="epsilon_tpu_torch/csrc/w_log_w.cu",
+            replaces="epsilon_tpu/ops/prox/elementwise.py:105 (SUM_EXP), :208 (SUM_NEG_ENTR)",
+            main=(EVAL_PROX_N,), rows=(), sets={}),
     }
 
 
@@ -1437,6 +1504,7 @@ def phase_row_kernels(card):
                                                       floor_ms)
     records["tv1d_pdas"] = phase_tv1d(loops["tv1d_pdas"], card)
     records["epi_exp"] = phase_epi_exp(loops["epi_exp"], card, floor_ms)
+    records.update(phase_element_loops(loops, card, floor_ms))
     return records
 
 
@@ -1789,6 +1857,307 @@ def phase_epi_exp(k, card, floor_ms):
             "chain_ms": chain_ms, "full_count_chain_ms": full_chain_ms,
             "full_count_ms": f_med, "ab_ms": {"exit": ab["exit"], "full_count": ab["full"]},
             "steps_taken": {"widening": widen, "newton": newton}}
+
+
+def element_loops():
+    """K9-K11's entries as phase 7a holds them, ``name -> dict``: the
+    kernel entry, its full-count build and its plain version (each called
+    ``(*operands, lam)``), the loops' counts (the columns of ``steps``), the
+    number of operands, and for K11 the two entries (SUM_EXP, SUM_NEG_ENTR)
+    under ``"entries"``."""
+    from epsilon_tpu_torch.ops.kernels import sum_inv_pos as k10
+    from epsilon_tpu_torch.ops.kernels import sum_kl_div as k9
+    from epsilon_tpu_torch.ops.kernels import w_log_w as k11
+    from epsilon_tpu_torch.ops.prox import elementwise as ew
+    return {
+        "sum_kl_div_prox": dict(entries={"sum_kl_div": (
+            k9.prox, k9.prox_full, ew.prox_sum_kl_div_reference)},
+            counts=(k9.WIDEN_STEPS, k9.NEWTON_STEPS), operands=2),
+        "sum_inv_pos_prox": dict(entries={"sum_inv_pos": (
+            k10.prox, k10.prox_full, ew.prox_sum_inv_pos_reference)},
+            counts=(k10.WIDEN_STEPS, k10.NEWTON_STEPS), operands=1),
+        "w_log_w_prox": dict(entries={
+            "sum_exp": (k11.prox_exp, k11.prox_exp_full, ew.prox_sum_exp_reference),
+            "sum_neg_entr": (k11.prox_neg_entr, k11.prox_neg_entr_full,
+                             ew.prox_sum_neg_entr_reference)},
+            counts=(k11.STEPS,), operands=1),
+    }
+
+
+def element_loop_inputs(name, n, dtype, seed, dev, lam_kind="element"):
+    """``(operands, lam)`` for K9 (u, v: uniform over -V/2..V) or K10 and
+    K11 (v: uniform over +-V), lam log-uniform over 10^+-LAM_EXP: a
+    number, a 0-d tensor on the card, one an element, or one a row
+    (``"row"``: the operands as ``(ROWS, n / ROWS)``, lam ``(ROWS, 1)``;
+    ``"packed"``, K9: u and v the two halves of each row of one
+    ``(ROWS, 2 n / ROWS)`` tensor, as the two-argument family's stacked
+    rows and the KL epigraph pass them)."""
+    rng = np.random.RandomState(seed)
+    V = ELEMENT_LOOP_V
+    if name == "sum_kl_div_prox":
+        ops = [rng.uniform(-V / 2, V, n), rng.uniform(-V / 2, V, n)]
+    else:
+        ops = [rng.uniform(-V, V, n)]
+    lam = 10.0 ** rng.uniform(-ELEMENT_LOOP_LAM_EXP, ELEMENT_LOOP_LAM_EXP, n)
+    ops = [torch.as_tensor(a, dtype=dtype, device=dev) for a in ops]
+    if lam_kind == "number":
+        return ops, float(lam[0])
+    if lam_kind == "0-d":
+        return ops, torch.tensor(lam[0], dtype=dtype, device=dev)
+    if lam_kind in ("row", "packed"):
+        rows = ELEMENT_LOOP_ROWS
+        ops = [a.reshape(rows, n // rows) for a in ops]
+        if lam_kind == "packed":
+            z = torch.cat(ops, dim=1)
+            ops = [z[:, :n // rows], z[:, n // rows:]]
+        return ops, torch.as_tensor(lam[:rows], dtype=dtype, device=dev).reshape(rows, 1)
+    return ops, torch.as_tensor(lam, dtype=dtype, device=dev)
+
+
+def element_loop_special(name, dtype, dev):
+    """Every pair (K9: every triple) of the special values: for v (K9: u
+    and v) NaN, +-inf, 0, -0, +-1e30, 1, -1 and 50 (K9 also +-1e-14 and
+    1e-27, below eps^2 in f32 and in f64: the pass-through), for lam NaN,
+    inf, 0, 1e-30, 1, 1e30 and -1; one lam an element."""
+    vals = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, 1.0, -1.0, 50.0]
+    lams = [np.nan, np.inf, 0.0, 1e-30, 1.0, 1e30, -1.0]
+    if name == "sum_kl_div_prox":
+        vals = vals + [1e-14, -1e-14, 1e-27]
+        grids = np.meshgrid(np.array(vals), np.array(vals), np.array(lams), indexing="ij")
+    else:
+        grids = np.meshgrid(np.array(vals), np.array(lams), indexing="ij")
+    grids = [torch.as_tensor(a.ravel(), dtype=dtype, device=dev) for a in grids]
+    return grids[:-1], grids[-1]
+
+
+def element_loop_check(name, entry, e, ops, lam, label, special=False):
+    """One K9-K11 entry on ``(ops, lam)``: two runs and the full-count build
+    bitwise equal (so the exits return the full counts' states) and equal
+    to the plain version, bitwise (``same_values`` on the special values);
+    the widening's steps within 1..count, the Newton's within 4..count, the
+    Lambert solve's within 1..count, the full count's all the counts.
+    Returns ``(outputs, steps)``."""
+    kernel, full, plain = e["entries"][entry]
+    shape = _element_shape(ops, lam)
+    counts = e["counts"]
+    steps_shape = shape + ((len(counts),) if len(counts) > 1 else ())
+    steps = torch.zeros(steps_shape, dtype=torch.int32, device=ops[0].device)
+    full_steps = torch.zeros_like(steps)
+    out = kernel(*ops, lam, steps=steps)
+    out2 = kernel(*ops, lam)
+    full_out = full(*ops, lam, steps=full_steps)
+    ref = plain(*ops, lam)
+    torch.cuda.synchronize()
+    out, out2, full_out, ref = [o if isinstance(o, tuple) else (o,)
+                                for o in (out, out2, full_out, ref)]
+    if not all(same_bits(a, b) and same_bits(a, c) for a, b, c in zip(out, out2, full_out)):
+        raise AssertionError(f"{entry} {label}: differs from its full-count build or from a "
+                             "second run")
+    if not all((same_values(a, b) if special else same_bits(a, b)) for a, b in zip(out, ref)):
+        raise AssertionError(f"{entry} {label}: differs from the plain version")
+    cols = steps.reshape(-1, len(counts))
+    full_cols = full_steps.reshape(-1, len(counts))
+    least = (1, 4) if len(counts) == 2 else (1,)
+    for j, (count, low) in enumerate(zip(counts, least)):
+        if not (bool(((cols[:, j] >= low) & (cols[:, j] <= count)).all())
+                and bool((full_cols[:, j] == count).all())):
+            raise AssertionError(f"{entry} {label}: steps out of {low}..{count}")
+    return out, cols
+
+
+def _element_shape(ops, lam):
+    from epsilon_tpu_torch.ops.kernels import _rows
+    shapes = [tuple(a.shape) for a in ops]
+    if isinstance(lam, torch.Tensor):
+        shapes.append(tuple(lam.shape))
+    return _rows.broadcast_shape(*shapes)
+
+
+def warp_steps(steps, n):
+    """Each warp's steps for K9's-K11's chains: the most any of its 32
+    elements ran in each loop (a warp of a one-thread-an-element launch
+    lasts as long as its slowest lane; element_threads() gives whole warps
+    a block), one int32 a warp (two loops: the widening in the low 16 bits,
+    the Newton in the high)."""
+    cols = steps.reshape(n, -1)
+    pad = (-n) % 32
+    if pad:
+        cols = torch.cat([cols, cols.new_zeros((pad, cols.shape[1]))])
+    most = cols.reshape(-1, 32, cols.shape[1]).amax(dim=1)
+    packed = most[:, 0] if most.shape[1] == 1 else most[:, 0] | (most[:, 1] << 16)
+    return packed.to(torch.int32).contiguous()
+
+
+def element_chain(name, entry, ops, lam, warps, counts, x=None):
+    """A launch of K9's, K10's or K11's measured chain (``launch_floor.cu``
+    kl_div_chain, inv_pos_chain, w_log_w_chain: the arithmetic of an
+    element's loops, no bracket and no exit, launched as the kernel
+    launches) over the elements of ``ops`` (contiguous), lam a number as
+    the kernel takes it at the timed shape: each warp runs its slowest
+    element's steps from ``warps`` (:func:`warp_steps` of the kernel's
+    steps array in this run), or, where it is None, every element the
+    loops' ``counts``.  Returns the zero-argument callable, which writes
+    its x into ``x`` where given."""
+    from epsilon_tpu_torch.ops.kernels import _rows
+    v = ops[-1]
+    x = torch.empty_like(v) if x is None else x
+    lib, t = _launch_floor_library(), _rows.suffix(v)
+    fn = {"sum_kl_div_prox": f"kl_div_chain_{t}", "sum_inv_pos_prox": f"inv_pos_chain_{t}",
+          "w_log_w_prox": f"w_log_w_chain_{t}"}[name]
+    each = None if warps is None else warps.data_ptr()
+    args = (tuple(a.data_ptr() for a in ops) + (float(lam), x.data_ptr(), each, v.numel())
+            + tuple(counts) + ((int(entry == "sum_neg_entr"),) if name == "w_log_w_prox" else ()))
+    return lambda: _rows.launch(fn, getattr(lib, fn), args, v)
+
+
+def cube_root(a):
+    """``launch_floor.cu`` cube_root: K10's cube root (``row_loops.cuh``
+    torch_cbrt) of every element of ``a`` (contiguous, on the card)."""
+    from epsilon_tpu_torch.ops.kernels import _rows
+    out = torch.empty_like(a)
+    fn = f"cube_root_{_rows.suffix(a)}"
+    _rows.launch(fn, getattr(_launch_floor_library(), fn), (a.data_ptr(), out.data_ptr(),
+                                                             a.numel()), out)
+    return out
+
+
+# Floating-point operations of one element a step, for the operations
+# bound: K9's widening (g: 9, the select) and Newton (g and g': 15, the
+# bracket's update, the quotients and the falsi: about 20), K10's (g: 4;
+# g and g' 9 and 20), K11's Lambert step (6).
+ELEMENT_LOOP_FLOPS = {"sum_kl_div_prox": (10, 35), "sum_inv_pos_prox": (5, 29),
+                      "w_log_w_prox": (6,)}
+
+
+def phase_element_loops(loops, card, floor_ms):
+    """Phase 7a's K9 (``sum_kl_div``), K10 (``sum_inv_pos``) and K11
+    (``w_log_w``, both entries): each bitwise against its full-count build
+    and its plain version at its main path's shape and at the other sizes,
+    f32 and f64, lam a number, a 0-d tensor on the card, one an element and
+    one a row (K9 also with u and v the halves of one packed tensor's rows),
+    and on the special values (at 10^6 elements lam a number only, the
+    main path's); K10's cube root (``launch_floor.cu`` cube_root) bitwise
+    against the plain version's on the card; each timed at the main shape
+    in f32 (``element_loop_timing``: kernel, full count and their measured
+    chains in turns, plain, the launch floor).  Returns the ``kernels``
+    records."""
+    from epsilon_tpu_torch.ops.prox import elementwise as ew
+    dev = torch.device("cuda")
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        a = torch.cat([element_loop_special("sum_inv_pos_prox", dtype, dev)[1],
+                       torch.as_tensor(10.0 ** np.random.RandomState(3).uniform(-30, 30, 100_000),
+                                       dtype=dtype, device=dev)])
+        a = torch.cat([a, -a])
+        got, want = cube_root(a), ew._cbrt(a)
+        torch.cuda.synchronize()
+        if not same_values(got, want):
+            bits = lambda t: t.view(torch.int32 if dtype == torch.float32 else torch.int64)
+            both = torch.isfinite(got) & torch.isfinite(want)
+            ulps = int((bits(got)[both] - bits(want)[both]).abs().max())
+            raise AssertionError(f"sum_inv_pos cbrt {dtype}: differs from the plain version's "
+                                 f"sign(x) |x| ** (1/3) on the card, by up to {ulps} ulps")
+    log("[7a] sum_inv_pos cube root (launch_floor.cu cube_root): bitwise equal to the plain "
+        f"version's sign(x) |x| ** (1/3) on the card, f32 and f64 ({a.numel():,} values a "
+        "dtype: 1e-30..1e30 and the special values of lam, both signs)")
+    for name, e in element_loops().items():
+        k = loops[name]
+        (main_n,) = k["main"]
+        sizes = (main_n,) + (K9_SIZES if name == "sum_kl_div_prox" else K10_K11_SIZES)
+        lam_kinds = ("number", "0-d", "element", "row") + (
+            ("packed",) if name == "sum_kl_div_prox" else ())
+        for entry in e["entries"]:
+            for dtype in (torch.float32, torch.float64):
+                parts = []
+                for seed, n in enumerate(sizes):
+                    for lam_kind in lam_kinds:
+                        if lam_kind in ("row", "packed") and n % ELEMENT_LOOP_ROWS:
+                            continue
+                        # 10^6 elements only at the main path's lam (eval_prox
+                        # passes a number); every kind at 10,000
+                        if n > ELEMENT_LOOP_ALL_KINDS_N and lam_kind != "number":
+                            continue
+                        ops, lam = element_loop_inputs(name, n, dtype, seed, dev, lam_kind)
+                        _, cols = element_loop_check(name, entry, e, ops, lam,
+                                                     f"{n} lam {lam_kind} {dtype}")
+                        parts.append(f"{n} lam {lam_kind}: steps "
+                                     + " + ".join(f"{cols[:, j].float().mean().item():.1f}"
+                                                  for j in range(cols.shape[1]))
+                                     + " mean, " + " + ".join(
+                                         str(int(cols[:, j].max())) for j in range(cols.shape[1]))
+                                     + " most")
+                ops, lam = element_loop_special(name, dtype, dev)
+                element_loop_check(name, entry, e, ops, lam, f"special {dtype}", special=True)
+                log(f"[7a] {entry} {str(dtype)[6:]}: bitwise repeatable and equal to its "
+                    f"full-count build and to the plain version; " + "; ".join(parts)
+                    + "; the special values bitwise equal to the full-count build, equal "
+                    "values to the plain version")
+        records[name] = element_loop_timing(name, k, e, card, floor_ms)
+    return records
+
+
+def element_loop_timing(name, k, e, card, floor_ms):
+    """The main shape in f32, lam a number: each entry's kernel, its full
+    count and their measured chains in turns (the chain of each warp's
+    slowest element's steps in this run, and of the full counts in every
+    element: a lower bound where it reads at most its build), its plain
+    version; the ``kernels`` record (timed at the first entry, K11's
+    SUM_EXP; the other beside it)."""
+    dev = torch.device("cuda")
+    (main_n,) = k["main"]
+    ops, lam = element_loop_inputs(name, main_n, torch.float32, 0, dev, "number")
+    record = None
+    for entry, (kernel, full, plain) in e["entries"].items():
+        counts = e["counts"]
+        steps = torch.zeros((main_n,) + ((len(counts),) if len(counts) > 1 else ()),
+                            dtype=torch.int32, device=dev)
+        out = kernel(*ops, lam, steps=steps)
+        out = out if isinstance(out, tuple) else (out,)
+        cols = steps.reshape(main_n, -1)
+        longest = int(torch.argmax(cols.sum(dim=1)))
+        taken = tuple(int(c) for c in cols[longest])
+        warps = warp_steps(steps, main_n)
+        ms = device_ms(lambda: kernel(*ops, lam))
+        plain_ms = device_ms(lambda: plain(*ops, lam), reps=10, warmup=1)
+        ab = interleaved_ms({"exit": lambda: kernel(*ops, lam),
+                             "full": lambda: full(*ops, lam),
+                             "chain": element_chain(name, entry, ops, lam, warps, counts),
+                             "full_chain": element_chain(name, entry, ops, lam, None, counts)})
+        (med, lo, hi), (f_med, f_lo, f_hi) = ab["exit"], ab["full"]
+        chain_ms, full_chain_ms = ab["chain"][0], ab["full_chain"][0]
+        n_bytes = _nbytes(*ops, *out)
+        flops = sum(f * int(cols[:, j].sum()) for j, f in enumerate(ELEMENT_LOOP_FLOPS[name]))
+        bound_ms, bound_by = bound(n_bytes, flops)
+        if chain_ms > bound_ms:
+            bound_ms, bound_by = chain_ms, "operations"
+        log(f"[7a] {entry} {main_n} f32 (lam a number): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (device time, medians of 50 and 10); in turns ({AB_ROUNDS} "
+            f"rounds of {AB_REPS} calls): exit {med:.4f} ms ({lo:.4f}-{hi:.4f}), full count "
+            f"{f_med:.4f} ms ({f_lo:.4f}-{f_hi:.4f}), exit / full {med / f_med:.3f}; the "
+            f"measured chains (launch_floor.cu, lam by value, launch included): of each warp's "
+            f"slowest element's steps {chain_ms:.4f} ms ({ab['chain'][1]:.4f}-"
+            f"{ab['chain'][2]:.4f}), of the full counts {counts} in every element "
+            f"{full_chain_ms:.4f} ms ({ab['full_chain'][1]:.4f}-{ab['full_chain'][2]:.4f}), "
+            f"full-count chain / full-count build {full_chain_ms / f_med:.3f}"
+            + ("" if full_chain_ms <= f_med else " (above 1: NOT a lower bound)")
+            + "; steps "
+            + " + ".join(f"{cols[:, j].float().mean().item():.1f}" for j in range(cols.shape[1]))
+            + f" mean, on the longest chain (element {longest}) {taken}; bound "
+            f"{bound_ms:.4f} ms by {bound_by} "
+            f"({n_bytes} bytes, {flops:.3g} operations), kernel at {bound_ms / med:.2f} of it; "
+            f"launch floor {floor_ms:.4f} ms; no PyTorch call computes this function; {card}")
+        fields = {"ms": ms, "plain_ms": plain_ms, "full_count_ms": f_med,
+                  "ab_ms": {"exit": ab["exit"], "full_count": ab["full"], "chain": ab["chain"],
+                            "full_count_chain": ab["full_chain"]},
+                  "chain_ms": chain_ms, "full_count_chain_ms": full_chain_ms,
+                  "steps_taken": taken, "bound_ms": bound_ms, "bound_by": bound_by}
+        if record is None:
+            record = {"name": name, "route": "cuda", "source": k["source"],
+                      "replaces": k["replaces"], "max_abs_err": 0.0, "library_ms": None,
+                      "floor_ms": floor_ms, **fields}
+        else:
+            record[entry] = fields
+    return record
 
 
 def tv_signal(n, seed):
@@ -2247,7 +2616,8 @@ def _ms_per_iter(st):
 
 
 def phase_surface(ep, fixed_iters, x_ref):
-    """Phase 8; raises on the first check that fails."""
+    """Phase 8; raises on the first check that fails.  Returns the launches
+    of K10 and K11 in (g)."""
     import tempfile
     from epsilon_tpu_torch import config
     from epsilon_tpu_torch.compiler import compiler
@@ -2358,27 +2728,43 @@ def phase_surface(ep, fixed_iters, x_ref):
         f"iterations in all, as the uninterrupted solve; max difference {diff:.2e} "
         f"(tol {RESUME_ATOL:g})")
 
-    # (g) eval_prox on the card against the port on the CPU in f64
+    # (g) eval_prox on the card against the port on the CPU in f64; the
+    # kinds of K10 and K11 take inputs from the seed inside their domains,
+    # and each must launch its kernel (the counts set to 0 just before the
+    # card's call and read just after it)
+    from epsilon_tpu_torch.ops.kernels import sum_inv_pos, w_log_w
     N = EVAL_PROX_N
     rng = np.random.RandomState(2)
     v, w, c = rng.randn(N), rng.rand(N) + 0.5, rng.randn(N)
     s0 = 0.25 * float(np.abs(v).sum())
     kinds = (
-        ("norm1 (elementwise)", lambda x, t: ep.norm1(x), 0.7, False),
-        ("norm1 epigraph", lambda x, t: ep.norm1(x) <= t, 1.0, True),
+        ("norm1 (elementwise)", lambda x, t: ep.norm1(x), 0.7, False, v, None),
+        ("norm1 epigraph", lambda x, t: ep.norm1(x) <= t, 1.0, True, v, None),
         ("sum_squares, affine argument",
-         lambda x, t: ep.sum_squares(ep.mul_elemwise(w.reshape(-1, 1), x) - c), 0.8, False),
+         lambda x, t: ep.sum_squares(ep.mul_elemwise(w.reshape(-1, 1), x) - c), 0.8, False, v,
+         None),
+        ("sum_entries(exp(x)) (K11)", lambda x, t: ep.sum_entries(ep.exp(x)), 0.6, False,
+         3.0 * rng.randn(N), ("w_log_w_prox", w_log_w)),
+        ("sum_entries(-entr(x)) (K11)", lambda x, t: ep.sum_entries(-ep.entr(x)), 0.8, False,
+         3.0 * rng.randn(N), ("w_log_w_prox", w_log_w)),
+        ("sum_entries(power(x, -1)) (K10)", lambda x, t: ep.sum_entries(ep.power(x, -1)), 0.5,
+         False, 3.0 * np.abs(rng.randn(N)) + 0.1, ("sum_inv_pos_prox", sum_inv_pos)),
     )
-    for name, build, lam_p, epi in kinds:
+    launches = {"sum_inv_pos_prox": 0, "w_log_w_prox": 0}
+    for name, build, lam_p, epi, v_in, kernel in kinds:
         out = {}
         for device in ("cuda", "cpu"):
             config.set_device(device)
             try:
                 x, t = ep.Variable(N), ep.Variable(1)
-                v_map = {x: v, t: np.array([s0])} if epi else {x: v}
+                v_map = {x: v_in, t: np.array([s0])} if epi else {x: v_in}
+                if kernel is not None and device == "cuda":
+                    kernel[1].launches = 0
                 t0 = time.perf_counter()
                 ep.eval_prox(build(x, t), v_map, lam=lam_p)
                 dt = time.perf_counter() - t0
+                if kernel is not None and device == "cuda":
+                    launched = kernel[1].launches
                 out[device] = (np.concatenate([x.value.ravel()] + ([t.value.ravel()] if epi else [])), dt)
             finally:
                 config.set_device("cuda")
@@ -2386,9 +2772,15 @@ def phase_surface(ep, fixed_iters, x_ref):
         err = float(np.abs(got - want).max() / np.abs(want).max())
         if got.shape != want.shape or not np.all(np.isfinite(got)) or not err <= EVAL_PROX_RTOL:
             raise AssertionError(f"[8g] eval_prox {name}: relative error {err} > {EVAL_PROX_RTOL}")
+        if kernel is not None:
+            if launched == 0:
+                raise AssertionError(f"[8g] eval_prox {name}: {kernel[0]} was not launched")
+            launches[kernel[0]] += launched
         log(f"[8g] eval_prox {name}, {N} elements: relative error {err:.2e} against the port "
             f"on the CPU in f64 (tol {EVAL_PROX_RTOL:g}); {dt_card:.3f} s on the card, "
-            f"{dt_cpu:.3f} s on the CPU, compile included")
+            f"{dt_cpu:.3f} s on the CPU, compile included"
+            + (f"; {kernel[0]} launches {launched}" if kernel is not None else ""))
+    return launches
 
 
 def run_mesh_workers(mw, out_dir, world=MESH_WORLD, timeout=MESH_TIMEOUT_S, mode="run"):
@@ -2513,7 +2905,7 @@ def check_mesh_kinds(mw, ranks, resumed, e_ref, f_refs):
             + f"): {f0['status']} in {f0['iterations']} iterations (one process "
             f"{ref['iterations']}); max|x - x_one|/max|x_one| {err:.2e} (tol {tol:g}); "
             f"{f0['ms_per_iter']:.4f} ms/iter (one process {ref['ms_per_iter']:.4f}); set-up "
-            f"{f0['setup_s']:.2f} s; stacked bytes a rank {f0['stacked_bytes']}; K6, K7, K8 "
+            f"{f0['setup_s']:.2f} s; stacked bytes a rank {f0['stacked_bytes']}; K6, K7, K8, K9 "
             f"launches a rank {[list(m_['f'][family]['launches'].values()) for m_ in metas]} "
             f"(one process {list(ref['launches'].values())})")
         if not (f0["iterations"] == ref["iterations"] and err <= tol):
@@ -2526,6 +2918,10 @@ def check_mesh_kinds(mw, ranks, resumed, e_ref, f_refs):
         if family == "epigraph_elementwise" and not (ref["launches"]["epi_exp"] and all(
                 m_["f"][family]["launches"]["epi_exp"] for m_ in metas)):
             failed.append("9f epigraph_elementwise: K8 not launched")
+        # the two-argument family's rows run K9 on every rank and in one process
+        if family == "two_arg" and not (ref["launches"]["sum_kl_div_prox"] and all(
+                m_["f"][family]["launches"]["sum_kl_div_prox"] for m_ in metas)):
+            failed.append("9f two_arg: K9 not launched")
     # (g) the checkpoint, resumed on the same four ranks and on two
     g0 = metas[0]["g"]
     _same_on_all_ranks_arrays(ranks, "g_x")
@@ -2705,7 +3101,8 @@ def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
     if failed:
         raise AssertionError(f"[9] failed: {failed}")
     return (d0["k1_launches"], metas[0]["f"]["tv"]["launches"]["tv1d_pdas"],
-            metas[0]["f"]["epigraph_elementwise"]["launches"]["epi_exp"])
+            metas[0]["f"]["epigraph_elementwise"]["launches"]["epi_exp"],
+            metas[0]["f"]["two_arg"]["launches"]["sum_kl_div_prox"])
 
 
 def main():
@@ -2713,6 +3110,13 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # seconds of each phase, in the order they end (7c runs beside 7 and 8:
+    # its own count is from its start to its processes' end)
+    phase_s, t_mark = {}, [t_start]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name], t_mark[0] = now - t_mark[0], now
     import epsilon_tpu_torch as ep
     from epsilon_tpu_torch.ops.kernels import _rows
     from epsilon_tpu_torch.ops.kernels import local_update as lu
@@ -2739,10 +3143,12 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[1]   {line.strip()}")
 
+    mark("1")
     records = []
     # -- 2. kernel against the plain version -----------------------------------
     record = phase_kernel(sp)
     records.append(record)
+    mark("2")
 
     # -- 3. flagship lasso 2000 x 1000 ------------------------------------------
     A, b, lam = workload(2000, 1000)
@@ -2757,6 +3163,7 @@ def main():
                              f"{f_ref}: relative gap {gap} > {OBJ_RTOL}")
     log(f"[3] lasso 2000x1000: objective {f_port:.9g} vs f64 reference {f_ref:.9g}, "
         f"relative gap {gap:.2e} (tol {OBJ_RTOL:g})")
+    mark("3")
 
     # -- 4. the slice configuration: lasso 16384 x 8192 ---------------------------
     t0 = time.time()
@@ -2773,19 +3180,23 @@ def main():
     relaxed_iters = phase_over_relaxed(sp, prob, A, b, lam, iters)
     record["launches"] = launches + relaxed_iters
     del A, b, prob
+    mark("4")
 
     # -- 5. K1 against its plain version ------------------------------------------
     k1_records = phase_local_update(lu)
     record_k1, record_k1_rank = k1_records[200, 200], k1_records[K1_RANK_SHAPE]
     records += [record_k1, record_k1_rank]
+    mark("5")
 
     # -- 6. consensus lasso at full width -------------------------------------------
     record_k1["launches"], consensus_data, z_consensus, z_consensus_steady = phase_consensus(lu)
+    mark("6")
 
     # -- 7a. the per-row loop kernels against their plain versions ---------------------
     t0 = time.perf_counter()
     row_records = phase_row_kernels(card)
     log(f"[7a] passed in {time.perf_counter() - t0:.1f} s")
+    mark("7a")
 
     # -- 7c (started). the library under the other two parameter sets -----------------
     t_sets = time.perf_counter()
@@ -2805,17 +3216,21 @@ def main():
             if n == 0 and loop_kernels().get(name, {"rows": True})["rows"]:
                 raise AssertionError(f"{name} was not launched in phase 7")
         records += list(row_records.values())
+        mark("7")
 
         # -- 8. the rest of the solver's surface at the flagship's width -----------------
         sp.launches = lu.launches = 0
         t0 = time.perf_counter()
-        phase_surface(ep, flagship_iters, x_ref)
+        launches_8g = phase_surface(ep, flagship_iters, x_ref)
         log(f"[8] passed in {time.perf_counter() - t0:.1f} s; hand-written kernel launches in "
             f"phase 8: sym_packed {sp.launches}, local_update {lu.launches} (n = 1000 is below "
-            f"K2's gate)")
+            f"K2's gate); in (g) " + ", ".join(f"{k} {n}" for k, n in launches_8g.items()))
+        mark("8")
 
         # -- 7c (end). the library under the other two parameter sets --------------------
         sets_launches = phase_library_sets(set_pool, set_futures, t_sets)
+        mark("7c after 8")
+        phase_s["7c"] = time.perf_counter() - t_sets
     except BaseException:
         # stop the sets' processes: a failed phase ends the run
         for proc in list(set_pool._processes.values()):
@@ -2831,8 +3246,12 @@ def main():
             raise AssertionError(f"{name} was not launched in phase 7c under "
                                  f"{list(loop_kernels()[name]['sets'])}: {rec['launches_7c']}")
     # K8 runs in no library row under the default parameters: its launches
-    # are those of the set that runs it
+    # are those of the set that runs it; K10's and K11's main path is phase 8
+    # (g)'s eval_prox
     row_records["epi_exp"]["launches"] += row_records["epi_exp"]["launches_7c"]["no_epi"]
+    for name, n in launches_8g.items():
+        row_records[name]["launches_7"] = row_records[name]["launches"]
+        row_records[name]["launches"] = n
 
     # -- 9. the meshed paths, four processes over one group ------------------------------
     A, b, lam = workload(2000, 1000)
@@ -2840,10 +3259,17 @@ def main():
     # rank 0's in (d) (each rank is a process of its own and sets its count
     # to 0 just before the solve)
     (record_k1_rank["launches"], row_records["tv1d_pdas"]["launches_9f"],
-     row_records["epi_exp"]["launches_9f"]) = phase_mesh(
+     row_records["epi_exp"]["launches_9f"],
+     row_records["sum_kl_div_prox"]["launches_9f"]) = phase_mesh(
         card, (A, b, lam, lasso_objective(A, b, lam, x_ref)),
         consensus_data, z_consensus, z_consensus_steady)
+    # K9's main path is phase 9 (f)'s two-argument family: rank 0's count
+    k9_record = row_records["sum_kl_div_prox"]
+    k9_record["launches_7"], k9_record["launches"] = (k9_record["launches"],
+                                                      k9_record["launches_9f"])
 
+    mark("9")
+    log(f"[end] seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"[end] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)

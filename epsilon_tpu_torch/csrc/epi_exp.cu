@@ -21,7 +21,8 @@
 // plain version rounds and takes its branches (row_loops.cuh).
 //
 // The exits.  The widening's state is lo alone: once a step leaves lo
-// unchanged, every later step does, so the loop stops there (period 1).
+// unchanged, every later step does, so the loop stops there (period 1,
+// row_loops.cuh widen()).
 // The Newton's state (x, lo, hi, glo, ghi) stops at its first repeat found
 // every fourth step, the last of the 25 steps after the unrolled body
 // (row_loops.cuh iterate4(), newton_element()).  Both give the full count's
@@ -64,18 +65,11 @@ epi_exp(const T* __restrict__ v, const T* s_p, int s_stride, T s_value, T* __res
     gp = T(1) + T(2) * ex * ex - si * ex;
     return xx + ex * ex - si * ex - vi;
   };
-  T lo = clamp_max(vi, T(0)) - T(1);
-  int widened = WIDEN_STEPS;
-#pragma unroll 1
-  for (int k = 0; k < WIDEN_STEPS; ++k) {
+  int widened;
+  T lo = widen<EXIT>(clamp_max(vi, T(0)) - T(1), WIDEN_STEPS, [&](T b) {
     T unused;
-    const T next = gfun(lo, unused) > T(0) ? lo - T(2) * fabs(lo) - T(2) : lo;
-    if (EXIT && same(next, lo)) {
-      widened = k + 1;
-      break;
-    }
-    lo = next;
-  }
+    return gfun(b, unused) > T(0) ? b - T(2) * fabs(b) - T(2) : b;
+  }, widened);
   if (si > T(0)) lo = tmax(lo, t_log(clamp_min(si, Lim<T>::tiny()) * T(0.5)));
   const T hi = vi;
   int ran = 0;

@@ -1,7 +1,8 @@
 // Device helpers shared by the per-row loop kernels (lse_rows.cu,
 // epi_sum_square.cu, epi_neg_log.cu), the one-thread-an-element loop
-// kernels (sum_logistic.cu, epi_exp.cu: iterate4(), newton_element(),
-// element_threads()) and launch_floor.cu's chains.
+// kernels (sum_logistic.cu, epi_exp.cu, sum_kl_div.cu, sum_inv_pos.cu,
+// w_log_w.cu: iterate4(), newton_element(), widen(), element_threads())
+// and launch_floor.cu's chains.
 //
 // These kernels replace fixed-count loops that the JAX package leaves to
 // XLA (epsilon_tpu/ops/prox/util.py, newton_epi.py, registry.py), so that a
@@ -77,6 +78,19 @@ __device__ __forceinline__ float t_exp(float x) { return expf(x); }
 __device__ __forceinline__ double t_exp(double x) { return exp(x); }
 __device__ __forceinline__ float t_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double t_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float t_pow(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double t_pow(double x, double y) { return pow(x, y); }
+
+// The port's plain cube root (ops/prox/elementwise.py _cbrt,
+// sign(x) * |x| ** (1/3)) as torch computes it on the card: torch.sign is
+// (0 < x) - (x < 0) in the element type (0 for NaN and +-0), and
+// torch.pow with a Python-float exponent takes the exponent in the
+// element type (1/3 rounded to float in f32) and calls pow.  Not cbrtf,
+// which rounds otherwise.
+template <typename T> __device__ __forceinline__ T torch_cbrt(T x) {
+  const T sign = T((T(0) < x) - (x < T(0)));
+  return sign * t_pow(fabs(x), T(1.0 / 3.0));
+}
 
 template <typename T> __device__ __forceinline__ bool is_finite(T x) { return isfinite(x); }
 template <typename T> __device__ __forceinline__ bool is_inf(T x) { return isinf(x); }
@@ -354,7 +368,8 @@ __device__ __forceinline__ T newton_safeguarded(G gfun, T x, T lo, T hi, int ite
   return b.x;
 }
 
-// -- one thread an element (K6 sum_logistic.cu, K8 epi_exp.cu) -------------
+// -- one thread an element (K6 sum_logistic.cu, K8 epi_exp.cu, K9 ---------
+// -- sum_kl_div.cu, K10 sum_inv_pos.cu, K11 w_log_w.cu) -------------------
 //
 // The lanes of these loops are independent (no shuffles), so each exits
 // alone, and a warp runs at the pace of its slowest lane: the exit pays
@@ -436,7 +451,29 @@ __device__ __forceinline__ T newton_element(G gfun, T x, T lo, T hi, int iters, 
   }, ran).x;
 }
 
-// The threads a block of a one-thread-an-element launch of n (K6, K8):
+// A widening of one bracket end, b = step(b) `iters` times (K8's lower
+// end, K9's and K10's upper end: a doubling where g says the root lies
+// beyond).  The step is a fixed map of b alone (the element's data held),
+// so once a step leaves b unchanged, bitwise, every later step does too
+// (period 1): with EXIT the loop stops there, which is the full count's
+// b.  `ran` gets the steps run (the first that left b unchanged
+// included).  Without EXIT every step of the count runs.
+template <bool EXIT, typename T, typename F>
+__device__ __forceinline__ T widen(T b, int iters, F step, int& ran) {
+  ran = iters;
+#pragma unroll 1
+  for (int k = 0; k < iters; ++k) {
+    const T next = step(b);
+    if (EXIT && same(next, b)) {
+      ran = k + 1;
+      break;
+    }
+    b = next;
+  }
+  return b;
+}
+
+// The threads a block of a one-thread-an-element launch of n (K6, K8-K11):
 // enough warps a block to spread n over every SM of the current device,
 // at least one warp and at most 256 threads.  A small launch (logreg_l1's
 // 1,500 elements) then takes one-warp blocks on 47 SMs, one warp to a

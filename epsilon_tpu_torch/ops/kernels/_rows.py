@@ -1,6 +1,7 @@
 """Argument handling shared by the per-row loop kernels (``lse_rows``,
 ``epi_sum_square``, ``epi_neg_log``) and the one-thread-an-element loop
-kernels (``sum_logistic``, ``epi_exp``: :func:`element_args`).
+kernels (``sum_logistic``, ``epi_exp``, ``sum_inv_pos``, ``w_log_w``:
+:func:`element_args`; ``sum_kl_div``, two operands: :func:`element_args2`).
 
 Each kernel takes a batch of rows (any leading shape, the row along the
 last axis, flattened to ``rows x n``) and a per-row scalar (``lam`` or
@@ -127,6 +128,19 @@ def epi_args(fname: str, v, s):
     return x, t, (v.data_ptr(), ptr, stride, value, x.data_ptr(), t.data_ptr(), rows, n), (v, keep)
 
 
+def _element_operands(fname: str, **operands):
+    """Raise unless every operand is a float32 or float64 CUDA tensor (the
+    types checked first)."""
+    for label, v in operands.items():
+        if not isinstance(v, torch.Tensor):
+            raise TypeError(f"{fname}: {label} must be a tensor, got {type(v).__name__}")
+        if v.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"{fname}: {label} must be float32 or float64, got {v.dtype}")
+    for v in operands.values():
+        if v.device.type != "cuda":
+            raise ValueError(f"{fname}: the kernel needs a CUDA tensor, got one on {v.device}")
+
+
 def element_args(fname: str, name: str, v, a):
     """Check the arguments of a one-thread-an-element kernel: ``v`` a CUDA
     tensor and ``a`` (``lam`` or ``s``) a number, a one-element CPU tensor
@@ -136,12 +150,7 @@ def element_args(fname: str, name: str, v, a):
     shape and contiguous, the pointer of ``a`` (None when passed by value)
     with its stride (0 or 1), its value, and the tensor that must live
     through the launch."""
-    if not isinstance(v, torch.Tensor):
-        raise TypeError(f"{fname}: v must be a tensor, got {type(v).__name__}")
-    if v.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{fname}: v must be float32 or float64, got {v.dtype}")
-    if v.device.type != "cuda":
-        raise ValueError(f"{fname}: the kernel needs a CUDA tensor, got one on {v.device}")
+    _element_operands(fname, v=v)
     ptr, stride, value, keep = None, 0, 0.0, None
     shape = tuple(v.shape)
     if isinstance(a, torch.Tensor) and not (a.device.type == "cpu" and a.numel() == 1):
@@ -166,6 +175,67 @@ def element_args(fname: str, name: str, v, a):
     if v.numel() >= 2 ** 62:
         raise ValueError(f"{fname}: v {tuple(v.shape)} is too large")
     return v, ptr, stride, value, keep
+
+
+def element_args2(fname: str, name: str, u, v, a):
+    """The arguments of a one-thread-an-element kernel of two operands
+    ``u`` and ``v`` (CUDA tensors of one dtype that broadcast together; the
+    SUM_KL_DIV prox) and ``a`` as :func:`element_args` takes it.  Each
+    tensor is taken as it comes where its elements lie as rows of the joint
+    shape's last dimension with one row stride and a column stride of 1 or
+    0 (a contiguous tensor, a row of a packed tensor such as ``z[...,
+    :n]``, a row broadcast along the rows, a per-row ``lam`` of shape
+    ``(rows, 1)``); any other layout is copied.  Returns ``(operands, n,
+    shape, lam, keep)``: ``operands`` a ``(tensor, row stride, column
+    stride)`` for u and for v, ``n`` the joint shape's row length,
+    ``shape`` the joint shape, ``lam`` the ``(pointer or None, row stride,
+    column stride, value)`` of ``a`` (a pointer with strides 0 for a
+    one-element tensor on the card, None for a number passed by value) and
+    ``keep`` the tensors that must live through the launch."""
+    _element_operands(fname, u=u, v=v)
+    if u.dtype != v.dtype or u.device != v.device:
+        raise ValueError(f"{fname}: u ({u.dtype} on {u.device}) and v ({v.dtype} on "
+                         f"{v.device}) differ")
+    on_card = isinstance(a, torch.Tensor) and not (a.device.type == "cpu" and a.numel() == 1)
+    if on_card and a.device != v.device:
+        raise ValueError(f"{fname}: {name} on {a.device}, v on {v.device}")
+    shapes = [tuple(u.shape), tuple(v.shape)] + ([tuple(a.shape)] if isinstance(a, torch.Tensor)
+                                                 else [])
+    try:
+        shape = broadcast_shape(*shapes)
+    except ValueError:
+        raise ValueError(f"{fname}: u {tuple(u.shape)}, v {tuple(v.shape)} and {name} "
+                         f"{tuple(np.shape(a))} do not broadcast") from None
+    if int(np.prod(shape, dtype=np.int64)) >= 2 ** 62:
+        raise ValueError(f"{fname}: the joint shape {shape} is too large")
+    n = shape[-1] if shape else 1
+    operands = tuple(_row_strided(torch.broadcast_to(t, shape), n) for t in (u, v))
+    if not on_card:
+        lam = (None, 0, 0, float(a.reshape(())) if isinstance(a, torch.Tensor) else float(a))
+        return operands, n, shape, lam, operands
+    a = a.to(v.dtype)
+    if a.numel() == 1:
+        return operands, n, shape, (a.data_ptr(), 0, 0, 0.0), operands + (a,)
+    a, rs, cs = _row_strided(torch.broadcast_to(a, shape), n)
+    return operands, n, shape, (a.data_ptr(), rs, cs, 0.0), operands + (a,)
+
+
+def _row_strided(t: torch.Tensor, n: int):
+    """``(t or a contiguous copy, row stride, column stride)``: element i
+    of t's shape lies at ``(i // n) * row stride + (i % n) * column
+    stride`` from its data pointer (strides n and 1: contiguous; a column
+    stride of 0: one value a row)."""
+    if t.is_contiguous():
+        return t, n, 1
+    if t.numel() > 0:
+        try:
+            rows = t.view(-1, n)
+        except RuntimeError:
+            rows = None
+        if rows is not None and (n == 1 or rows.stride(1) in (0, 1)):
+            return (t, rows.stride(0) if rows.shape[0] > 1 else 0,
+                    rows.stride(1) if n > 1 else 1)
+    return t.contiguous(), n, 1
 
 
 def element_steps_ptr(fname: str, steps, shape, device):

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import epi_exp as epi_exp_kernel
-from ..kernels import epi_neg_log, sum_logistic
+from ..kernels import epi_neg_log, sum_inv_pos, sum_kl_div, sum_logistic, w_log_w
 from .util import (as_tensor_like, newton_safeguarded, pwl_root,
                    solve_w_log_w, where_batch)
 
@@ -87,6 +87,16 @@ def prox_norm1(v, lam):
 
 
 def prox_sum_exp(v, lam):
+    """x + lam e^x = v elementwise: the plain version
+    (:func:`prox_sum_exp_reference`) on a CPU tensor, one launch of the
+    ``w_log_w`` kernel on a CUDA tensor; any other device raises."""
+    if v.device.type == "cpu":
+        return prox_sum_exp_reference(v, lam)
+    return w_log_w.prox_exp(v, lam)
+
+
+def prox_sum_exp_reference(v, lam):
+    """The 30-step Lambert solve, one eager operation a step."""
     c = torch.log(as_tensor_like(lam, v)) + v
     return v - solve_w_log_w(c)
 
@@ -176,6 +186,17 @@ def eval_sum_logistic(x):
 
 
 def prox_sum_inv_pos(v, lam):
+    """x^2 (x - v) = lam elementwise: the plain version
+    (:func:`prox_sum_inv_pos_reference`) on a CPU tensor, one launch of the
+    ``sum_inv_pos`` kernel on a CUDA tensor; any other device raises."""
+    if v.device.type == "cpu":
+        return prox_sum_inv_pos_reference(v, lam)
+    return sum_inv_pos.prox(v, lam)
+
+
+def prox_sum_inv_pos_reference(v, lam):
+    """The bracket's 40-step widening and the safeguarded Newton of 50
+    steps, one eager operation a step."""
     lam = torch.broadcast_to(as_tensor_like(lam, v), v.shape)
 
     def g(x):
@@ -207,6 +228,16 @@ def eval_sum_inv_pos(x):
 
 
 def prox_sum_neg_entr(v, lam):
+    """lam (log x + 1) + x = v elementwise: the plain version
+    (:func:`prox_sum_neg_entr_reference`) on a CPU tensor, one launch of the
+    ``w_log_w`` kernel on a CUDA tensor; any other device raises."""
+    if v.device.type == "cpu":
+        return prox_sum_neg_entr_reference(v, lam)
+    return w_log_w.prox_neg_entr(v, lam)
+
+
+def prox_sum_neg_entr_reference(v, lam):
+    """The 30-step Lambert solve, one eager operation a step."""
     lam = as_tensor_like(lam, v)
     c = (v - lam) / lam - torch.log(lam)
     return lam * solve_w_log_w(c)
@@ -262,6 +293,18 @@ def epi_sum_neg_log_reference(v, s):
 
 
 def prox_sum_kl_div(u, v, lam):
+    """The SUM_KL_DIV prox of (u, v) elementwise, ``(x, y)``: the plain
+    version (:func:`prox_sum_kl_div_reference`) on a CPU tensor, one launch
+    of the ``sum_kl_div`` kernel on a CUDA tensor; any other device
+    raises."""
+    if u.device.type == "cpu":
+        return prox_sum_kl_div_reference(u, v, lam)
+    return sum_kl_div.prox(u, v, lam)
+
+
+def prox_sum_kl_div_reference(u, v, lam):
+    """The bracket's 60-step widening and the safeguarded Newton of 60
+    steps, one eager operation a step."""
     eps = 1e-13 if u.dtype == torch.float64 else 1e-6
     lam = torch.broadcast_to(as_tensor_like(lam, u), u.shape)
 

@@ -4,8 +4,10 @@ against their plain PyTorch versions, K3-K5 (whose loops stop when their
 state repeats) against their full-count builds bitwise, K3's half-warp
 prox against the same kernel one row a warp bitwise, the factor
 apply, a small lasso, a small consensus lasso and the rows whose epigraphs
-K3 and K4 carry on the card; K6 (the SUM_LOGISTIC prox) against its
-full-count build bitwise and its plain version, K7 (the TV-1D PDAS in one
+K3 and K4 carry on the card; K6 (the SUM_LOGISTIC prox), K8 (the EXP
+epigraph), K9 (the SUM_KL_DIV prox), K10 (SUM_INV_POS) and K11 (SUM_EXP and
+SUM_NEG_ENTR) against their full-count builds bitwise and their plain
+versions, the KL epigraph on the card, K7 (the TV-1D PDAS in one
 cooperative launch) against the plain PDAS and the exact oracle and, at
 every tile depth, against the levels build it replaced bitwise, its PCR
 solve against the plain one bitwise, each launching one kernel and no host
@@ -1109,17 +1111,22 @@ def _host_calls(prof):
 
 
 def test_k6_k7_each_one_kernel_and_no_host_sync(cuda):
-    """On a CUDA tensor, K6, K7 and K8's dispatch each launch one kernel and
-    neither synchronizes with the host nor copies to it (K8 with s one an
-    element and a 0-d tensor on the card): the profiled call shows no
+    """On a CUDA tensor, K6, K7, K8, K9, K10 and K11's dispatch each launch
+    one kernel and neither synchronizes with the host nor copies to it (K8
+    with s one an element and a 0-d tensor on the card; K9 with u and v the
+    halves of one packed tensor's rows, read where they lie, and lam one a
+    row; K10 and K11 with lam a 0-d tensor on the card): the profiled call
+    shows no
     host-blocking CUDA call beyond those of an empty profiled window (the
-    profiler's own), and PyTorch's sync debug mode raises on none of its
-    operations.  The one test of the file that starts the profiler: a
-    profiled window opened after an earlier test's windows and the K7 tests
-    recorded no device events on the card."""
+    profiler's own and the synchronize that closes each window), and
+    PyTorch's sync debug mode raises on none of its operations.  The one
+    test of the file that starts the profiler: a profiled window opened
+    after an earlier test's windows and the K7 tests recorded no device
+    events on the card, and a window that closed right after its launch
+    recorded none in one run of two (K8's, after K6's had passed)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import k8_inputs
+    from chip_smoke import element_loop_inputs, k8_inputs
     from epsilon_tpu_torch.ops.prox import elementwise, tv1d
     v = torch.as_tensor(_tv_signal(100_000, 7), dtype=torch.float32, device=cuda)
     lam = torch.tensor(316.0, device=cuda)
@@ -1127,23 +1134,40 @@ def test_k6_k7_each_one_kernel_and_no_host_sync(cuda):
     u = torch.as_tensor(np.random.RandomState(8).uniform(-9, 9, 1500), dtype=torch.float32,
                         device=cuda)
     w, s = k8_inputs(2000, torch.float32, 3, cuda)
+    kl, kl_lam = element_loop_inputs("sum_kl_div_prox", 10_000, torch.float32, 4, cuda, "packed")
+    (y,), y_lam = element_loop_inputs("sum_inv_pos_prox", 10_000, torch.float32, 5, cuda, "0-d")
+    # every kernel's first call in this process (which loads its library)
+    # outside the profiled windows, as K7's above
+    elementwise.prox_sum_logistic(u, lam)
+    elementwise.epi_exp(w, s)
+    elementwise.prox_sum_kl_div(*kl, kl_lam)
+    elementwise.prox_sum_inv_pos(y, y_lam)
+    elementwise.prox_sum_exp(y, y_lam)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pass
+        torch.cuda.synchronize()
     baseline = _host_calls(prof)
     for call, name in ((lambda: tv1d.prox_tv1d_pdas(v, lam, tol=1e-3, z0=z), "pdas_tiles"),
                        (lambda: elementwise.prox_sum_logistic(u, lam), "prox_logistic"),
                        (lambda: elementwise.epi_exp(w, s), "epi_exp"),
-                       (lambda: elementwise.epi_exp(w, s[0]), "epi_exp")):
+                       (lambda: elementwise.epi_exp(w, s[0]), "epi_exp"),
+                       (lambda: elementwise.prox_sum_kl_div(*kl, kl_lam), "prox_kl_div"),
+                       (lambda: elementwise.prox_sum_inv_pos(y, y_lam), "prox_inv_pos"),
+                       (lambda: elementwise.prox_sum_exp(y, y_lam), "prox_w_log_w"),
+                       (lambda: elementwise.prox_sum_neg_entr(y, y_lam), "prox_w_log_w")):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.set_sync_debug_mode("error")
             try:
                 call()
             finally:
                 torch.cuda.set_sync_debug_mode("default")
+            # the window closes on finished device work (the empty window
+            # above closes the same way)
+            torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        assert len(kernels) == 1 and name in kernels[0].key and kernels[0].count == 1
-        assert _host_calls(prof) == baseline
+        assert len(kernels) == 1 and name in kernels[0].key and kernels[0].count == 1, \
+            (name, [(e.key, e.count) for e in kernels])
+        assert _host_calls(prof) == baseline, (name, _host_calls(prof), baseline)
 
 
 @pytest.mark.parametrize("row,kwargs,kernel", [
@@ -1202,3 +1226,182 @@ def test_grid_sync_floor_runs(cuda):
     ms = grid_sync_ms(v, tv1d_pdas.grid("pdas", 100_000, v), tv1d_pdas.threads(), 10)
     assert ms > 0
     assert [getattr(mod, counter) for mod, counter in counters] == before
+
+
+# -- K9-K11: the SUM_KL_DIV, SUM_INV_POS, SUM_EXP and SUM_NEG_ENTR proxes -------
+
+_ELEMENT_LOOP_ENTRIES = [("sum_kl_div_prox", "sum_kl_div"), ("sum_inv_pos_prox", "sum_inv_pos"),
+                         ("w_log_w_prox", "sum_exp"), ("w_log_w_prox", "sum_neg_entr")]
+_ELEMENT_LOOP_DISPATCH = {"sum_kl_div": "prox_sum_kl_div", "sum_inv_pos": "prox_sum_inv_pos",
+                          "sum_exp": "prox_sum_exp", "sum_neg_entr": "prox_sum_neg_entr"}
+
+
+def _element_loop_module(name):
+    import importlib
+    return importlib.import_module("epsilon_tpu_torch.ops.kernels."
+                                   + {"sum_kl_div_prox": "sum_kl_div",
+                                      "sum_inv_pos_prox": "sum_inv_pos",
+                                      "w_log_w_prox": "w_log_w"}[name])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [256, 20_000])
+@pytest.mark.parametrize("name,entry,lam_kind", [
+    (name, entry, lam_kind) for name, entry in _ELEMENT_LOOP_ENTRIES
+    for lam_kind in ("number", "0-d", "element", "row")
+    + (("packed",) if name == "sum_kl_div_prox" else ())])
+def test_element_loop_kernel_matches_full_count_and_plain(cuda, name, entry, lam_kind, n, dtype):
+    """K9, K10 and K11 (both entries) through their dispatch (one launch)
+    equal their full-count builds and their plain versions bitwise, with
+    their steps within the loops' counts (``chip_smoke.element_loop_check``),
+    on chip_smoke's phase 7a inputs: lam a number, a 0-d tensor on the
+    card, one an element and one a row, and for K9 u and v the halves of one
+    packed tensor's rows (read where they lie)."""
+    from chip_smoke import element_loop_check, element_loop_inputs, element_loops
+    from epsilon_tpu_torch.ops.prox import elementwise
+    module = _element_loop_module(name)
+    ops, lam = element_loop_inputs(name, n, dtype, n, cuda, lam_kind)
+    before = module.launches
+    got = getattr(elementwise, _ELEMENT_LOOP_DISPATCH[entry])(*ops, lam)
+    assert module.launches == before + 1
+    out, _ = element_loop_check(name, entry, element_loops()[name], ops, lam,
+                                f"{n} {lam_kind} {dtype}")
+    # the check's two kernel calls count, its full-count call does not
+    assert module.launches == before + 3
+    got = got if isinstance(got, tuple) else (got,)
+    assert all(_same_bits(a, b) for a, b in zip(got, out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,entry", _ELEMENT_LOOP_ENTRIES)
+def test_element_loop_kernel_on_special_values(cuda, name, entry, dtype):
+    """Every pair (K9: triple) of the special values of
+    ``chip_smoke.element_loop_special`` (NaN, +-inf, 0, -0, +-1e30, lam <=
+    0, and for K9 u and v below eps^2, the pass-through): the full-count
+    build's bits, the plain version's values (NaN in the same places)."""
+    from chip_smoke import element_loop_check, element_loop_special, element_loops
+    ops, lam = element_loop_special(name, dtype, cuda)
+    element_loop_check(name, entry, element_loops()[name], ops, lam, "special", special=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sum_inv_pos_cube_root_is_the_plain_versions(cuda, dtype):
+    """K10's cube root (``row_loops.cuh`` torch_cbrt: torch's sign and pow
+    with the exponent in the element type, run alone by ``launch_floor.cu``
+    cube_root) gives the bits of the plain version's ``sign(x) |x| **
+    (1/3)`` on the card, over 1e-30..1e30 of both signs and the special
+    values; no K10 launch is counted."""
+    from chip_smoke import cube_root
+    from epsilon_tpu_torch.ops.kernels import sum_inv_pos
+    from epsilon_tpu_torch.ops.prox import elementwise
+    a = torch.as_tensor(10.0 ** np.random.RandomState(3).uniform(-30, 30, 100_000), dtype=dtype,
+                        device=cuda)
+    special = torch.tensor([np.nan, np.inf, 0.0, -0.0, 1.0, 8.0, 27.0], dtype=dtype, device=cuda)
+    a = torch.cat([a, -a, special, -special])
+    before = sum_inv_pos.launches
+    got, want = cube_root(a), elementwise._cbrt(a)
+    assert bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+    assert sum_inv_pos.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,entry", _ELEMENT_LOOP_ENTRIES)
+def test_element_loop_chains_run_the_steps_given(cuda, name, entry, dtype):
+    """K9's-K11's measured chains (``launch_floor.cu``, lam by value): each
+    warp given the full counts, packed one int a warp
+    (``chip_smoke.warp_steps``), gives the bits of every element running
+    the counts passed; K11's chain, whose steps are its kernel's without an
+    exit, gives the full-count build's bits for either entry; no kernel
+    launch is counted."""
+    from chip_smoke import element_chain, element_loop_inputs, element_loops, warp_steps
+    e = element_loops()[name]
+    counts = e["counts"]
+    n = 1000
+    ops, lam = element_loop_inputs(name, n, dtype, 0, cuda, "number")
+    module = _element_loop_module(name)
+    before = module.launches
+    steps = torch.tensor(counts, dtype=torch.int32, device=cuda).expand(
+        (n,) + ((len(counts),) if len(counts) > 1 else ())).contiguous()
+    warps = warp_steps(steps, n)
+    assert warps.shape == ((n + 31) // 32,)
+    xs = [torch.empty_like(ops[-1]) for _ in range(2)]
+    for x, each in zip(xs, (None, warps)):
+        element_chain(name, entry, ops, lam, each, counts, x)()
+    torch.cuda.synchronize()
+    assert _same_bits(xs[0], xs[1])
+    if name == "w_log_w_prox":
+        assert _same_bits(xs[0], e["entries"][entry][1](*ops, lam))
+    assert module.launches == before
+
+
+def test_element_loop_kernels_broadcast_and_reject(cuda):
+    """lam broadcast per row, a one-element CPU tensor and a number give
+    the plain versions' shapes and bits; K9's u broadcast along v's rows is
+    read where it lies; lam of a shape that does not broadcast, lam on the
+    CPU of another shape, u and v of different dtypes raise."""
+    from epsilon_tpu_torch.ops.kernels import sum_kl_div, w_log_w
+    from epsilon_tpu_torch.ops.prox import elementwise
+    rng = np.random.RandomState(6)
+    f64 = lambda *shape: torch.as_tensor(rng.uniform(0.1, 5.0, shape), dtype=torch.float64,
+                                         device=cuda)
+    u, v = f64(3, 40), f64(3, 40)
+    for lam in (f64(3, 1), f64(40), torch.tensor([0.7], dtype=torch.float64), 2.0):
+        want_lam = lam.to(cuda) if isinstance(lam, torch.Tensor) else lam
+        for a, b in zip(elementwise.prox_sum_kl_div(u, v, lam),
+                        elementwise.prox_sum_kl_div_reference(u, v, want_lam)):
+            assert _same_bits(a, b)
+        assert _same_bits(elementwise.prox_sum_exp(v, lam),
+                          elementwise.prox_sum_exp_reference(v, want_lam))
+    row = f64(40)
+    for a, b in zip(elementwise.prox_sum_kl_div(row, v, 0.3),
+                    elementwise.prox_sum_kl_div_reference(torch.broadcast_to(row, v.shape), v, 0.3)):
+        assert _same_bits(a, b)
+    with pytest.raises(ValueError):
+        sum_kl_div.prox(u, v, f64(7))
+    with pytest.raises(ValueError):
+        w_log_w.prox_exp(v, torch.ones(40, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        sum_kl_div.prox(u, v.float(), 1.0)
+
+
+def test_element_loop_dispatch_never_reaches_a_full_count_entry(cuda, monkeypatch):
+    """The four proxes' dispatch launches the kernels that exit, never
+    their full-count builds."""
+    from chip_smoke import element_loop_inputs
+    from epsilon_tpu_torch.ops.kernels import sum_inv_pos, sum_kl_div, w_log_w
+    from epsilon_tpu_torch.ops.prox import elementwise
+    names = {}
+    for module in (sum_kl_div, sum_inv_pos, w_log_w):
+        names[module.__name__] = _Names(module._library())
+        monkeypatch.setattr(module, "_LIB", names[module.__name__])
+    for dtype in (torch.float32, torch.float64):
+        elementwise.prox_sum_kl_div(*element_loop_inputs("sum_kl_div_prox", 64, dtype, 1, cuda)[0],
+                                    0.5)
+        v = element_loop_inputs("sum_inv_pos_prox", 64, dtype, 1, cuda)[0][0]
+        elementwise.prox_sum_inv_pos(v, 0.5)
+        elementwise.prox_sum_exp(v, 0.5)
+        elementwise.prox_sum_neg_entr(v, 0.5)
+    assert [n for lib in names.values() for n in lib.names] == [
+        "sum_kl_div_prox_f32", "sum_kl_div_prox_f64", "sum_inv_pos_prox_f32",
+        "sum_inv_pos_prox_f64", "w_log_w_exp_f32", "w_log_w_neg_entr_f32", "w_log_w_exp_f64",
+        "w_log_w_neg_entr_f64"]
+
+
+def test_kl_epigraph_on_the_card_launches_k9_each_outer_step(cuda):
+    """The SUM_KL_DIV epigraph (``newton_epi.epi_sum_kl_div``: 24 implicit
+    Newton steps on lam, each with one KL prox, and one prox after them) on
+    the card in f64, a batch of rows whose u and v are views of one packed
+    tensor, launches K9 25 times and agrees with the same call on the CPU
+    within 1e-9 relative (x, y and t; the row sums run in another order)."""
+    from epsilon_tpu_torch.ops.kernels import sum_kl_div
+    from epsilon_tpu_torch.ops.prox import newton_epi
+    rng = np.random.RandomState(7)
+    u, w = 1.0 + rng.rand(6, 50), 0.5 + rng.rand(6, 50)
+    s = 0.1 * rng.rand(6)
+    before = sum_kl_div.launches
+    got = newton_epi.epi_sum_kl_div(*(torch.as_tensor(a, device=cuda) for a in (u, w, s)))
+    assert sum_kl_div.launches == before + 25
+    want = newton_epi.epi_sum_kl_div(*(torch.as_tensor(a) for a in (u, w, s)))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-9, atol=1e-12)
+    assert not np.allclose(got[0].cpu().numpy(), u)       # the rows are active

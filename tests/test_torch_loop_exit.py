@@ -25,6 +25,13 @@ each element of the SUM_LOGISTIC prox alone (one thread an element), and
 exits at its state's first repeat the same way; its premise is held here
 on v in +-60 with lam over 1e-6..1e6 and on special values.
 
+K9 (``csrc/sum_kl_div.cu``) and K10 (``csrc/sum_inv_pos.cu``) widen the
+bracket's upper end (state hi: it stops at its first step that leaves hi
+unchanged, period 1) and then run the safeguarded Newton one thread an
+element with K6's exit; K11 (``csrc/w_log_w.cu``) runs the Lambert solve
+on the SUM_EXP and SUM_NEG_ENTR proxes' arguments with K3's exit.  Their
+premises are held here on wide ranges and special values.
+
 K3's prox runs rows of up to 16 two to a warp, its sums through 16-wide
 butterflies in place of 32-wide ones; a plain simulation of both holds
 them to the same bits here.
@@ -774,3 +781,205 @@ def test_exit_after_cycling_on_is_exact(loop, dtype):
         v, s = _sum_square_rows(400, 10, dtype, seed=5)
         bits = _sum_square_loops(v, s)[1]
     _cycled_exit_is_exact(bits)
+
+
+# -- K9, K10: a widening of the upper end (hi), then Newton ------------------
+#
+# ``elementwise.prox_sum_kl_div_reference`` (K9, ``csrc/sum_kl_div.cu``)
+# doubles hi 60 times where g(hi) < 0, then runs 60 safeguarded Newton
+# steps; ``prox_sum_inv_pos_reference`` (K10, ``csrc/sum_inv_pos.cu``) 40
+# and 50.  Both kernels stop the widening at its first step that leaves hi
+# unchanged (``row_loops.cuh`` widen(): the step is a fixed map of hi
+# alone, period 1) and the Newton as iterate4() does (60 steps: fifteen
+# whole fours and no tail; 50: twelve and a tail of two).
+
+KL_WIDEN, KL_NEWTON = 60, 60
+INV_POS_WIDEN, INV_POS_NEWTON = 40, 50
+
+
+def _special_pairs():
+    vals = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, 1.0, -1.0, 50.0])
+    return (a.ravel() for a in np.meshgrid(vals, vals, indexing="ij"))
+
+
+def _kl_div_inputs(dtype):
+    """u and v over -5..10 with lam over 1e-3..1e3, over -30..60 with lam
+    over 1e-6..1e6 (where some roots lie below the bracket and some y
+    round below 0), and every pair of NaN, +-inf, 0, -0, +-1e30, 1, -1 and
+    50 for u and v with lam 1."""
+    rng = np.random.RandomState(15)
+    u = [rng.uniform(-5.0, 10.0, 2000), rng.uniform(-30.0, 60.0, 2000)]
+    v = [rng.uniform(-5.0, 10.0, 2000), rng.uniform(-30.0, 60.0, 2000)]
+    lam = [10.0 ** rng.uniform(-3.0, 3.0, 2000), 10.0 ** rng.uniform(-6.0, 6.0, 2000)]
+    su, sv = _special_pairs()
+    u, v, lam = u + [su], v + [sv], lam + [np.ones(su.size)]
+    return (torch.as_tensor(np.concatenate(a), dtype=dtype) for a in (u, v, lam))
+
+
+def _kl_div_loops(u, v, lam):
+    """The widening's step and start, the Newton's step and start, with the
+    plain version's operations; the result after both full counts is
+    ``prox_sum_kl_div_reference``'s, bitwise."""
+    eps = 1e-13 if u.dtype == torch.float64 else 1e-6
+
+    def g(r):
+        return lam * r * r + (v - lam) * r - u + lam * torch.log(r)
+
+    def g_and_gp(r):
+        return g(r), 2.0 * lam * r + (v - lam) + lam / r
+
+    def widen(state):
+        return (torch.where(g(state[0]) < 0, 2.0 * state[0], state[0]),)
+
+    lo = torch.clamp((lam - v) / lam + eps, min=eps)
+    hi0 = (torch.clamp(lo * 2.0, min=1.0),)
+    hi = hi0
+    for _ in range(KL_WIDEN):
+        hi = widen(hi)
+    hi = hi[0]
+    r0 = torch.minimum(torch.maximum(torch.clamp((0.5 + lam - v) / lam, min=eps), lo), hi)
+    newton = (_nu_step(g_and_gp), (r0, lo, hi, g(lo), g(hi)))
+    state = newton[1]
+    for _ in range(KL_NEWTON):
+        state = newton[0](state)
+    y = lam * state[0] + v - lam
+    x = y * state[0]
+    tiny = (torch.abs(u) < eps * eps) & (torch.abs(v) < eps * eps)
+    out = (torch.where(tiny, u, x), torch.where(tiny, v, y))
+    for a, b in zip(out, ew.prox_sum_kl_div_reference(u, v, lam)):
+        assert torch.equal(_bits(a), _bits(b))
+    return (widen, hi0), newton
+
+
+def _inv_pos_inputs(dtype):
+    """v over +-10 with lam over 1e-3..1e3, v over +-60 with lam over
+    1e-6..1e6, and every pair of NaN, +-inf, 0, -0, +-1e30, 1, -1 and 50
+    for v and lam."""
+    rng = np.random.RandomState(16)
+    v = [rng.uniform(-10.0, 10.0, 2000), rng.uniform(-60.0, 60.0, 2000)]
+    lam = [10.0 ** rng.uniform(-3.0, 3.0, 2000), 10.0 ** rng.uniform(-6.0, 6.0, 2000)]
+    sv, sl = _special_pairs()
+    return (torch.as_tensor(np.concatenate(a + [b]), dtype=dtype) for a, b in ((v, sv), (lam, sl)))
+
+
+def _inv_pos_loops(v, lam):
+    """As ``_kl_div_loops``, for ``prox_sum_inv_pos_reference``."""
+    c = ew._cbrt(lam)
+
+    def g(x):
+        return x * x * (x - v) - lam
+
+    def g_and_gp(x):
+        return g(x), 3.0 * x * x - 2.0 * v * x
+
+    def widen(state):
+        return (torch.where(g(state[0]) < 0, 2.0 * state[0], state[0]),)
+
+    hi0 = (torch.clamp(v, min=0.0) + c + 1.0,)
+    hi = hi0
+    for _ in range(INV_POS_WIDEN):
+        hi = widen(hi)
+    hi = hi[0]
+    lo = torch.full_like(v, 1e-12)
+    newton = (_nu_step(g_and_gp), (torch.maximum(v, c), lo, hi, g(lo), g(hi)))
+    state = newton[1]
+    for _ in range(INV_POS_NEWTON):
+        state = newton[0](state)
+    assert torch.equal(_bits(state[0]), _bits(ew.prox_sum_inv_pos_reference(v, lam)))
+    return (widen, hi0), newton
+
+
+def _widening_stays_once_it_stops(widen, start, iters):
+    """Every state after the first repeat equals the full count's (period
+    1): returns the share of elements that stop within the count."""
+    _, bits = _run(widen, start, iters)
+    k, p = _first_repeat(bits)
+    assert bool((p[k > 0] == 1).all())
+    for j in range(1, iters + 1):
+        stopped = (k > 0) & (k <= j)
+        assert torch.equal(bits[j][:, stopped], bits[iters][:, stopped])
+    return (k > 0).double().mean().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["sum_kl_div", "sum_inv_pos"])
+def test_widening_stays_once_hi_stops(kernel, dtype):
+    """K9's and K10's widening: its state is hi alone, so once a step
+    leaves hi's bits as they were every later step does (the kernels
+    leave the loop there, period 1), on NaN, +-inf and the far range too;
+    nearly every element stops within the count on these inputs (K9: where
+    lam is tiny and v < 0, g stays below 0 until hi is some 2^50 and the
+    loop may run out)."""
+    if kernel == "sum_kl_div":
+        (widen, start), _ = _kl_div_loops(*_kl_div_inputs(dtype))
+        share = _widening_stays_once_it_stops(widen, start, KL_WIDEN)
+    else:
+        (widen, start), _ = _inv_pos_loops(*_inv_pos_inputs(dtype))
+        share = _widening_stays_once_it_stops(widen, start, INV_POS_WIDEN)
+    assert share > 0.95
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["sum_kl_div", "sum_inv_pos"])
+def test_newton_every_fourth_step_exit_is_exact(kernel, dtype):
+    """K9's 60 and K10's 50 Newton steps as iterate4() runs them: the full
+    count's state bitwise on every element, and many elements leave early
+    on these inputs."""
+    if kernel == "sum_kl_div":
+        _, (step, state) = _kl_div_loops(*_kl_div_inputs(dtype))
+        share, _ = _every4_is_exact(step, state, KL_NEWTON)
+    else:
+        _, (step, state) = _inv_pos_loops(*_inv_pos_inputs(dtype))
+        share, _ = _every4_is_exact(step, state, INV_POS_NEWTON)
+    assert share > 0.3
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.lists(st.tuples(st.floats(-40.0, 60.0, allow_nan=False),
+                          st.floats(-40.0, 60.0, allow_nan=False),
+                          st.floats(-6.0, 6.0, allow_nan=False)), min_size=1, max_size=64),
+       st.sampled_from(DTYPES))
+def test_kl_div_exits_are_exact_hypothesis(triples, dtype):
+    u, v, lam = (torch.tensor(c, dtype=dtype) for c in zip(*triples))
+    (widen, start), (step, state) = _kl_div_loops(u, v, 10.0 ** lam)
+    _widening_stays_once_it_stops(widen, start, KL_WIDEN)
+    _every4_is_exact(step, state, KL_NEWTON)
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.lists(st.tuples(st.floats(-80.0, 80.0, allow_nan=False),
+                          st.floats(-6.0, 6.0, allow_nan=False)), min_size=1, max_size=64),
+       st.sampled_from(DTYPES))
+def test_inv_pos_exits_are_exact_hypothesis(pairs, dtype):
+    v = torch.tensor([a for a, _ in pairs], dtype=dtype)
+    lam = torch.tensor([10.0 ** b for _, b in pairs], dtype=dtype)
+    (widen, start), (step, state) = _inv_pos_loops(v, lam)
+    _widening_stays_once_it_stops(widen, start, INV_POS_WIDEN)
+    _every4_is_exact(step, state, INV_POS_NEWTON)
+
+
+# -- K11: the SUM_EXP and SUM_NEG_ENTR proxes' Lambert solve -----------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["sum_exp", "sum_neg_entr"])
+def test_w_log_w_prox_exit_is_exact(kind, dtype):
+    """K11 (``csrc/w_log_w.cu``) runs ``row_loops.cuh`` solve_w_log_w on
+    each element's argument c (SUM_EXP: log(lam) + v; SUM_NEG_ENTR: (v -
+    lam)/lam - log(lam)), exiting at the first repeat of period <= 4
+    checked every step: the full count's w bitwise on v over +-60 and lam
+    over 1e-6..1e6 and on special values, and the prox built on it is the
+    plain version's, bitwise."""
+    v, lam = _inv_pos_inputs(dtype)
+    if kind == "sum_exp":
+        c = torch.log(lam) + v
+        plain = ew.prox_sum_exp_reference(v, lam)
+        w = _lambert(c)
+        x = v - util.solve_w_log_w(c)
+    else:
+        c = (v - lam) / lam - torch.log(lam)
+        plain = ew.prox_sum_neg_entr_reference(v, lam)
+        w = _lambert(c)
+        x = lam * util.solve_w_log_w(c)
+    assert torch.equal(_bits(x), _bits(plain))
+    share, mean_k, _ = _exit_is_exact(w)
+    assert share > 0.95 and mean_k < 10.0

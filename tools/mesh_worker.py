@@ -453,10 +453,11 @@ def part_e(ep, group, sizes, device_type, out, arrays):
 
 def loop_kernel_launches():
     """The launch counts of the hand loop kernels K6 (``sum_logistic``), K7
-    (``tv1d_pdas``) and K8 (``epi_exp``) in this process."""
-    from epsilon_tpu_torch.ops.kernels import epi_exp, sum_logistic, tv1d_pdas
+    (``tv1d_pdas``), K8 (``epi_exp``) and K9 (``sum_kl_div``) in this
+    process."""
+    from epsilon_tpu_torch.ops.kernels import epi_exp, sum_kl_div, sum_logistic, tv1d_pdas
     return {"sum_logistic_prox": sum_logistic.launches, "tv1d_pdas": tv1d_pdas.launches,
-            "epi_exp": epi_exp.launches}
+            "epi_exp": epi_exp.launches, "sum_kl_div_prox": sum_kl_div.launches}
 
 
 def part_f(ep, group, sizes, device_type, out, arrays):

@@ -67,12 +67,17 @@ build, in turns, at n = 10,000 and 100,000, f32 and f64, cold and warm: what
 
 solves library rows (``row``, or ``row@set`` under a parameter set of
 ``tests/data/library_reference.json``) at their reference sizes, or phase 9
-(f)'s family of a kind in one process (``family:tv``), with the hand
-kernels K6 (SUM_LOGISTIC prox), K7 (TV-1D PDAS) and K8 (EXP epigraph) and
-with their plain versions put in their place in the dispatch, in turns in this one process
+(f)'s family of a kind in one process (``family:tv``, ``family:two_arg``),
+or one ``eval_prox`` call of a frontend kind at phase 8 (g)'s 10^6
+elements (``eval_prox:sum_exp``, ``eval_prox:sum_neg_entr``,
+``eval_prox:sum_inv_pos``), with the hand kernels K6 (SUM_LOGISTIC prox),
+K7 (TV-1D PDAS), K8 (EXP epigraph), K9 (SUM_KL_DIV prox), K10 (SUM_INV_POS
+prox) and K11 (SUM_EXP and SUM_NEG_ENTR proxes) and with their plain
+versions put in their place in the dispatch, in turns in this one process
 (kernel, plain, plain, kernel): ms and device operations an iteration of
 each side (the cold solve at the harness's rel_tol; the operations from a
-profiled warm re-solve of 10 iterations, a family's from a profiled solve),
+profiled warm re-solve of 10 iterations, a family's from a profiled solve;
+an ``eval_prox`` call's ms and operations counted as one iteration),
 iterations and objectives, and the kernels' launches.
 
     python3 -m tools.profile_port --k6 [tree,tree,...]
@@ -413,19 +418,22 @@ def replaced_entries():
 
 def _spec_solves(spec, refs, cap=None, profile_iters=None, warm=True):
     """The solves of a spec: a library row at its reference size (``row``,
-    or ``row@set`` under a parameter set of ``library_reference.json``), or
-    ``family:<kind>``, phase 9 (f)'s family in one process.  Returns
+    or ``row@set`` under a parameter set of ``library_reference.json``),
+    ``family:<kind>``, phase 9 (f)'s family in one process, or
+    ``eval_prox:<kind>``, one ``eval_prox`` call (``_eval_prox_solve``).  Returns
     ``(cold, warm)``: ``cold()`` solves it cold at the harness's rel_tol and
     the reference's iteration cap (at most ``cap``), with a profiled warm
     re-solve of ``profile_iters`` iterations where given, and returns the
     row's figures (``ms_per_iter``, ``iterations``, ...); with ``warm``,
     ``warm(iters)`` re-solves one problem (set up and solved here first)
     warm for ``iters`` iterations and returns the host wall ms an iteration
-    (None for a family, or without ``warm``)."""
+    (None for a family or an ``eval_prox`` call, or without ``warm``)."""
     from chip_smoke import LIBRARY_REL_TOL
     from epsilon_tpu_torch.problems import benchmark
     if spec.startswith("family:"):
         return (lambda: _family_solve(spec.split(":", 1)[1])), None
+    if spec.startswith("eval_prox:"):
+        return (lambda: _eval_prox_solve(spec.split(":", 1)[1])), None
     name, _, pset = spec.partition("@")
     ref_set = refs[pset] if pset else refs
     inst = next(p for p in benchmark.PROBLEMS_REFERENCE() if p.name == name)
@@ -752,12 +760,16 @@ PLAIN_AB_PROFILE_ITERS = 10
 
 @contextlib.contextmanager
 def plain_entries():
-    """The dispatch of ``ops/prox`` sends K6's, K7's and K8's calls to
-    their plain versions while the context is open (``sum_logistic.prox``
-    to ``prox_sum_logistic_reference``, ``tv1d_pdas.pdas`` to
-    ``prox_tv1d_pdas_reference``, ``epi_exp.epi`` to ``epi_exp_reference``):
-    the port as it ran before them."""
-    from epsilon_tpu_torch.ops.kernels import epi_exp, sum_logistic, tv1d_pdas
+    """The dispatch of ``ops/prox`` sends K6's-K11's calls to their plain
+    versions while the context is open (``sum_logistic.prox`` to
+    ``prox_sum_logistic_reference``, ``tv1d_pdas.pdas`` to
+    ``prox_tv1d_pdas_reference``, ``epi_exp.epi`` to ``epi_exp_reference``,
+    ``sum_kl_div.prox``, ``sum_inv_pos.prox``, ``w_log_w.prox_exp`` and
+    ``w_log_w.prox_neg_entr`` to ``prox_sum_kl_div_reference``,
+    ``prox_sum_inv_pos_reference``, ``prox_sum_exp_reference`` and
+    ``prox_sum_neg_entr_reference``): the port as it ran before them."""
+    from epsilon_tpu_torch.ops.kernels import (epi_exp, sum_inv_pos, sum_kl_div, sum_logistic,
+                                               tv1d_pdas, w_log_w)
     from epsilon_tpu_torch.ops.prox import elementwise, tv1d
 
     def pdas_plain(v, lam, tol, max_iters=40, z0=None):
@@ -766,7 +778,11 @@ def plain_entries():
         return x, z, gap, it
 
     swaps = [(sum_logistic, "prox", elementwise.prox_sum_logistic_reference),
-             (tv1d_pdas, "pdas", pdas_plain), (epi_exp, "epi", elementwise.epi_exp_reference)]
+             (tv1d_pdas, "pdas", pdas_plain), (epi_exp, "epi", elementwise.epi_exp_reference),
+             (sum_kl_div, "prox", elementwise.prox_sum_kl_div_reference),
+             (sum_inv_pos, "prox", elementwise.prox_sum_inv_pos_reference),
+             (w_log_w, "prox_exp", elementwise.prox_sum_exp_reference),
+             (w_log_w, "prox_neg_entr", elementwise.prox_sum_neg_entr_reference)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -804,21 +820,67 @@ def _family_solve(family):
     return row
 
 
+# ``eval_prox:<kind>``: the frontend builds of phase 8 (g)'s kinds that
+# reach K10 and K11, with phase 8 (g)'s lam and inputs inside their domains.
+EVAL_PROX_KINDS = {
+    "sum_exp": (lambda ep, x: ep.sum_entries(ep.exp(x)), 0.6,
+                lambda rng, n: 3.0 * rng.randn(n)),
+    "sum_neg_entr": (lambda ep, x: ep.sum_entries(-ep.entr(x)), 0.8,
+                     lambda rng, n: 3.0 * rng.randn(n)),
+    "sum_inv_pos": (lambda ep, x: ep.sum_entries(ep.power(x, -1)), 0.5,
+                    lambda rng, n: 3.0 * np.abs(rng.randn(n)) + 0.1),
+}
+
+
+def _eval_prox_solve(kind):
+    """One ``eval_prox`` call of ``kind`` at phase 8 (g)'s 10^6 elements
+    (host wall ms, the build included), then the device operations of a
+    profiled second call; figures as a solve's of one iteration."""
+    import epsilon_tpu_torch as ep
+    from chip_smoke import EVAL_PROX_N
+    build, lam, make_v = EVAL_PROX_KINDS[kind]
+    v = make_v(np.random.RandomState(2), EVAL_PROX_N)
+
+    def call():
+        x = ep.Variable(EVAL_PROX_N)
+        ep.eval_prox(build(ep, x), {x: v}, lam=lam)
+        torch.cuda.synchronize()
+        return x.value
+    call()
+    t0 = time.perf_counter()
+    x = call()
+    row = dict(iterations=1, status="evaluated", ms_per_iter=1e3 * (time.perf_counter() - t0),
+               objective=float(np.abs(x).sum()))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+    # on the card's machine such a window with the kernel recorded no device
+    # events at all (its copies included): not measured then
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    row["device_ops_per_iter"] = n if n else None
+    return row
+
+
 def plain_ab(specs, rounds=PLAIN_AB_ROUNDS):
-    """K6, K7 and K8 against their plain versions end to end, in turns in this
+    """K6-K11 against their plain versions end to end, in turns in this
     process (kernel, plain, plain, kernel): each spec a library row at its
     reference size (``row``, or ``row@set`` under a parameter set of
     ``library_reference.json``), solved cold at the harness's rel_tol and
     the reference's iteration cap with a profiled warm re-solve of
-    ``PLAIN_AB_PROFILE_ITERS`` iterations, or ``family:<kind>``, phase 9
-    (f)'s family in one process.  Prints ms and device operations an
-    iteration of both sides, iterations and objectives, and the launches."""
+    ``PLAIN_AB_PROFILE_ITERS`` iterations, ``family:<kind>``, phase 9 (f)'s
+    family in one process, or ``eval_prox:<kind>`` (``EVAL_PROX_KINDS``),
+    each after one untimed run with the kernels.  Prints ms and device
+    operations an iteration of both sides, iterations
+    and objectives (an ``eval_prox`` call's sum of |x|), and the
+    launches."""
     import json
     from chip_smoke import REFERENCE_JSON, row_launches
     refs = json.loads(REFERENCE_JSON.read_text())
     sides = {"kernel": contextlib.nullcontext, "plain": plain_entries}
     for spec in specs:
         run, _ = _spec_solves(spec, refs, profile_iters=PLAIN_AB_PROFILE_ITERS, warm=False)
+        # a first run, untimed: the kernels' libraries load at their first
+        # call in the process
+        run()
         readings = {s: [] for s in sides}
         launched = dict.fromkeys(sides, 0)
         for _ in range(rounds):
@@ -833,10 +895,12 @@ def plain_ab(specs, rounds=PLAIN_AB_ROUNDS):
         parts = []
         for side, rows in readings.items():
             ms = [r["ms_per_iter"] for r in rows]
-            ops = [r["device_ops_per_iter"] for r in rows]
+            ops = [r["device_ops_per_iter"] for r in rows if r["device_ops_per_iter"] is not None]
             parts.append(f"{side} {statistics.median(ms):.4f} ms/iter ({min(ms):.4f}-"
-                         f"{max(ms):.4f}), {statistics.median(ops):.1f} device operations/iter, "
-                         f"iterations {sorted({r['iterations'] for r in rows})}"
+                         f"{max(ms):.4f}), "
+                         + (f"{statistics.median(ops):.1f} device operations/iter, " if ops
+                            else "device operations not measured, ")
+                         + f"iterations {sorted({r['iterations'] for r in rows})}"
                          + (f", objective {rows[0]['objective']!r}" if "objective" in rows[0]
                             else ""))
         ratio = (statistics.median(r["ms_per_iter"] for r in readings["kernel"])
