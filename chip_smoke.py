@@ -10,11 +10,19 @@ Phases, in order; any failure exits non-zero:
    w_log_w, and launch_floor, the empty kernels and measured chains of
    phase 7a) are compiled from
    ``epsilon_tpu_torch/csrc``, one ``nvcc`` each, started together.
-2. Kernel against its plain PyTorch version on the card, at the shape the
-   main path gives it (n = 8192, R = 1) and at R = 8, in f32 and f64:
-   maximum error, bitwise repeatability, and CUDA-event times of the
-   kernel, the plain version and a dense matmul with the full matrix (device
-   time, and the per-call time when calls are issued back to back).
+2. Kernel K2 (``sym_packed``) against its plain PyTorch version on the
+   card at n = 8192, at the width of x the main path gives it (R = 1) and
+   on its multi-column path (R = 2, 4, 8, 64), in f32 and f64: maximum
+   error, bitwise repeatability, each instantiation's registers
+   (``ptxas``), and the kernel timed in turns with a dense matmul of the
+   full matrix (``dense @ X``, the yardstick; the port never calls it),
+   beside the bound (bytes, or operations at the dtype's peak) and the
+   plain version's time; at R = 1 also the record's device times (one
+   column's kernel, plain version, dense matmul) and the per-call time
+   when calls are issued back to back.  Every phase from here on prints
+   K2's launches by width of x
+   (``sym_packed.launches_by_width``), phase 7c per set, phase 9 per
+   rank.
 3. Flagship lasso 2000 x 1000 through ``Problem.solve`` (f32, rho 1,
    rel_tol 1e-3), checked against numpy/scipy in f64.
 4. The slice configuration, lasso 16384 x 8192 through ``Problem.solve`` in
@@ -101,8 +109,9 @@ Phases, in order; any failure exits non-zero:
    timed as K6 beside its measured chain (``epi_exp_chain``).  And K9
    ``sum_kl_div`` (the SUM_KL_DIV prox: a widening of the bracket's upper
    end, which stops once it leaves the end unchanged, and a 60-step
-   safeguarded Newton, K6's exit), K10 ``sum_inv_pos`` (the SUM_INV_POS
-   prox: the same design, its cube root torch's sign and pow) and K11
+   safeguarded Newton that runs its count), K10
+   ``sum_inv_pos`` (the SUM_INV_POS prox: the same design, 50 Newton
+   steps, its cube root torch's sign and pow) and K11
    ``w_log_w`` (the SUM_EXP and SUM_NEG_ENTR proxes on the 30-step Lambert
    solve of K3, exiting at its state's first repeat), one thread an
    element, at their main paths' shapes (K9 10,000 elements, the
@@ -136,9 +145,9 @@ Phases, in order; any failure exits non-zero:
    (``LIBRARY_SETS``): every row of ``PROBLEMS_REFERENCE`` at the
    reference sizes in f32, through ``problems.benchmark`` with
    ``solver="prox_admm"`` (the N-block Gauss-Seidel solver) and then with
-   ``use_epigraph=False`` (the conic fallback), each set in a spawned
-   process of its own that starts with phase 7 and runs beside phases 7
-   and 8.  Each row is held as phase 7 holds its rows, against the JAX
+   ``use_epigraph=False`` (the conic fallback), each set in
+   ``LIBRARY_SET_PARTS`` spawned processes (every other row each) that
+   start with phase 7 and run beside phases 7 and 8.  Each row is held as phase 7 holds its rows, against the JAX
    package's f64 objective under the same set (the set's key of
    ``library_reference.json``) and at its iteration cap, and prints the
    same figures and the launches of K2-K7 while it ran; each set then
@@ -159,7 +168,16 @@ Phases, in order; any failure exits non-zero:
    port on the CPU in f64: three with closed forms and
    ``sum_entries(exp(x))``, ``sum_entries(-entr(x))`` (K11) and
    ``sum_entries(power(x, -1))`` (K10), on inputs from the seed inside
-   their domains, each of which must launch its kernel.
+   their domains, each of which must launch its kernel.  (h) K2's
+   multi-column path, driven by the library's MNIST-style multiclass
+   problem at n = 8192 random features and the generator's 10 classes
+   (``KRON_WIDE``): its Kronecker-factored pivot applies the
+   8192-dimensional factor to the 10 columns of the classes through K2
+   every iteration; the solve must stop optimal and launch K2 at R = 10
+   at least once an iteration, and the
+   same problem, cold on the cached solver with the packed path off (the
+   dense explicit inverse), must reach the same objective within
+   ``KRON_WIDE_RTOL``.
 9. The meshed two-block solver and the sharded consensus solver, run by
    four processes over one process group (``tools/mesh_worker.py``, one
    rank each): NCCL with a card a rank where the machine has four cards,
@@ -239,7 +257,11 @@ run for the steps their longest element took (``k6_chain_ms``,
 
 K1 has two records, one for each shape and path that a main path gives
 it: (200, 200) on the ring path with phase 6's launches, and (50, 200) on
-the streaming path with rank 0's launches in phase 9 (d).  The records of
+the streaming path with rank 0's launches in phase 9 (d).  So has K2:
+R = 1 in f32 with phase 4's launches (and ``launches_by_width``), and the
+multi-column path (``"path": "wide"``, (8192, 10) in f32) with phase 8
+(h)'s launches at R = 10, its launches by width and every width's row of
+phase 2 under ``timings``.  The records of
 K2-K8 also carry ``launches_7c``: their launches in phase 7c, per set; K7's
 ``launches_9f``, rank 0's in phase 9 (f)'s TV family, and its timings at
 both main lengths, cold and warm; K8's ``launches_9f``, rank 0's in the
@@ -341,9 +363,11 @@ LIBRARY_FEAS_TOL_ROWS = {"portfolio": 1e-1}
 LIBRARY_BESIDE = ("max_gaussian",)
 # Phase 7c: the oracle matrix's other two parameter sets, each a key of
 # tests/data/library_reference.json that holds its solver parameters and
-# its rows' f64 references (tools/library_reference.py), each solved in a
-# process of its own beside phases 7 and 8.
+# its rows' f64 references (tools/library_reference.py), each solved beside
+# phases 7 and 8 in LIBRARY_SET_PARTS processes, which take every other row
+# (a set in one process took 330-360 s, longer than phases 7 and 8).
 LIBRARY_SETS = ("n_block", "no_epi")
+LIBRARY_SET_PARTS = 2
 # Iterations of the profiled warm re-solve that counts device operations.
 LIBRARY_PROFILE_ITERS = 10
 # Phase 7a: the per-row loop kernels against their plain versions,
@@ -367,10 +391,31 @@ ROW_PLAIN_REPS = {"lse_epi_rows": 5}
 # a dependent float32 instruction on the H100's SMs); with the card's
 # maximum SM clock, it turns a chain's length into the least time.
 ROW_CYCLES_PER_OP = 4
-# The H100's published peaks (SXM part): HBM bytes/s, and float32 FLOP/s
-# outside the tensor cores.
+# The H100's published peaks (SXM part): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores, and float64 FLOP/s on the tensor cores (34e12
+# without them): the least time the card could take.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 67e12
+# Phase 2: the widths of x at which K2 is held to its plain version and
+# timed in turns with the dense matmul of the whole square (R = 1, the
+# solver's matvec, phase 4's main path; R >= 2 the multi-column path: each
+# chunk width, and the widths the library sends: mnist's 10 classes, a
+# collapsed KKT's input dimension, 20 for qp and 80 for the slice's lasso
+# in tests/test_torch_sym_packed_widths.py), and the multi-column record's
+# width (phase 8 (h)'s classes, the generator's default).
+K2_WIDTHS = (1, 2, 4, 8, 10, 16, 20, 64, 80)
+K2_WIDE_R = 10
+# Phase 8 (h): the library's MNIST-style multiclass problem (random
+# Fourier features, softmax loss, l1) at n = 8192 features and K2_WIDE_R
+# classes: its Kronecker-factored KKT pivot applies its factor, of the
+# smaller of the samples m and the features n (so 8192 here), to the
+# K2_WIDE_R columns of the classes through K2 every iteration.  The solve
+# is held to the same solve with the packed path off (the dense explicit
+# inverse) within KRON_WIDE_RTOL of the objective.
+KRON_WIDE = dict(m=8192, n=8192, k=K2_WIDE_R)
+KRON_WIDE_MAX_ITERS = 5000
+KRON_WIDE_RTOL = 1e-4
 # Phase 8 (g): eval_prox on the card in f32 against the port on the CPU in
 # f64, relative to max |CPU result|.
 EVAL_PROX_RTOL = 1e-4
@@ -559,10 +604,11 @@ def call_ms(fn, reps=50):
     return _timed(fn, reps, head_start=False)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak=PEAK_F32_FLOPS):
     """``(bound_ms, bound_by)``: the least time the card could take for
-    ``n_bytes`` of memory traffic and ``flops`` float32 operations."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    ``n_bytes`` of memory traffic and ``flops`` operations at ``peak`` a
+    second (float32 by default)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -570,15 +616,62 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def phase_kernel(sp):
-    """Kernel against the plain version at n = 8192; returns the JSON
-    record for the main path's shape (R = 1, f32)."""
+def k2_registers(build_log):
+    """``[(kernel, registers, stack bytes, spill-store bytes), ...]`` of
+    K2's instantiations from its ``-Xptxas -v`` log (``tile_products`` f32
+    R = 1 and so on)."""
+    import re
+    out, name, stack, spill = [], None, 0, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(tile_products_wide|tile_products|reduce_rows_halves|reduce_rows)"
+                          r"I([fd])(?:Li(\d+)E)?(?:Li(\d+)E)?", m.group(1))
+            name = (f"{k.group(1)} {'f32' if k.group(2) == 'f' else 'f64'}"
+                    + (f" chunk {k.group(3)}" if k.group(3) else "")
+                    + (f" + {k.group(4)}" if k.group(4) and k.group(4) != "0" else "")
+                    ) if k else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), stack, spill))
+            name = None
+    return out
+
+
+def k2_widths():
+    """K2's launches by x's width in this process since the last reset
+    (``sym_packed.launches_by_width``), as a sorted dict."""
+    from epsilon_tpu_torch.ops.kernels import sym_packed as sp
+    return dict(sorted(sp.launches_by_width.items()))
+
+
+def reset_k2():
+    """Set K2's launch counts (in all and by width) to 0 in this process."""
+    from epsilon_tpu_torch.ops.kernels import sym_packed as sp
+    sp.launches = 0
+    sp.launches_by_width.clear()
+
+
+def phase_kernel(sp, card):
+    """Kernel against the plain version at n = 8192 for every width of
+    ``K2_WIDTHS``, f32 and f64: error, bitwise repeatability, kernel and
+    dense matmul in turns, the bound.  Returns the JSON records for the
+    main path's shape (R = 1, f32) and for the multi-column path (R =
+    ``K2_WIDE_R``, f32, with every width's row under ``timings``)."""
     n, T = 8192, sp.SYM_TILE
+    _, _, build_log = sp.build()
+    log("[2] sym_packed registers a thread (ptxas; stack and spill-store bytes): " + "; ".join(
+        f"{name} {regs} ({stack}, {spill})" for name, regs, stack, spill in k2_registers(build_log)))
     rng = np.random.RandomState(1)
     M = rng.standard_normal((n, n))
     M = M + M.T
     dev = torch.device("cuda")
-    record = None
+    record = wide = None
+    rows = {}
     for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
         tiles_h, ii_h, jj_h, n_pad = sp.pack_sym_tiles(M, tile=T, dtype=np_dtype)
         tiles = torch.as_tensor(tiles_h, device=dev)
@@ -587,7 +680,8 @@ def phase_kernel(sp):
         row_ptr, entries = sp.sym_packed_plan(ii_h, jj_h, n_pad // T)
         plan = (torch.as_tensor(row_ptr, device=dev), torch.as_tensor(entries, device=dev))
         dense = torch.as_tensor(M, dtype=dtype, device=dev)
-        for R in (1, 8):
+        f32 = dtype == torch.float32
+        for R in K2_WIDTHS:
             x = torch.as_tensor(rng.standard_normal((n_pad, R)), dtype=dtype, device=dev)
             y = sp.sym_packed_matmul(tiles, ii, jj, x, plan)
             y2 = sp.sym_packed_matmul(tiles, ii, jj, x, plan)
@@ -603,18 +697,37 @@ def phase_kernel(sp):
             kernel = lambda: sp.sym_packed_matmul(tiles, ii, jj, x, plan)
             plain = lambda: sp.sym_packed_matmul_reference(tiles, ii, jj, x)
             dense_mm = lambda: dense @ x
-            ms, plain_ms, dense_ms = device_ms(kernel), device_ms(plain), device_ms(dense_mm)
-            log(f"[2] sym_packed n={n} R={R} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-                f"(max|ref|={scale:.3e}, rtol {KERNEL_RTOL[dtype]:g}), bitwise repeatable; "
-                f"device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"dense matmul {dense_ms:.4f} ms; back-to-back per call: kernel "
-                f"{call_ms(kernel):.4f} ms, dense matmul {call_ms(dense_mm):.4f} ms")
-            if dtype == torch.float32 and R == 1:
-                # y = M x from the packed tiles: tiles and x read, y written
-                bound_ms, bound_by = bound(_nbytes(tiles, x, y), 2.0 * n * n * R)
+            # y = M X from the packed tiles: tiles and X read, y written;
+            # 2 n^2 R operations
+            n_bytes, flops = _nbytes(tiles, x, y), 2.0 * n * n * R
+            peak = PEAK_F32_FLOPS if f32 else PEAK_F64_FLOPS
+            bound_ms, bound_by = bound(n_bytes, flops, peak)
+            if R == 1:
+                ms, plain_ms, dense_ms = device_ms(kernel), device_ms(plain), device_ms(dense_mm)
+                log(f"[2] sym_packed n={n} R={R} {str(dtype)[6:]}: max_abs_err={err:.3e} "
+                    f"(max|ref|={scale:.3e}, rtol {KERNEL_RTOL[dtype]:g}), bitwise repeatable; "
+                    f"device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"dense matmul {dense_ms:.4f} ms; back-to-back per call: kernel "
+                    f"{call_ms(kernel):.4f} ms, dense matmul {call_ms(dense_mm):.4f} ms")
+            else:
+                plain_ms = device_ms(plain, reps=10, warmup=2)
+            ab = interleaved_ms({"kernel": kernel, "dense": dense_mm})
+            (med, lo, hi), (d_med, d_lo, d_hi) = ab["kernel"], ab["dense"]
+            log(f"[2] sym_packed n={n} R={R} {str(dtype)[6:]}: max_abs_err={err:.3e} (max|ref|="
+                f"{scale:.3e}, rtol {KERNEL_RTOL[dtype]:g}), bitwise repeatable; in turns "
+                f"({AB_ROUNDS} rounds of {AB_REPS} calls): kernel {med:.4f} ms ({lo:.4f}-"
+                f"{hi:.4f}), dense @ X {d_med:.4f} ms ({d_lo:.4f}-{d_hi:.4f}), kernel / dense "
+                f"{med / d_med:.3f}; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+                f"{bound_by} ({n_bytes} bytes at {PEAK_BYTES_PER_S:.3g} B/s, {flops:.3g} "
+                f"operations at {peak:.3g}/s), kernel at {bound_ms / med:.2f} of it; {card}")
+            rows[f"{R} {str(dtype)[6:]}"] = {
+                "ms": med, "ms_range": [lo, hi], "dense_ms": d_med, "dense_ms_range": [d_lo, d_hi],
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": err}
+            if f32 and R == 1:
                 log(f"[2] sym_packed n={n} R={R} f32: bound {bound_ms:.4f} ms by {bound_by} "
-                    f"({_nbytes(tiles, x, y)} bytes at {PEAK_BYTES_PER_S:.3g} B/s, "
-                    f"{2.0 * n * n * R:.3g} operations at {PEAK_F32_FLOPS:.3g}/s): "
+                    f"({n_bytes} bytes at {PEAK_BYTES_PER_S:.3g} B/s, "
+                    f"{flops:.3g} operations at {PEAK_F32_FLOPS:.3g}/s): "
                     f"kernel at {bound_ms / ms:.2f} of it")
                 record = {"name": "sym_packed_matmul", "route": "cuda",
                           "source": "epsilon_tpu_torch/csrc/sym_packed.cu",
@@ -622,8 +735,15 @@ def phase_kernel(sp):
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": dense_ms}
+            if f32 and R == K2_WIDE_R:
+                wide = {"name": "sym_packed_matmul", "route": "cuda",
+                        "source": "epsilon_tpu_torch/csrc/sym_packed.cu",
+                        "replaces": "epsilon_tpu/ops/pallas_kernels.py:175",
+                        "path": "wide", "shape": [n, R], "max_abs_err": err, "ms": med,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": d_med, "timings": rows}
         del tiles, dense
-    return record
+    return record, wide
 
 
 SOLVE = dict(rel_tol=1e-3, abs_tol=1e-6, rho=1.0)
@@ -1556,15 +1676,22 @@ def exit_ab(name, k, v, p, n_bytes, clock_hz, card):
     return fields
 
 
-def k6_chain_ms(v, lam, steps):
-    """Device ms of ``launch_floor.cu`` ``k6_chain`` over v's elements with
+def k6_chain(v, lam, steps):
+    """A launch of ``launch_floor.cu`` ``k6_chain`` over v's elements with
     lam a number: each thread runs ``steps`` dependent steps of K6's
-    arithmetic, launched as K6 launches, the launch included."""
+    arithmetic, launched as K6 launches.  Returns the zero-argument
+    callable."""
     from epsilon_tpu_torch.ops.kernels import _rows
     fn = getattr(_launch_floor_library(), f"k6_chain_{_rows.suffix(v)}")
     x = torch.empty_like(v)
-    return device_ms(lambda: _rows.launch("k6_chain", fn, (v.data_ptr(), float(lam),
-                                                          x.data_ptr(), v.numel(), steps), v))
+    # the arguments are raw pointers: the callable holds v and x alive
+    return lambda keep=(v, x): _rows.launch("k6_chain", fn, (v.data_ptr(), float(lam),
+                                                             x.data_ptr(), v.numel(), steps), v)
+
+
+def k6_chain_ms(v, lam, steps):
+    """Device ms of :func:`k6_chain`, the launch included."""
+    return device_ms(k6_chain(v, lam, steps))
 
 
 def k8_chain_ms(v, s, widen, newton):
@@ -2007,7 +2134,8 @@ def element_chain(name, entry, ops, lam, warps, counts, x=None):
     each = None if warps is None else warps.data_ptr()
     args = (tuple(a.data_ptr() for a in ops) + (float(lam), x.data_ptr(), each, v.numel())
             + tuple(counts) + ((int(entry == "sum_neg_entr"),) if name == "w_log_w_prox" else ()))
-    return lambda: _rows.launch(fn, getattr(lib, fn), args, v)
+    # the arguments are raw pointers: the callable holds their tensors alive
+    return lambda keep=(ops, x, warps): _rows.launch(fn, getattr(lib, fn), args, v)
 
 
 def cube_root(a):
@@ -2469,29 +2597,33 @@ def library_row_beside(name):
     refs = json.loads(REFERENCE_JSON.read_text())["rows"]
     inst = next(p for p in bench.PROBLEMS_REFERENCE() if p.name == name)
     row = library_row(bench, inst, refs[name], tag=" (in a second process)")
-    return row, row_launches()
+    return row, row_launches(), k2_widths()
 
 
-def library_set_beside(name):
+def library_set_beside(name, part):
     """Phase 7c's rows of one parameter set (``name``, a key of
     ``library_reference.json`` that holds its solver parameters and its
     rows), in a process of its own (spawned by ``start_library_sets``):
-    every row of PROBLEMS_REFERENCE under those parameters, at the
-    reference's iteration cap.  Returns the rows, each with the launches
-    of K2-K5 while it ran (the counts set to 0 before the first row)."""
+    the rows ``part``, ``part + LIBRARY_SET_PARTS``, ... of
+    PROBLEMS_REFERENCE under those parameters, at the reference's
+    iteration cap.  Returns the rows, each with the launches of K2-K5
+    while it ran (the counts set to 0 before the first row)."""
     torch.set_num_threads(1)
     from epsilon_tpu_torch.ops.kernels import sym_packed as sp
     from epsilon_tpu_torch.problems import benchmark as bench
     ref_set = json.loads(REFERENCE_JSON.read_text())[name]
-    sp.launches = 0
+    reset_k2()
     reset_launches()
     out = []
-    for inst in bench.PROBLEMS_REFERENCE():
+    for inst in bench.PROBLEMS_REFERENCE()[part::LIBRARY_SET_PARTS]:
         before = dict(row_launches(), sym_packed=sp.launches)
+        widths = k2_widths()
         row = library_row(bench, inst, ref_set["rows"][inst.name], tag=f" ({name})",
                           phase="7c", params=ref_set["params"])
         after = dict(row_launches(), sym_packed=sp.launches)
         row["launches"] = {k: n - before[k] for k, n in after.items() if n > before[k]}
+        row["sym_packed_by_width"] = {R: n - widths.get(R, 0) for R, n in k2_widths().items()
+                                      if n > widths.get(R, 0)}
         log(f"[7c] {inst.name} ({name}): kernels launched "
             + (", ".join(f"{k} {n}" for k, n in row["launches"].items()) or "none"))
         out.append(row)
@@ -2499,24 +2631,34 @@ def library_set_beside(name):
 
 
 def start_library_sets():
-    """Starts phase 7c: one spawned process for each set of
-    ``LIBRARY_SETS``, which run beside phases 7 and 8 (the rows are bound
-    by their hosts).  Returns the pool and the futures."""
+    """Starts phase 7c: ``LIBRARY_SET_PARTS`` spawned processes for each
+    set of ``LIBRARY_SETS``, which run beside phases 7 and 8 (the rows are
+    bound by their hosts).  Returns the pool and the futures, a list a
+    set."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    pool = ProcessPoolExecutor(len(LIBRARY_SETS),
+    pool = ProcessPoolExecutor(len(LIBRARY_SETS) * LIBRARY_SET_PARTS,
                                mp_context=multiprocessing.get_context("spawn"))
-    return pool, {name: pool.submit(library_set_beside, name) for name in LIBRARY_SETS}
+    return pool, {name: [pool.submit(library_set_beside, name, part)
+                         for part in range(LIBRARY_SET_PARTS)] for name in LIBRARY_SETS}
 
 
 def phase_library_sets(pool, futures, t0):
     """Phase 7c's end: waits for the sets' processes, prints each set's
     table and the launches of K2-K5 per set, and raises after the last
     set if any row failed.  Returns the launches per kernel and set."""
-    launches, failed = {}, []
+    from epsilon_tpu_torch.problems import benchmark as bench
+    order = [p.name for p in bench.PROBLEMS_REFERENCE()]
+    launches, failed, widths = {}, [], {}
     with pool:
-        for name, fut in futures.items():
-            rows = fut.result()
+        for name, parts in futures.items():
+            rows = sorted((r for fut in parts for r in fut.result()),
+                          key=lambda r: order.index(r["name"]))
+            widths[name] = {}
+            for r in rows:
+                for R, n in r["sym_packed_by_width"].items():
+                    widths[name][R] = widths[name].get(R, 0) + n
+            log(f"[7c] {name}: sym_packed launches by width of x {widths[name]}")
             failed += [f"{r['name']} ({name})" for r in rows if not r["ok"]]
             log(f"[7c] {name}: {sum(r['ok'] for r in rows)} of {len(rows)} rows passed; "
                 "row, iterations (f64 reference), ms/iter, device operations/iter, kernels")
@@ -2536,6 +2678,7 @@ def phase_library_sets(pool, futures, t0):
         f"launches per kernel and set: {json.dumps(launches)}")
     if failed:
         raise AssertionError(f"phase 7c rows failed: {failed}")
+    launches["sym_packed_by_width"] = widths
     return launches
 
 
@@ -2549,7 +2692,7 @@ def phase_library():
     from epsilon_tpu_torch.problems import benchmark as bench
     refs = json.loads(REFERENCE_JSON.read_text())["rows"]
     out = []
-    beside_launches = {}
+    beside_launches, beside_widths = {}, {}
     t0 = time.perf_counter()
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
         beside = [pool.submit(library_row_beside, name) for name in LIBRARY_BESIDE]
@@ -2562,10 +2705,12 @@ def phase_library():
                 log(f"[7] {inst.name}: kernels launched "
                     + (", ".join(f"{k} {n}" for k, n in out[-1]["launches"].items()) or "none"))
         for fut in beside:
-            row, launches = fut.result()
+            row, launches, widths = fut.result()
             out.append(row)
             for name, n in launches.items():
                 beside_launches[name] = beside_launches.get(name, 0) + n
+            for R, n in widths.items():
+                beside_widths[R] = beside_widths.get(R, 0) + n
     failed = [r["name"] for r in out if not r["ok"]]
     not_launched = [f"{kernel} in {r['name']}" for kernel, k in loop_kernels().items()
                     for r in out if r["name"] in k["rows"]
@@ -2574,7 +2719,7 @@ def phase_library():
         f"{len(out) - len(failed)} passed")
     if failed or not_launched:
         raise AssertionError(f"library rows failed: {failed}; not launched: {not_launched}")
-    return out, beside_launches
+    return out, beside_launches, beside_widths
 
 
 def phase_over_relaxed(sp, prob, A, b, lam, plain_iters):
@@ -2781,6 +2926,66 @@ def phase_surface(ep, fixed_iters, x_ref):
             f"{dt_cpu:.3f} s on the CPU, compile included"
             + (f"; {kernel[0]} launches {launched}" if kernel is not None else ""))
     return launches
+
+
+def phase_kron_wide(sp):
+    """Phase 8 (h), the multi-column path's own: ``KRON_WIDE``'s
+    multiclass problem through ``Problem.solve`` (f32, rel_tol
+    ``LIBRARY_REL_TOL``), its 8192-dimensional Kronecker factor applied by
+    K2 to the ``K2_WIDE_R`` columns of the classes every iteration, then the
+    same problem from a cold state on the cached solver with the packed
+    path off (``EPSILON_TPU_SYM_PACKED=0``: the dense explicit inverse on the
+    card, no second set-up): both optimal, finite, the objectives within
+    ``KRON_WIDE_RTOL``.  Returns K2's launches at ``K2_WIDE_R`` in the first
+    solve and its launches by width."""
+    from epsilon_tpu_torch.problems import mnist
+    t0 = time.time()
+    prob = mnist.create(**KRON_WIDE)
+    gen_s = time.time() - t0
+    params = dict(rel_tol=LIBRARY_REL_TOL, abs_tol=1e-6, max_iterations=KRON_WIDE_MAX_ITERS,
+                  warm_start=True)
+    reset_k2()
+    t0 = time.time()
+    obj = prob.solve(**params)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    widths = k2_widths()
+    st = prob.solver_status
+    iters, init_s = st.num_iterations, st.timing.init_usec / 1e6
+    theta = np.asarray(next(iter(_variables(prob))).value, dtype=np.float64)
+    launches = widths.get(K2_WIDE_R, 0)
+    if not (prob.status == "optimal" and np.isfinite(obj) and np.all(np.isfinite(theta))
+            and launches >= iters):
+        raise AssertionError(f"[8h] {KRON_WIDE}: {prob.status} in {iters} iterations, "
+                             f"objective {obj}, K2 launches by width {widths}")
+    solver = cached_solver(prob)
+    solver._warm_state = None
+    saved = os.environ.get("EPSILON_TPU_SYM_PACKED")
+    os.environ["EPSILON_TPU_SYM_PACKED"] = "0"
+    try:
+        t1 = time.time()
+        obj_dense = prob.solve(**params)
+        torch.cuda.synchronize()
+        wall_dense = time.time() - t1
+    finally:
+        if saved is None:
+            del os.environ["EPSILON_TPU_SYM_PACKED"]
+        else:
+            os.environ["EPSILON_TPU_SYM_PACKED"] = saved
+    iters_dense = prob.solver_status.num_iterations
+    gap = abs(obj - obj_dense) / abs(obj_dense)
+    if cached_solver(prob) is not solver or k2_widths() != widths:
+        raise AssertionError("[8h] the dense solve built a second solver or launched K2")
+    if not (prob.status == "optimal" and gap <= KRON_WIDE_RTOL):
+        raise AssertionError(f"[8h] dense explicit inverse: {prob.status} in {iters_dense} "
+                             f"iterations, objective {obj_dense} vs {obj} through K2: "
+                             f"relative gap {gap} > {KRON_WIDE_RTOL}")
+    log(f"[8h] multiclass {KRON_WIDE} (data {gen_s:.2f} s): optimal in {iters} iterations, "
+        f"wall {wall:.3f} s (solver set-up {init_s:.3f} s), objective {obj:.9g}; K2 launches by "
+        f"width of x {widths}; the same cold on the cached solver through the dense explicit "
+        f"inverse: optimal in {iters_dense} iterations, {wall_dense:.3f} s, objective "
+        f"{obj_dense:.9g}, relative gap {gap:.2e} (tol {KRON_WIDE_RTOL:g})")
+    return launches, widths
 
 
 def run_mesh_workers(mw, out_dir, world=MESH_WORLD, timeout=MESH_TIMEOUT_S, mode="run"):
@@ -3096,6 +3301,8 @@ def phase_mesh(card, flagship, consensus_data, z_consensus, z_consensus_steady):
                     and tuple(m_["d"]["k1_shape"]) == K1_RANK_SHAPE for m_ in metas)):
         failed.append("9d")
     failed += check_mesh_kinds(mw, ranks, resumed, e_ref, f_refs)
+    log("[9] sym_packed launches by width of x on each rank: "
+        + ", ".join(f"rank {m_['rank']} {m_.get('sym_packed_by_width')}" for m_ in metas))
     log("[9] seconds per part on rank 0: "
         + ", ".join(f"({k}) {metas[0][f'{k}_seconds']:.1f}" for k in "abcdefg"))
     if failed:
@@ -3145,9 +3352,19 @@ def main():
 
     mark("1")
     records = []
+
+    def widths(phase):
+        """Print K2's launches by width of x in the phase just run, then set
+        the counts to 0 for the next."""
+        counts = k2_widths()
+        log(f"[{phase}] sym_packed launches by width of x in phase {phase}: {counts}")
+        reset_k2()
+        return counts
     # -- 2. kernel against the plain version -----------------------------------
-    record = phase_kernel(sp)
-    records.append(record)
+    reset_k2()
+    record, record_wide = phase_kernel(sp, card)
+    records += [record, record_wide]
+    widths("2")
     mark("2")
 
     # -- 3. flagship lasso 2000 x 1000 ------------------------------------------
@@ -3163,6 +3380,7 @@ def main():
                              f"{f_ref}: relative gap {gap} > {OBJ_RTOL}")
     log(f"[3] lasso 2000x1000: objective {f_port:.9g} vs f64 reference {f_ref:.9g}, "
         f"relative gap {gap:.2e} (tol {OBJ_RTOL:g})")
+    widths("3")
     mark("3")
 
     # -- 4. the slice configuration: lasso 16384 x 8192 ---------------------------
@@ -3179,6 +3397,7 @@ def main():
         f"({iters} + {STEADY_ITERS} iterations)")
     relaxed_iters = phase_over_relaxed(sp, prob, A, b, lam, iters)
     record["launches"] = launches + relaxed_iters
+    record["launches_by_width"] = widths("4")
     del A, b, prob
     mark("4")
 
@@ -3186,16 +3405,19 @@ def main():
     k1_records = phase_local_update(lu)
     record_k1, record_k1_rank = k1_records[200, 200], k1_records[K1_RANK_SHAPE]
     records += [record_k1, record_k1_rank]
+    widths("5")
     mark("5")
 
     # -- 6. consensus lasso at full width -------------------------------------------
     record_k1["launches"], consensus_data, z_consensus, z_consensus_steady = phase_consensus(lu)
+    widths("6")
     mark("6")
 
     # -- 7a. the per-row loop kernels against their plain versions ---------------------
     t0 = time.perf_counter()
     row_records = phase_row_kernels(card)
     log(f"[7a] passed in {time.perf_counter() - t0:.1f} s")
+    widths("7a")
     mark("7a")
 
     # -- 7c (started). the library under the other two parameter sets -----------------
@@ -3203,9 +3425,10 @@ def main():
     set_pool, set_futures = start_library_sets()
     try:
         # -- 7. the problem library at reference size ------------------------------------
-        sp.launches = lu.launches = 0
+        reset_k2()
+        lu.launches = 0
         reset_launches()
-        _, beside_launches = phase_library()
+        _, beside_launches, beside_widths = phase_library()
         launches = {name: n + beside_launches[name] for name, n in row_launches().items()}
         log(f"[7] hand-written kernel launches in phase 7: sym_packed {sp.launches}, "
             f"local_update {lu.launches} (no library row reaches either); "
@@ -3216,15 +3439,23 @@ def main():
             if n == 0 and loop_kernels().get(name, {"rows": True})["rows"]:
                 raise AssertionError(f"{name} was not launched in phase 7")
         records += list(row_records.values())
+        widths("7")
+        log(f"[7] sym_packed launches by width of x in the second process: {beside_widths}")
         mark("7")
 
         # -- 8. the rest of the solver's surface at the flagship's width -----------------
-        sp.launches = lu.launches = 0
+        reset_k2()
+        lu.launches = 0
         t0 = time.perf_counter()
         launches_8g = phase_surface(ep, flagship_iters, x_ref)
-        log(f"[8] passed in {time.perf_counter() - t0:.1f} s; hand-written kernel launches in "
-            f"phase 8: sym_packed {sp.launches}, local_update {lu.launches} (n = 1000 is below "
-            f"K2's gate); in (g) " + ", ".join(f"{k} {n}" for k, n in launches_8g.items()))
+        log(f"[8] (a)-(g) passed in {time.perf_counter() - t0:.1f} s; hand-written kernel "
+            f"launches in them: sym_packed {sp.launches}, local_update {lu.launches} (n = 1000 "
+            f"is below K2's gate); in (g) " + ", ".join(f"{k} {n}" for k, n in launches_8g.items()))
+        widths("8 (a)-(g)")
+        # -- 8 (h). the multi-column path: a Kronecker factor through K2 ---------------
+        record_wide["launches"], record_wide["launches_by_width"] = phase_kron_wide(sp)
+        widths("8 (h)")
+        log(f"[8] passed in {time.perf_counter() - t0:.1f} s")
         mark("8")
 
         # -- 7c (end). the library under the other two parameter sets --------------------
@@ -3237,6 +3468,7 @@ def main():
             proc.terminate()
         set_pool.shutdown(wait=False, cancel_futures=True)
         raise
+    record_wide["launches_7c"] = sets_launches["sym_packed_by_width"]
     for name, rec in [("sym_packed", record)] + list(row_records.items()):
         rec["launches_7c"] = sets_launches.get(name, dict.fromkeys(LIBRARY_SETS, 0))
         if name in row_k and not sum(rec["launches_7c"].values()):
@@ -3267,6 +3499,7 @@ def main():
     k9_record = row_records["sum_kl_div_prox"]
     k9_record["launches_7"], k9_record["launches"] = (k9_record["launches"],
                                                       k9_record["launches_9f"])
+    widths("9")
 
     mark("9")
     log(f"[end] seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

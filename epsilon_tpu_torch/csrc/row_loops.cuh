@@ -383,7 +383,10 @@ __device__ __forceinline__ T newton_safeguarded(G gfun, T x, T lo, T hi, int ite
 // repeats by the last whole four, the rest of the count runs after the
 // body; no check follows the last step, whose state is the result whatever
 // a check would find.  `ran` gets the steps run (a multiple of 4 at an
-// exit).  Without EXIT every step of the count runs.
+// exit).  Without EXIT every step of the count runs.  K9's and K10's Newton
+// runs without it: at their launches nearly every warp holds a lane that
+// runs the count, and the checks cost more than the steps they save
+// (tools/profile_port.py --k9, --k10); K6 and K8 keep it.
 template <bool EXIT, typename T, typename F>
 __device__ __forceinline__ Bracket<T> iterate4(Bracket<T> s, int iters, F step, int& ran) {
   if constexpr (EXIT) {

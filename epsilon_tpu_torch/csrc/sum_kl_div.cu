@@ -22,12 +22,16 @@
 // The source is built with --fmad=false, so every step rounds where the
 // plain version rounds and takes its branches (row_loops.cuh).
 //
-// The exits.  The widening's state is hi alone, so it stops at the first
-// step that leaves hi unchanged (period 1, row_loops.cuh widen()); the
-// Newton's state (r, lo, hi, glo, ghi) stops at its first repeat found
-// every fourth step (iterate4(), newton_element()).  Both give the full
-// count's bits.  The steps array, where given, receives each element's
-// widening and Newton steps.
+// The exit.  The widening's state is hi alone, so it stops at the first
+// step that leaves hi unchanged (period 1, row_loops.cuh widen()), which
+// gives the full count's bits.  The Newton runs its 60 steps
+// (newton_element() without the exit): every warp of the main path's
+// 10,000 elements holds a lane that runs all 60 (36.8 on average), and the
+// exit's state comparisons cost more than they save.  Measured in turns on
+// an H100 (tools/profile_port.py --k9): 0.0229 ms at 10,000 f32, against
+// 0.0284 with the Newton's exit every fourth step and 0.0259 with the
+// widening's count run too.  The steps array, where given, receives each
+// element's widening and Newton steps.
 //
 // Bound: an element reads u, v (and lam, where it has one an element) and
 // writes x and y: the main path's 10,000 elements are a few hundred kB, so
@@ -42,9 +46,9 @@
 // reads row i / n, column i % n; strides n and 1 are a contiguous tensor,
 // read at i.
 //
-// Entries: sum_kl_div_prox_* (the loops exit) and sum_kl_div_prox_full_*
-// (they run their counts: the reference the exits are checked against
-// bitwise; no dispatch calls them).  lam is read from device memory
+// Entries: sum_kl_div_prox_* (the widening exits) and
+// sum_kl_div_prox_full_* (both loops run their counts: the reference the
+// widening's exit is checked against bitwise; no dispatch calls them).  lam is read from device memory
 // (strides 0 and 0: one value) or passed by value (lam_p null).  Plain C
 // interface for ctypes; each returns cudaGetLastError().
 
@@ -96,7 +100,7 @@ prox_kl_div(const T* u, long long u_rs, long long u_cs, const T* v, long long v_
   }, widened);
   const T r0 = tmin(tmax(clamp_min((T(0.5) + lam - vi) / lam, eps), lo), hi);
   int ran = 0;
-  const T r = newton_element<T, EXIT>(g, r0, lo, hi, NEWTON_STEPS, ran);
+  const T r = newton_element<T, false>(g, r0, lo, hi, NEWTON_STEPS, ran);
   const T y = lam * r + vi - lam;
   const T x = y * r;
   const T eps2 = T(kl_eps<T>() * kl_eps<T>());

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -47,10 +48,13 @@ def build(name: str, flags=(), csrc=None):
         digest.update(header.read_bytes())
     digest.update(" ".join(flags).encode())
     out = _BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+    log = out.with_name(f"{out.name}.log")
     if out.exists():
-        return out, 0.0, ""
+        return out, 0.0, log.read_text() if log.exists() else ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    # two threads may build the same library at once: each writes its own
+    # file and the later replace wins
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags,
            "-o", str(tmp), str(src)]
@@ -59,5 +63,7 @@ def build(name: str, flags=(), csrc=None):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    text = proc.stdout + proc.stderr
+    log.write_text(text)
     os.replace(tmp, out)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return out, time.perf_counter() - t0, text

@@ -13,10 +13,11 @@ issues every step as eager operations.
 This is the kernel entry: it takes CUDA tensors only and raises on any
 other device.  The dispatch (the plain version on a CPU tensor) is in
 ``ops/prox/elementwise.py``.  The kernel's widening stops at its first step
-that leaves the bracket's end unchanged and its Newton once its state
-repeats, which gives the full-count result bitwise; :func:`prox_full`
-launches the build that runs both loops to their counts, the reference
-those exits are checked against (no dispatch calls it).  ``steps``, where
+that leaves the bracket's end unchanged, which gives the full-count result
+bitwise, and its Newton runs its count (an exit there measured slower:
+the source's note); :func:`prox_full` launches the build that runs both
+loops to their counts, the reference the widening's exit is checked
+against (no dispatch calls it).  ``steps``, where
 given, receives each element's widening and Newton steps.
 """
 

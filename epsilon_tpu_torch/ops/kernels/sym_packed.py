@@ -9,11 +9,13 @@ leave device memory; each off-diagonal tile is applied twice, as
 
 The apply is bound by device memory: at n = 8192 in f32 the packed
 triangle is 134 MB, about 40 us at the H100's 3.35 TB/s.  The kernel
-(``csrc/sym_packed.cu``) reads each tile once: pass 1, one block per tile,
-writes both products of the tile to a per-tile partial buffer (2K, T, R)
-from registers; pass 2 sums each row block's contributions in the fixed
-order of the plan built by :func:`sym_packed_plan`.  No float atomics, so
-results repeat bitwise.
+(``csrc/sym_packed.cu``) reads each tile once, for any number R of x's
+columns: pass 1 writes both products of every tile to a per-tile partial
+buffer (one column: one block a tile, from registers; several: the tile,
+or in f64 each half of it, staged in shared memory while the block loops
+over x's columns in chunks); pass 2 sums each row block's contributions
+in the fixed order of the plan built by :func:`sym_packed_plan`.  No
+float atomics, so results repeat bitwise.
 
 On a CPU tensor :func:`sym_packed_matmul` runs the plain PyTorch version
 :func:`sym_packed_matmul_reference`; on a CUDA tensor it launches the kernel
@@ -31,7 +33,7 @@ import torch
 from . import _build
 
 __all__ = ["SYM_TILE", "pack_sym_tiles", "sym_packed_plan", "sym_packed_matmul",
-           "sym_packed_matmul_reference", "build", "launches"]
+           "sym_packed_matmul_reference", "build", "launches", "launches_by_width"]
 
 # Tile edge on the H100: a 128 x 128 tile gives each lane of a warp 4
 # consecutive columns (one 16-byte f32 load per row), and n = 8192 gives
@@ -39,8 +41,10 @@ __all__ = ["SYM_TILE", "pack_sym_tiles", "sym_packed_plan", "sym_packed_matmul",
 # sized for v5e VMEM.
 SYM_TILE = 128
 
-# Kernel launches made by sym_packed_matmul (CUDA tensors only).
+# Kernel launches made by sym_packed_matmul (CUDA tensors only), in all and
+# by the width R of x (``{R: launches}``).
 launches = 0
+launches_by_width = {}
 
 _LIB = None
 
@@ -121,6 +125,8 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.sym_packed_partial_slots.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.sym_packed_partial_slots.restype = ctypes.c_int
         if lib.sym_packed_tile() != SYM_TILE:
             raise RuntimeError("sym_packed library tile does not match SYM_TILE")
         _LIB = lib
@@ -172,14 +178,17 @@ def sym_packed_matmul(tiles, ii, jj, x, plan):
     _check_cuda_args(tiles, ii, jj, x, row_ptr, entries)
     K = tiles.shape[0]
     n_pad, R = x.shape
-    fn = (_library().sym_packed_matmul_f32 if x.dtype == torch.float32
-          else _library().sym_packed_matmul_f64)
-    partial = torch.empty((2 * K, SYM_TILE, R), dtype=x.dtype, device=x.device)
+    lib = _library()
+    fn = lib.sym_packed_matmul_f32 if x.dtype == torch.float32 else lib.sym_packed_matmul_f64
+    # pass 1's partial buffers, as many a tile as the kernel's launch writes
+    slots = K * lib.sym_packed_partial_slots(R, x.element_size())
+    partial = torch.empty((slots, SYM_TILE, R), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
     global launches
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         launches += 1
+        launches_by_width[R] = launches_by_width.get(R, 0) + 1
         err = fn(tiles.data_ptr(), ii.data_ptr(), jj.data_ptr(),
                  row_ptr.data_ptr(), entries.data_ptr(), x.data_ptr(),
                  partial.data_ptr(), y.data_ptr(), K, n_pad // SYM_TILE, R, stream)

@@ -48,8 +48,12 @@ def rs():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("R", [1, 3, 9, 300])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 5, 6, 8, 9, 10, 14, 16, 20, 64, 80, 300])
 def test_kernel_matches_reference(cuda, rs, dtype, R):
+    """K2 at one column and on the multi-column path (every chunk width,
+    a last chunk of 4 or 2 after wider ones, an odd R's column of zeros,
+    many chunks, the library's widths 10, 20 and 80) against its plain
+    version, bitwise repeatable, counted once a call under its width."""
     n = 700                                    # pads to 768: a ragged last block
     A = rs.randn(n, n)
     tiles, ii, jj, n_pad = sp.pack_sym_tiles(A + A.T)
@@ -61,9 +65,9 @@ def test_kernel_matches_reference(cuda, rs, dtype, R):
     x = torch.as_tensor(X, dtype=dtype, device=cuda)
     plan = tuple(torch.as_tensor(a, device=cuda)
                  for a in sp.sym_packed_plan(ii, jj, n_pad // sp.SYM_TILE))
-    before = sp.launches
+    before, before_r = sp.launches, sp.launches_by_width.get(R, 0)
     y = sp.sym_packed_matmul(t, i, j, x, plan)
-    assert sp.launches == before + 1
+    assert sp.launches == before + 1 and sp.launches_by_width[R] == before_r + 1
     ref = sp.sym_packed_matmul_reference(t, i, j, x)
     tol = 1e-4 if dtype == torch.float32 else 1e-12
     assert (y - ref).abs().max().item() <= tol * ref.abs().max().item()

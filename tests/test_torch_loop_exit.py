@@ -28,9 +28,10 @@ on v in +-60 with lam over 1e-6..1e6 and on special values.
 K9 (``csrc/sum_kl_div.cu``) and K10 (``csrc/sum_inv_pos.cu``) widen the
 bracket's upper end (state hi: it stops at its first step that leaves hi
 unchanged, period 1) and then run the safeguarded Newton one thread an
-element with K6's exit; K11 (``csrc/w_log_w.cu``) runs the Lambert solve
-on the SUM_EXP and SUM_NEG_ENTR proxes' arguments with K3's exit.  Their
-premises are held here on wide ranges and special values.
+element to its count (K6's exit, whose premise still holds on their loops
+here, cost them more than it saved); K11 (``csrc/w_log_w.cu``) runs the
+Lambert solve on the SUM_EXP and SUM_NEG_ENTR proxes' arguments with K3's
+exit.  Their premises are held here on wide ranges and special values.
 
 K3's prox runs rows of up to 16 two to a warp, its sums through 16-wide
 butterflies in place of 32-wide ones; a plain simulation of both holds
@@ -790,8 +791,9 @@ def test_exit_after_cycling_on_is_exact(loop, dtype):
 # steps; ``prox_sum_inv_pos_reference`` (K10, ``csrc/sum_inv_pos.cu``) 40
 # and 50.  Both kernels stop the widening at its first step that leaves hi
 # unchanged (``row_loops.cuh`` widen(): the step is a fixed map of hi
-# alone, period 1) and the Newton as iterate4() does (60 steps: fifteen
-# whole fours and no tail; 50: twelve and a tail of two).
+# alone, period 1) and run the Newton's count (an exit as iterate4() does
+# it, 60 steps: fifteen whole fours and no tail; 50: twelve and a tail of
+# two, is exact too, below, but measured slower on the card).
 
 KL_WIDEN, KL_NEWTON = 60, 60
 INV_POS_WIDEN, INV_POS_NEWTON = 40, 50
@@ -932,6 +934,64 @@ def test_newton_every_fourth_step_exit_is_exact(kernel, dtype):
         _, (step, state) = _inv_pos_loops(*_inv_pos_inputs(dtype))
         share, _ = _every4_is_exact(step, state, INV_POS_NEWTON)
     assert share > 0.3
+
+
+def _lazy_falsi_step(g_and_gp):
+    """``_nu_step``'s step with the regula falsi point and its clamp
+    computed only on the elements whose Newton point is bad (the rest keep
+    the Newton point): the premise of computing them only where a lane of
+    a warp takes them (``row_loops.cuh`` newton_element; measured slower
+    on the card for K10 and not kept, PERF.md)."""
+    def step(state):
+        x, lo, hi, glo, ghi = state
+        gx, gp = g_and_gp(x)
+        neg = gx < 0
+        lo = torch.where(neg, torch.maximum(lo, x), lo)
+        glo = torch.where(neg, gx, glo)
+        ghi = torch.where(neg, 0.5 * ghi, ghi)
+        hi = torch.where(neg, hi, torch.minimum(hi, x))
+        ghi = torch.where(neg, ghi, gx)
+        glo = torch.where(neg, glo, 0.5 * glo)
+        gp_nz = gp != 0
+        step_ = torch.where(gp_nz, gx / torch.where(gp_nz, gp, torch.ones_like(gp)),
+                            torch.zeros_like(gx))
+        xn = x - step_
+        bad = (xn <= lo) | (xn >= hi) | ~torch.isfinite(xn)
+        out = xn.clone()
+        b_lo, b_hi, b_glo, b_ghi = lo[bad], hi[bad], glo[bad], ghi[bad]
+        denom = b_ghi - b_glo
+        d_nz = denom != 0
+        mid = 0.5 * (b_lo + b_hi)
+        falsi = torch.where(d_nz, (b_lo * b_ghi - b_hi * b_glo)
+                            / torch.where(d_nz, denom, torch.ones_like(denom)), mid)
+        out[bad] = torch.where(torch.isfinite(falsi),
+                               torch.minimum(torch.maximum(falsi, b_lo), b_hi), mid)
+        return out, lo, hi, glo, ghi
+    return step
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_inv_pos_falsi_only_where_bad_is_the_plain_step(dtype):
+    """K10's Newton (``prox_sum_inv_pos_reference``'s 50 steps) with the
+    falsi taken only where ``bad`` holds gives the plain step's state
+    bitwise at every step, on seeded inputs, the far range and the special
+    values (``_inv_pos_inputs``), and both reach the plain version's x.
+    This is the premise of a K10 step that computes the falsi behind a warp
+    vote over ``bad``: measured and not kept (``PERF.md``), so it
+    guards that design should it be taken up again, not the shipped one."""
+    v, lam = _inv_pos_inputs(dtype)
+    _, (step, state) = _inv_pos_loops(v, lam)
+
+    def g_and_gp(x):
+        return x * x * (x - v) - lam, 3.0 * x * x - 2.0 * v * x
+
+    lazy = _lazy_falsi_step(g_and_gp)
+    plain = lazy_state = state
+    for _ in range(INV_POS_NEWTON):
+        plain, lazy_state = step(plain), lazy(lazy_state)
+        for a, b in zip(plain, lazy_state):
+            assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(_bits(lazy_state[0]), _bits(ew.prox_sum_inv_pos_reference(v, lam)))
 
 
 @settings(max_examples=30, deadline=None)

@@ -11,26 +11,31 @@ from epsilon_tpu.ops import pallas_kernels as pk
 from epsilon_tpu_torch.ops.kernels import sym_packed as sp
 
 
-def _packed(rng, n, tile, dtype):
+def _packed(rng, n, tile, dtype, R=3):
     A = rng.randn(n, n)
     M = (A + A.T).astype(dtype)
     tiles, ii, jj, n_pad = pk.pack_sym_tiles(M, tile=tile)
-    X = rng.randn(n_pad, 3).astype(dtype)
+    X = rng.randn(n_pad, R).astype(dtype)
     X[n:] = 0.0
     return M, tiles, ii, jj, n_pad, X
 
 
+@pytest.mark.parametrize("R", [1, 2, 3, 8, 10, 20, 64, 80])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_reference_matches_jax_kernel(rng, dtype):
+def test_reference_matches_jax_kernel(rng, dtype, R):
+    """The plain version against the Pallas kernel in interpret mode, at x's
+    widths on each of the CUDA kernel's paths: one column, and several (a
+    chunk of 2, 4 and 8, 64 in chunks, and the widths the library sends:
+    mnist's 10 classes, qp's collapsed KKT's 20 and the lasso's 80)."""
     n, tile = 700, 256
-    M, tiles, ii, jj, n_pad, X = _packed(rng, n, tile, dtype)
+    M, tiles, ii, jj, n_pad, X = _packed(rng, n, tile, dtype, R)
     want = np.asarray(pk.sym_packed_matmul(
         jnp.asarray(tiles), jnp.asarray(ii), jnp.asarray(jj), jnp.asarray(X),
         interpret=True))
     plan = tuple(map(torch.as_tensor, sp.sym_packed_plan(ii, jj, n_pad // tile)))
     got = sp.sym_packed_matmul(torch.as_tensor(tiles), torch.as_tensor(ii),
                                torch.as_tensor(jj), torch.as_tensor(X), plan).numpy()
-    assert got.dtype == dtype and got.shape == (n_pad, 3)
+    assert got.dtype == dtype and got.shape == (n_pad, R)
     if dtype == np.float64:
         np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
     else:

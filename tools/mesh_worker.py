@@ -548,10 +548,12 @@ PARTS = (("a", part_a), ("b", part_b), ("c", part_c), ("d", part_d),
 
 def run(rank, world, init_file, out_dir, device="cuda", sizes=FULL, parts=PARTS):
     from epsilon_tpu_torch import config
+    from epsilon_tpu_torch.ops.kernels import sym_packed
     ep, group, backend = start(rank, world, init_file, device)
     device_type = config.device().type
     out = dict(rank=rank, world=world, backend=backend, out_dir=out_dir,
                card=(torch.cuda.current_device() if device_type == "cuda" else None))
+    sym_packed.launches_by_width.clear()
     arrays = {}
     for name, part in parts:
         t0 = time.perf_counter()
@@ -559,6 +561,8 @@ def run(rank, world, init_file, out_dir, device="cuda", sizes=FULL, parts=PARTS)
         out[f"{name}_seconds"] = time.perf_counter() - t0
         if rank == 0:
             print(f"[9{name}] rank 0 done in {out[f'{name}_seconds']:.1f} s", flush=True)
+    # K2's launches by width of x in this rank's parts (phase 9 prints them)
+    out["sym_packed_by_width"] = dict(sorted(sym_packed.launches_by_width.items()))
     Path(out_dir).mkdir(parents=True, exist_ok=True)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:

@@ -80,21 +80,39 @@ profiled warm re-solve of 10 iterations, a family's from a profiled solve;
 an ``eval_prox`` call's ms and operations counted as one iteration),
 iterations and objectives, and the kernels' launches.
 
-    python3 -m tools.profile_port --k6 [tree,tree,...]
+    python3 -m tools.profile_port --k6 [side,side,...]
+    python3 -m tools.profile_port --k10 [side,side,...]
+    python3 -m tools.profile_port --k9 [side,side,...]
 
-measures K6 (``csrc/sum_logistic.cu``, the SUM_LOGISTIC prox) at 1,500
-elements (``logreg_l1``'s) and 100,000, f32 and f64, lam a number (phase
-7a's inputs): element 0's cycles a step of the exit build and of the
-full-count build, read from ``clock64`` marks of the source built with
-``-DK6_STEP_MARKS``; the instructions of each kernel and of its loop body
-and the IEEE divisions that call a slow path, from ``cuobjdump -sass`` of
-the built library (the listings under ``build/k6_sass/``); and the exit
-build, the full-count build and the exit build of each other tree (the
-root of a checkout, its ``epsilon_tpu_torch/csrc/sum_logistic.cu`` with
-the same C entries, say the parent unpacked by ``git archive`` under
-``build/``) timed in turns (``interleaved_ms``), each held bitwise to the
-full-count build, beside the launch floor and the measured chain
-(``chip_smoke.k6_chain_ms``).  Prints a line a case and a JSON line.
+measure one of the one-thread-an-element loop kernels at phase 7a's
+inputs, lam a number: K6 (``csrc/sum_logistic.cu``, the SUM_LOGISTIC prox)
+at 1,500 elements (``logreg_l1``'s) and 100,000, f32 and f64; K10
+(``csrc/sum_inv_pos.cu``, the SUM_INV_POS prox) at 10^6 elements in f32
+and f64 and at 10,000 in f32; K9 (``csrc/sum_kl_div.cu``, the SUM_KL_DIV
+prox) at 10,000 in f32 and f64 and at 100,000 in f32.  For each side:
+its registers (``ptxas``) and the resident warps they allow at 256
+threads a block; the instructions of each kernel and of its loop bodies
+and the IEEE divisions that call a slow path (``cuobjdump -sass``;
+listings under ``build/k6_sass/`` and so on); element 0's cycles a Newton
+step and a widening step of the dispatched and the full-count build, at
+1,500 elements (K6) or 10^6 (K10), f32 and f64, from ``clock64`` marks
+where the side's source has them (built with ``-DK6_STEP_MARKS`` or
+``-DK10_STEP_MARKS``; K9 has none).  Then every side's kernel timed in
+turns (``interleaved_ms``) with this tree's full-count build and the
+measured chains (``chip_smoke.k6_chain``, ``element_chain``), each held
+bitwise to the full-count build, beside the launch floor.  A side is
+``this`` (this tree, the default) or the root of a checkout (its source
+with the same C entries, say the parent unpacked by ``git archive`` under
+``build/``), with nvcc flags after ``@`` (``tree@-DNAME=1``: a ``-D`` that
+the side's source reads).  Prints a line a case and a JSON line.
+
+    python3 -m tools.profile_port --k2 tree[,tree,...]
+
+times this tree's K2 (``csrc/sym_packed.cu``) in turns with the K2 of
+each other checkout (its ``csrc/sym_packed.cu`` with the same C entries,
+say the parent unpacked by ``git archive`` under ``build/``) at n = 8192,
+every width of ``chip_smoke.K2_WIDTHS`` above 1, f32 and f64, and says
+whether every side's result is bitwise equal to this tree's.
 
     python3 -m tools.profile_port --k1-tune
 
@@ -562,10 +580,6 @@ def k7_tiles(rounds=K7_SWEEP_ROUNDS):
     print(json.dumps({"k7_tiles": cases}))
 
 
-K6_SASS_DIR = "build/k6_sass"
-K6_MARK_COUNT = 64           # csrc/sum_logistic.cu MARK_COUNT
-
-
 def _sass(path):
     """``(listing, {function: [(address, instruction), ...]})`` from
     ``cuobjdump -sass`` of a library."""
@@ -635,123 +649,285 @@ def _sass_summary(funcs):
     return out
 
 
-def k6_profile(trees=(), rounds=5):
-    """``--k6``: see the module docstring."""
+def _print_sass(tag, label, summary):
+    """One line a kernel of ``_sass_summary``: instructions, loops, the
+    longest loop's opcodes, and the slow-path calls in and out of loops."""
+    for name, f in summary.items():
+        looped = [c for c in f["calls"] if c["in_loop"]]
+        print(f"[{tag}-sass] {label} {name}: {f['instructions']} instructions (subroutines "
+              f"{f['subroutines']} more); loops {f['loops']}, the longest "
+              f"{f['body']} instructions ({f['body_ops']}); slow-path calls in loops: "
+              + (", ".join(f"{c['kind']} at {c['at']} -> {c['target']}" for c in looped)
+                 or "none")
+              + f"; outside: {len(f['calls']) - len(looped)}", flush=True)
+
+
+def _registers(build_log):
+    """Registers a thread of each kernel in a ``-Xptxas -v`` log, in the
+    log's order."""
+    import re
+    return [int(m.group(1)) for m in re.finditer(r"Used (\d+) registers", build_log)]
+
+
+def _resident_warps(registers, threads=256):
+    """Warps an H100 SM holds of a kernel of ``registers`` a thread at
+    ``threads`` a block: 65,536 registers allotted in 256s a warp, at most
+    64 warps and 32 blocks."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps_per_block = threads // 32
+    blocks = min(65536 // (per_warp * warps_per_block), 32, 64 // warps_per_block)
+    return blocks * warps_per_block
+
+
+def _k6_inputs(n, dtype, dev):
+    from chip_smoke import k6_inputs
+    v, lam = k6_inputs(n, dtype, 0, dev, "number")
+    return (v,), lam
+
+
+def _k6_chains(mod, name, ops, lam, steps):
+    # the steps the longest element ran, and one more: the chain's own count
+    from chip_smoke import k6_chain
+    return {"chain": k6_chain(ops[0], lam, int(steps.max()) + 1)}
+
+
+def _element_inputs(name):
+    def inputs(n, dtype, dev):
+        from chip_smoke import element_loop_inputs
+        return element_loop_inputs(name, n, dtype, 0, dev, "number")
+    return inputs
+
+
+def _element_chains(mod, name, ops, lam, steps):
+    # each warp its slowest element's steps, and every element the counts
+    from chip_smoke import element_chain, warp_steps
+    counts, entry = (mod.WIDEN_STEPS, mod.NEWTON_STEPS), mod.__name__.rsplit(".", 1)[1]
+    warps = warp_steps(steps, ops[-1].numel())
+    return {"chain": element_chain(name, entry, ops, lam, warps, counts),
+            "full_chain": element_chain(name, entry, ops, lam, None, counts)}
+
+
+# --k6, --k10 and --k9: the kernel's module, its C name, its inputs
+# (phase 7a's, lam a number) and measured chains, the macro that builds
+# its step marks and the marks' count (none for K9), the elements whose
+# element 0 the marks read, and the cases timed in turns (elements, dtype).
+ELEMENT_AB = {
+    "k6": dict(module="sum_logistic", name="sum_logistic_prox", inputs=_k6_inputs,
+               chains=_k6_chains, marks="K6_STEP_MARKS", mark_count=64, mark_n=1500,
+               cases=((1500, torch.float32), (100_000, torch.float32),
+                      (1500, torch.float64), (100_000, torch.float64))),
+    "k10": dict(module="sum_inv_pos", name="sum_inv_pos_prox",
+                inputs=_element_inputs("sum_inv_pos_prox"), chains=_element_chains,
+                marks="K10_STEP_MARKS", mark_count=128, mark_n=10 ** 6,
+                cases=((10 ** 6, torch.float32), (10 ** 6, torch.float64),
+                       (10_000, torch.float32))),
+    "k9": dict(module="sum_kl_div", name="sum_kl_div_prox",
+               inputs=_element_inputs("sum_kl_div_prox"), chains=_element_chains, marks=None,
+               cases=((10_000, torch.float32), (10_000, torch.float64),
+                      (100_000, torch.float32))),
+}
+
+
+def element_ab(key, sides=("this",), rounds=5):
+    """``--k6``, ``--k10``, ``--k9``: see the module docstring."""
     import ctypes
+    import importlib
     import json
     import os
     from pathlib import Path
-    from chip_smoke import (K6_SIZES, k6_chain_ms, k6_inputs, launch_floor, same_bits)
+    from chip_smoke import launch_floor, same_bits
     from epsilon_tpu_torch.ops.kernels import _rows
-    from epsilon_tpu_torch.ops.kernels import sum_logistic as k6
+    spec_of = ELEMENT_AB[key]
+    source, name = spec_of["module"], spec_of["name"]
+    mod = importlib.import_module(f"epsilon_tpu_torch.ops.kernels.{source}")
     dev = torch.device("cuda")
-    here = Path(__file__).resolve().parents[1] / "epsilon_tpu_torch" / "csrc"
-    sides = {"this": here}
-    for tree in trees:
-        sides[Path(tree).name] = Path(tree).resolve() / "epsilon_tpu_torch" / "csrc"
-    base = {n: a for n, a in k6.entries().items() if n != "sum_logistic_threads"}
-    libs, marked, results = {}, {}, {"sass": {}, "marks": {}, "cases": []}
-    os.makedirs(K6_SASS_DIR, exist_ok=True)
-    for label, csrc in sides.items():
-        path, _, build_log = _rows.build("sum_logistic", (), csrc)
-        libs[label] = _rows.load("sum_logistic", base, (), csrc)
+    root = Path(__file__).resolve().parents[1]
+    sass_dir = f"build/{key}_sass"
+    os.makedirs(sass_dir, exist_ok=True)
+    libs, marked, results = {}, {}, {"sides": {}, "marks": {}, "cases": []}
+
+    def typed(path):
+        # the entries a side's library has (an older tree may lack some)
+        lib = ctypes.CDLL(str(path))
+        for fn, args in mod.entries().items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = [
+                    (ctypes.c_float if fn.endswith("_f32") else ctypes.c_double)
+                    if a == "scalar" else a for a in args]
+                getattr(lib, fn).restype = ctypes.c_int
+        return lib
+
+    for spec in sides:
+        tree, *flags = spec.split("@")
+        csrc = (root if tree == "this" else Path(tree).resolve()) / "epsilon_tpu_torch" / "csrc"
+        label = (tree if tree == "this" else Path(tree).name) + "".join(f"@{f}" for f in flags)
+        path, _, build_log = _rows.build(source, tuple(flags), csrc)
+        libs[label] = typed(path)
         text, funcs = _sass(path)
-        Path(K6_SASS_DIR, f"{label}.sass").write_text(text)
-        Path(K6_SASS_DIR, f"{label}.ptxas").write_text(build_log)
+        safe = label.replace("/", "_").replace("@", "_")
+        Path(sass_dir, f"{safe}.sass").write_text(text)
+        Path(sass_dir, f"{safe}.ptxas").write_text(build_log)
+        regs = _registers(build_log)
         summary = _sass_summary(funcs)
-        results["sass"][label] = summary
-        for name, f in summary.items():
-            looped = [c for c in f["calls"] if c["in_loop"]]
-            print(f"[k6-sass] {label} {name}: {f['instructions']} instructions (subroutines "
-                  f"{f['subroutines']} more); loops {f['loops']}, the longest "
-                  f"{f['body']} instructions ({f['body_ops']}); slow-path calls in loops: "
-                  + (", ".join(f"{c['kind']} at {c['at']} -> {c['target']}" for c in looped)
-                     or "none")
-                  + f"; outside: {len(f['calls']) - len(looped)}", flush=True)
-        if "K6_STEP_MARKS" in (csrc / "sum_logistic.cu").read_text():
-            lib = _rows.load("sum_logistic", base, ("-DK6_STEP_MARKS",), csrc)
-            lib.sum_logistic_set_marks.argtypes = [ctypes.c_void_p]
-            lib.sum_logistic_set_marks.restype = ctypes.c_int
-            marked[label] = lib
-    k6.threads(1)            # loads the port's own library
-    saved = k6._LIB
+        results["sides"][label] = {"registers": regs,
+                                   "resident_warps": [_resident_warps(r) for r in regs],
+                                   "sass": summary}
+        print(f"[{key}-build] {label}: registers {regs}, resident warps an SM at 256 threads "
+              f"{[_resident_warps(r) for r in regs]} (ptxas, in the log's order)", flush=True)
+        _print_sass(key, label, summary)
+        marks = spec_of["marks"]
+        if marks and marks in (csrc / f"{source}.cu").read_text():
+            mlib = typed(_rows.build(source, tuple(flags) + (f"-D{marks}",), csrc)[0])
+            set_marks = getattr(mlib, f"{source}_set_marks")
+            set_marks.argtypes = [ctypes.c_void_p]
+            set_marks.restype = ctypes.c_int
+            marked[label] = (mlib, set_marks)
+    saved = mod._library()
     anchor = torch.empty(1, device=dev)
     launch_floor(anchor)
     floor_ms = device_ms(lambda: launch_floor(anchor))
+
+    def call(lib, full, ops, lam, steps=None):
+        mod._LIB = lib
+        try:
+            return (mod.prox_full if full else mod.prox)(*ops, lam, steps=steps)
+        finally:
+            mod._LIB = saved
+
+    def steps_for(ops):
+        # K6 counts its steps an element; the others their widening and Newton
+        shape = tuple(ops[-1].shape) + (() if key == "k6" else (2,))
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
     try:
-        # cycles a step: element 0 of phase 7a's main input, both builds
-        for label, lib in marked.items():
-            k6._LIB = lib
+        # cycles a step: element 0 of the main input, each build
+        for label, (lib, set_marks) in marked.items():
             for dtype in (torch.float32, torch.float64):
-                v, lam = k6_inputs(1500, dtype, 0, dev, "number")
-                for build, call in (("exit", k6.prox), ("full", k6.prox_full)):
-                    marks = torch.zeros(K6_MARK_COUNT, dtype=torch.int64, device=dev)
-                    steps = torch.zeros(v.shape, dtype=torch.int32, device=dev)
+                ops, lam = spec_of["inputs"](spec_of["mark_n"], dtype, dev)
+                builds = [("dispatched", False)] + (
+                    [("full", True)] if hasattr(lib, f"{name}_full_f32") else [])
+                for build, full in builds:
+                    marks = torch.zeros(spec_of["mark_count"], dtype=torch.int64, device=dev)
+                    steps = steps_for(ops)
                     readings = []
                     for _ in range(5):
                         marks.zero_()
-                        if lib.sum_logistic_set_marks(marks.data_ptr()) != 0:
-                            raise RuntimeError("sum_logistic_set_marks failed")
-                        call(v, lam, steps=steps)
+                        if set_marks(marks.data_ptr()) != 0:
+                            raise RuntimeError(f"{source}_set_marks failed")
+                        call(lib, full, ops, lam, steps)
                         torch.cuda.synchronize()
-                        lib.sum_logistic_set_marks(None)
-                        ran = int(steps[0])
+                        set_marks(None)
+                        w = int(steps.reshape(-1, 2)[0, 0]) if steps.dim() == 2 else 0
                         t = marks.cpu().numpy()
-                        # marks: 0 start, 1-2 the bracket ends' g, 3.. each
-                        # step's g, then the end
-                        readings.append(((t[2 + ran] - t[3]) / max(ran - 1, 1),
-                                         t[3 + ran] - t[0], ran))
+                        last = int(np.flatnonzero(t)[-1])
+                        # marks: 0 start, 1..w the widening's g (none for
+                        # K6), w+1 and w+2 the bracket ends', w+3..last-1
+                        # each Newton step's g (the steps the lane ran,
+                        # cycle steps included), last the end
+                        newton = last - 1 - (w + 2)
+                        readings.append(((t[last - 1] - t[w + 3]) / max(newton - 1, 1),
+                                         (t[w] - t[1]) / (w - 1) if w > 1 else float("nan"),
+                                         t[last] - t[0], w, newton))
+                    key_m = f"{label} {build} {str(dtype)[6:]}"
                     per_step = statistics.median(r[0] for r in readings)
-                    total = statistics.median(r[1] for r in readings)
-                    key = f"{label} {build} {str(dtype)[6:]}"
-                    results["marks"][key] = {"cycles_a_step": float(per_step),
-                                             "cycles": float(total), "steps": readings[0][2]}
-                    print(f"[k6-marks] {key}: element 0 ran {readings[0][2]} steps, "
-                          f"{per_step:.1f} cycles a step, {total:.0f} cycles in all (median "
-                          f"of 5 launches)", flush=True)
-        # the builds in turns
-        for dtype in (torch.float32, torch.float64):
-            for n in (1500,) + K6_SIZES[-1:]:
-                v, lam = k6_inputs(n, dtype, 0, dev, "number")
-                k6._LIB = saved
-                threads = k6.threads(n)
-                want = k6.prox_full(v, lam)
-                steps = torch.zeros(v.shape, dtype=torch.int32, device=dev)
-                k6.prox(v, lam, steps=steps)
-                calls = {}
-                for label, lib in libs.items():
-                    def side(lib=lib, full=False):
-                        k6._LIB = lib
-                        return (k6.prox_full if full else k6.prox)(v, lam)
-                    if not same_bits(side(), want):
-                        raise AssertionError(f"k6 {label} n={n} {dtype}: differs from the "
-                                             "full-count build")
-                    calls[label] = side
-                    if label == "this":
-                        calls["full"] = lambda lib=lib: side(lib, True)
-                readings = {side: [] for side in calls}
-                for _ in range(rounds):
-                    for name in list(calls) + list(calls)[::-1]:
-                        readings[name].append(device_ms(calls[name], reps=20))
-                ms = {name: (statistics.median(r), min(r), max(r))
-                      for name, r in readings.items()}
-                taken = int(steps.max())
-                chain = k6_chain_ms(v, lam, taken + 1)
-                case = {"n": n, "dtype": str(dtype)[6:], "threads": threads,
-                        "steps_mean": float(steps.float().mean()), "steps_most": taken,
-                        "chain_ms": chain, "floor_ms": floor_ms, "ms": ms}
-                results["cases"].append(case)
-                print(f"[k6-ab] n={n} {str(dtype)[6:]} ({case['threads']} threads a block, "
-                      f"steps {case['steps_mean']:.1f} mean, {taken} most; {rounds} rounds, "
-                      f"in order and reversed, of 20 calls a reading): "
-                      + "; ".join(f"{name} {med:.4f} ({lo:.4f}-{hi:.4f})"
-                                  for name, (med, lo, hi) in ms.items())
-                      + f"; measured chain of {taken} + 1 steps {chain:.4f}; launch floor "
-                      f"{floor_ms:.4f}; every side bitwise equal to the full-count build",
-                      flush=True)
+                    widen_step = statistics.median(r[1] for r in readings)
+                    total = statistics.median(r[2] for r in readings)
+                    results["marks"][key_m] = {"cycles_a_newton_step": float(per_step),
+                                               "cycles_a_widening_step": float(widen_step),
+                                               "cycles": float(total),
+                                               "widening": readings[0][3],
+                                               "newton_steps_run": readings[0][4]}
+                    print(f"[{key}-marks] {key_m}: element 0 ran {readings[0][3]} widening and "
+                          f"{readings[0][4]} Newton steps, {per_step:.1f} cycles a Newton "
+                          f"step, {widen_step:.1f} a widening step, {total:.0f} cycles in all "
+                          f"(median of 5 launches of {spec_of['mark_n']} elements)", flush=True)
+        # every side in turns, with the full count and the measured chains
+        for n, dtype in spec_of["cases"]:
+            ops, lam = spec_of["inputs"](n, dtype, dev)
+            want = call(saved, True, ops, lam)
+            steps = steps_for(ops)
+            call(saved, False, ops, lam, steps)
+            calls = {}
+            for label, lib in libs.items():
+                got = call(lib, False, ops, lam)
+                if not all(same_bits(a, b) for a, b in zip(
+                        got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,))):
+                    raise AssertionError(f"{key} {label} n={n} {dtype}: differs from the "
+                                         "full-count build")
+                calls[label] = lambda lib=lib: call(lib, False, ops, lam)
+            calls["full"] = lambda: call(saved, True, ops, lam)
+            calls.update(spec_of["chains"](mod, name, ops, lam, steps))
+            ms = interleaved_ms(calls, rounds=rounds)
+            cols = steps.reshape(n, -1).float()
+            case = {"n": n, "dtype": str(dtype)[6:], "widening_mean": float(cols[:, 0].mean())
+                    if cols.shape[1] == 2 else 0.0, "newton_mean": float(cols[:, -1].mean()),
+                    "newton_most": int(cols[:, -1].max()), "floor_ms": floor_ms, "ms": ms}
+            results["cases"].append(case)
+            print(f"[{key}-ab] n={n} {str(dtype)[6:]} (steps {case['widening_mean']:.1f} + "
+                  f"{case['newton_mean']:.1f} mean, {case['newton_most']} most; {rounds} "
+                  f"rounds, in order and reversed, of 20 calls a reading): "
+                  + "; ".join(f"{side} {med:.4f} ({lo:.4f}-{hi:.4f})"
+                              for side, (med, lo, hi) in ms.items())
+                  + f"; launch floor {floor_ms:.4f}; every side bitwise equal to the "
+                  "full-count build", flush=True)
     finally:
-        k6._LIB = saved
-    print(json.dumps({"k6": results}))
+        mod._LIB = saved
+    print(json.dumps({key: results}))
+
+
+def k2_ab(trees):
+    """``--k2``: see the module docstring."""
+    import ctypes
+    from pathlib import Path
+    from chip_smoke import K2_WIDTHS
+    from epsilon_tpu_torch.ops.kernels import _build
+    from epsilon_tpu_torch.ops.kernels import sym_packed as sp
+    dev, n, T = torch.device("cuda"), 8192, sp.SYM_TILE
+    sides = {"this": None}
+    sides.update((Path(t).name, Path(t).resolve() / "epsilon_tpu_torch" / "csrc") for t in trees)
+    libs = {}
+    for label, csrc in sides.items():
+        lib = ctypes.CDLL(str(_build.build("sym_packed", csrc=csrc)[0]))
+        for name in ("sym_packed_matmul_f32", "sym_packed_matmul_f64"):
+            getattr(lib, name).argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+            getattr(lib, name).restype = ctypes.c_int
+        libs[label] = lib
+    rng = np.random.RandomState(1)
+    M = rng.standard_normal((n, n))
+    M = M + M.T
+    for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        tiles_h, ii_h, jj_h, n_pad = sp.pack_sym_tiles(M, tile=T, dtype=np_dtype)
+        tiles, ii, jj = (torch.as_tensor(a, device=dev) for a in (tiles_h, ii_h, jj_h))
+        row_ptr, entries = (torch.as_tensor(a, device=dev)
+                            for a in sp.sym_packed_plan(ii_h, jj_h, n_pad // T))
+        K, B = tiles.shape[0], n_pad // T
+        entry = "sym_packed_matmul_f32" if dtype == torch.float32 else "sym_packed_matmul_f64"
+        for R in (R for R in K2_WIDTHS if R > 1):
+            x = torch.as_tensor(rng.standard_normal((n_pad, R)), dtype=dtype, device=dev)
+            # three partial slots a tile: as many as any layout writes
+            partial = torch.empty((3 * K, T, R), dtype=dtype, device=dev)
+            ys = {label: torch.empty_like(x) for label in libs}
+
+            def run(label):
+                err = getattr(libs[label], entry)(
+                    tiles.data_ptr(), ii.data_ptr(), jj.data_ptr(), row_ptr.data_ptr(),
+                    entries.data_ptr(), x.data_ptr(), partial.data_ptr(), ys[label].data_ptr(),
+                    K, B, R, torch.cuda.current_stream().cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"k2 {label}: CUDA error {err}")
+
+            for label in libs:
+                run(label)
+            torch.cuda.synchronize()
+            same = all(torch.equal(ys[label], ys["this"]) for label in libs)
+            ms = interleaved_ms({label: (lambda label=label: run(label)) for label in libs})
+            print(f"[k2-ab] n={n} R={R} {str(dtype)[6:]} (5 rounds, in order and reversed, "
+                  "of 20 calls a reading): "
+                  + "; ".join(f"{label} {med:.4f} ({lo:.4f}-{hi:.4f})"
+                              for label, (med, lo, hi) in ms.items())
+                  + f"; every side bitwise equal to this tree's: {same}", flush=True)
 
 
 PLAIN_AB_ROUNDS = 1
@@ -940,8 +1116,11 @@ def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--plain-ab":
         plain_ab(sys.argv[2].split(","))
         return 0
-    if sys.argv[1:2] == ["--k6"] and len(sys.argv) <= 3:
-        k6_profile(sys.argv[2].split(",") if len(sys.argv) == 3 else ())
+    if len(sys.argv) == 3 and sys.argv[1] == "--k2":
+        k2_ab(sys.argv[2].split(","))
+        return 0
+    if sys.argv[1:2] in (["--k6"], ["--k10"], ["--k9"]) and len(sys.argv) <= 3:
+        element_ab(sys.argv[1][2:], sys.argv[2].split(",") if len(sys.argv) == 3 else ("this",))
         return 0
     if sys.argv[1:] == ["--k1"]:
         lu.build()
