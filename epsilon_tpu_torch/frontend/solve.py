@@ -8,8 +8,8 @@ single-prox fast path; ``eval_prox`` evaluates one proximal operator.
 
 from __future__ import annotations
 
+import itertools
 import logging
-import time
 import weakref
 from typing import Dict, Optional
 
@@ -24,7 +24,8 @@ from ..ops.block import BlockMatrix, BlockVector
 from ..ops.prox.operator import create_prox_operator
 from ..solvers import (ProxADMMSolver, SolverParams, SolverState, create_solver,
                        problem_objective)
-from ..solvers.status import SolverStatus
+from ..solvers.status import SolverStatus, Timing
+from ..utils.timing import PROX_SPANS, span
 from . import api
 from . import expression as ex
 
@@ -34,6 +35,9 @@ logger = logging.getLogger("epsilon_tpu_torch")
 # (an id() key could alias a new Problem onto a dead one's solver).
 _PROBLEM_CACHE: "weakref.WeakKeyDictionary[api.Problem, tuple]" = \
     weakref.WeakKeyDictionary()
+
+# The process's solves, numbered in the root span's argument
+_SOLVES = itertools.count()
 
 
 def _has_parameters(problem: api.Problem) -> bool:
@@ -75,9 +79,18 @@ def _set_solution(problem: api.Problem, values: BlockVector,
 
 def solve(problem: api.Problem, verbose: bool = False, **kwargs) -> float:
     """Compile + solve; writes variable values; returns objective value."""
+    with span("epsilon.solve", (next(_SOLVES),)):
+        return _solve(problem, verbose, **kwargs)
+
+
+def _compile(problem: api.Problem, params: SolverParams) -> ProxProblem:
+    return compiler.compile_problem(problem.expression_problem(),
+                                    use_epigraph=params.use_epigraph)
+
+
+def _solve(problem: api.Problem, verbose: bool, **kwargs) -> float:
     params = SolverParams(**{**kwargs, "verbose": verbose})
 
-    t0 = time.time()
     key = problem
     cached = _PROBLEM_CACHE.get(key) if params.warm_start else None
     if (cached is not None and params.mesh is not None
@@ -88,50 +101,54 @@ def solve(problem: api.Problem, verbose: bool = False, **kwargs) -> float:
     if cached is not None:
         prox_problem, solver = cached
         solver.params = params
-        if _has_parameters(problem):
+        with span("epsilon.compile") as compiled:
             # Parameter values may have changed: fold the (identically
-            # structured) problem again and hand its data to the cached
-            # solver, which keeps its warm state (solver.update_problem)
-            prox_problem = compiler.compile_problem(
-                problem.expression_problem(),
-                use_epigraph=params.use_epigraph)
+            # structured) problem again
+            fresh = _compile(problem, params) if _has_parameters(problem) else None
+        if fresh is not None:
+            # hand its data to the cached solver, which keeps its warm
+            # state (solver.update_problem)
+            prox_problem = fresh
             solver.update_problem(prox_problem)
             _PROBLEM_CACHE[key] = (prox_problem, solver)
     else:
-        prox_problem = compiler.compile_problem(
-            problem.expression_problem(), use_epigraph=params.use_epigraph)
+        with span("epsilon.compile") as compiled:
+            prox_problem = _compile(problem, params)
         if len(prox_problem.terms) == 1 and not prox_problem.constraints:
             # single-prox fast path: one prox term and nothing to split on —
             # one prox evaluation at huge lambda IS the minimizer
             if verbose:
-                logger.info("Epsilon compile time: %.4fs", time.time() - t0)
+                logger.info("Epsilon compile time: %.4fs", compiled.ns / 1e9)
                 logger.info("%s", text_format.format_problem(prox_problem))
-            return _solve_single_prox(problem, prox_problem)
+            return _solve_single_prox(problem, prox_problem, compiled.usec)
         solver = create_solver(prox_problem, params)
         if params.warm_start:
             _PROBLEM_CACHE[key] = (prox_problem, solver)
-    compile_time = time.time() - t0
     if verbose:
-        logger.info("Epsilon compile time: %.4fs", compile_time)
+        logger.info("Epsilon compile time: %.4fs", compiled.ns / 1e9)
         logger.info("%s", text_format.format_problem(prox_problem))
 
-    t0 = time.time()
     values = solver.solve()
-    solve_time = time.time() - t0
+    timing = solver.status.timing
     if verbose:
-        logger.info("Epsilon solve time: %.4fs", solve_time)
+        logger.info("Epsilon solve time: %.4fs", timing.solve_usec / 1e6)
 
-    _set_solution(problem, values, prox_problem)
+    with span("epsilon.write_back") as wrote:
+        _set_solution(problem, values, prox_problem)
+        # the solver's own evaluation: with a process group (mesh) each
+        # rank evaluates the terms it owns and the sum is all-reduced
+        objective = float(solver.objective_value(values))
+    timing.compile_usec = compiled.usec
+    timing.writeback_usec += wrote.usec
+    timing.add_up()
     problem.solver_status = solver.status
     problem.status = ("optimal" if solver.status.state == SolverState.OPTIMAL
                       else "max_iterations")
-    # the solver's own evaluation: with a process group (mesh) each rank
-    # evaluates the terms it owns and the sum is all-reduced
-    return float(solver.objective_value(values))
+    return objective
 
 
-def _solve_single_prox(problem: api.Problem,
-                       prox_problem: ProxProblem) -> float:
+def _solve_single_prox(problem: api.Problem, prox_problem: ProxProblem,
+                       compile_usec: int) -> float:
     """Minimize a lone prox term by one prox evaluation at huge lambda:
     prox_{lam*f}(0) -> argmin f with bias O(||x*||^2 / lam).  Lambda is
     dtype-aware — 1e12 in f64; in f32 1/sqrt(lam) underflows precision, so
@@ -141,27 +158,31 @@ def _solve_single_prox(problem: api.Problem,
     dtype = config.default_dtype()
     lam = 1e12 if dtype == torch.float64 else 1e6
     inv_sqrt_lam = 1.0 / np.sqrt(lam)
-    t0 = time.time()
-    A = BlockMatrix()
-    v = BlockVector()
-    tvars = sorted({c for (_, c) in term.H.A.blocks})
-    for i, vid in enumerate(tvars):
-        n = prox_problem.var_dims[vid]
-        A.insert(f"c{i}", vid, linop.scalar(inv_sqrt_lam, n))
-        v[f"c{i}"] = torch.zeros(n, dtype=dtype, device=config.device())
-    op = create_prox_operator(term.spec, term.H,
-                              AffineOperator(A, BlockVector()))
-    x = op.apply(v)
+    with span("epsilon.solver_setup") as setup:
+        A = BlockMatrix()
+        v = BlockVector()
+        tvars = sorted({c for (_, c) in term.H.A.blocks})
+        for i, vid in enumerate(tvars):
+            n = prox_problem.var_dims[vid]
+            A.insert(f"c{i}", vid, linop.scalar(inv_sqrt_lam, n))
+            v[f"c{i}"] = torch.zeros(n, dtype=dtype, device=config.device())
+        op = create_prox_operator(term.spec, term.H,
+                                  AffineOperator(A, BlockVector()))
+    with span(PROX_SPANS[term.spec.kind]) as applied:
+        x = op.apply(v)
 
-    _set_solution(problem, x, prox_problem)
+    with span("epsilon.write_back") as wrote:
+        _set_solution(problem, x, prox_problem)
+        objective = float(problem_objective(prox_problem, x))
     status = SolverStatus()
     status.state = SolverState.OPTIMAL
     status.num_iterations = 0
-    status.timing.solve_usec = int((time.time() - t0) * 1e6)
-    status.timing.total_usec = status.timing.solve_usec
+    status.timing = Timing(compile_usec=compile_usec, init_usec=setup.usec,
+                           solve_usec=applied.usec, writeback_usec=wrote.usec)
+    status.timing.add_up()
     problem.solver_status = status
     problem.status = "optimal"
-    return float(problem_objective(prox_problem, x))
+    return objective
 
 
 def eval_prox(f, v_map: Dict[api.Variable, np.ndarray], lam: float = 1.0,

@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils.timing import count
 from ..kernels import tv1d_pdas
 
 __all__ = ["prox_tv1d", "prox_tv1d_certified", "prox_tv1d_multiscale",
@@ -349,14 +350,21 @@ def prox_tv1d_pdas(v, lam, tol=None, max_iters: int = 40, z0=None,
     :func:`prox_tv1d_pdas_reference`, and ``iters`` an ``int``; on a CUDA
     tensor one launch of the ``tv1d_pdas`` kernel runs every round with its
     stop test on the device, and ``iters`` is a 0-d int32 tensor there
-    (reading it is the caller's sync); any other device raises."""
+    (reading it is the caller's sync); any other device raises.  While a
+    profiler records, each call, of either version, counts ``tv1d.calls``
+    and adds its rounds to ``tv1d.rounds``
+    (:func:`epsilon_tpu_torch.utils.timing.count`, no sync)."""
     if v.device.type == "cpu" or v.shape[-1] <= 1:
-        return prox_tv1d_pdas_reference(v, lam, tol=tol, max_iters=max_iters, z0=z0,
-                                        return_dual=return_dual)
-    if tol is None:
-        tol = pdas_default_tol(v.dtype)
-    x, z, gap, it = tv1d_pdas.pdas(v, lam, tol, max_iters=max_iters, z0=z0)
-    return (x, gap, it, z) if return_dual else (x, gap, it)
+        out = prox_tv1d_pdas_reference(v, lam, tol=tol, max_iters=max_iters, z0=z0,
+                                       return_dual=return_dual)
+    else:
+        if tol is None:
+            tol = pdas_default_tol(v.dtype)
+        x, z, gap, it = tv1d_pdas.pdas(v, lam, tol, max_iters=max_iters, z0=z0)
+        out = (x, gap, it, z) if return_dual else (x, gap, it)
+    count("tv1d.calls")
+    count("tv1d.rounds", out[2])
+    return out
 
 
 def prox_tv1d_pdas_reference(v, lam, tol=None, max_iters: int = 40, z0=None,

@@ -162,24 +162,25 @@ def benchmark_epsilon(instance: ProblemInstance, rel_tol: float = 1e-3,
                       max_iterations: int = 50000, profile_iters: int = 0,
                       check: Optional[Callable] = None, **params) -> Dict:
     """One row: build, compile + write-back, solver set-up and solve timed
-    apart.  ``check(prob)`` (if given) runs on the solution before the
-    optional profiled re-solve and its dict joins the row."""
-    t0 = time.time()
+    apart (the program's own ``SolverStatus.timing``).  ``check(prob)`` (if
+    given) runs on the solution before the optional profiled re-solve and
+    its dict joins the row."""
+    t0 = time.perf_counter()
     prob = instance.create_problem()
-    t_build = time.time() - t0
+    t_build = time.perf_counter() - t0
     _sync()
-    t0 = time.time()
+    t0 = time.perf_counter()
     obj = prob.solve(rel_tol=rel_tol, max_iterations=max_iterations,
                      warm_start=profile_iters > 0, **params)
     _sync()
-    t_total = time.time() - t0
+    t_total = time.perf_counter() - t0
     st = prob.solver_status
     setup_s = st.timing.init_usec / 1e6
     solve_s = st.timing.solve_usec / 1e6
     iters = int(st.num_iterations)
     row = dict(
         name=instance.name, build_s=t_build,
-        compile_s=max(0.0, t_total - setup_s - solve_s),
+        compile_s=(st.timing.compile_usec + st.timing.writeback_usec) / 1e6,
         setup_s=setup_s, solve_s=solve_s, time=t_total, iterations=iters,
         ms_per_iter=(1e3 * solve_s / iters) if iters else None,
         objective=float(obj), sign=float(prob._sign), status=prob.status)

@@ -35,8 +35,8 @@ alone.
 
 from __future__ import annotations
 
+import functools
 import logging
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -49,10 +49,11 @@ from ..ir import (AffineOperator, Cone, ProxFunctionSpec, ProxKind,
 from ..ops import linop
 from ..ops.block import BlockMatrix, BlockVector
 from ..ops.prox.operator import create_prox_operator, create_rho_prox_operator
+from ..utils.timing import PROX_SPANS, span
 from . import scenario
 from .objective import problem_objective, term_objective
 from .params import SolverKind, SolverParams
-from .status import Residuals, SolverState, SolverStatus
+from .status import Residuals, SolverState, SolverStatus, Timing
 
 logger = logging.getLogger("epsilon_tpu_torch")
 
@@ -77,6 +78,17 @@ def _rekey_constraint(i: int, affop: AffineOperator):
 
 def _term_vars(term) -> List[str]:
     return sorted({c for (_, c) in term.H.A.blocks})
+
+
+def _setup_span(init):
+    """A solver's ``__init__`` under the ``epsilon.solver_setup`` span; its
+    host time adds to ``_setup_ns`` for the next solve to report it."""
+    @functools.wraps(init)
+    def timed(self, problem, params):
+        with span("epsilon.solver_setup") as setup:
+            init(self, problem, params)
+        self._setup_ns += setup.ns
+    return timed
 
 
 # -- has the data of an operator changed? (update_problem) -------------------
@@ -121,6 +133,9 @@ def _same_constraints(p: ProxProblem, q: ProxProblem) -> bool:
 
 class SolverBase:
     """Status plumbing, hooks and the epoch loop shared by both solvers."""
+
+    # set-up and update_problem time that no solve has reported yet
+    _setup_ns = _update_ns = 0
 
     def __init__(self, problem: ProxProblem, params: SolverParams):
         self.problem = problem
@@ -199,9 +214,11 @@ class SolverBase:
         constants would be refreshed: the operators that hold changed data
         are rebuilt, on the objective side and on the constraint side, and
         the warm state is kept."""
-        old = self.problem
-        self.problem = problem
-        self._rebuild_operators(problem, old)
+        with span("epsilon.update_problem") as update:
+            old = self.problem
+            self.problem = problem
+            self._rebuild_operators(problem, old)
+        self._update_ns += update.ns
 
     # -- the epoch loop ------------------------------------------------------
     def _run(self, state):
@@ -221,7 +238,8 @@ class SolverBase:
         while True:
             state, out, res = self._epoch(state)
             iters += epoch_iters
-            r = Residuals(*res.tolist())   # the epoch's one host sync
+            with span("epsilon.residuals"):
+                r = Residuals(*res.tolist())   # the epoch's one host sync
             series.append(r)
             conv = r.r_norm <= r.epsilon_primal and r.s_norm <= r.epsilon_dual
             if host and self._checkpointer is not None:
@@ -238,14 +256,17 @@ class SolverBase:
         self.status.series = series
         return state, out, iters, r, conv
 
-    def _finish(self, state, iters, res, converged, t_init, t_solve):
+    def _finish(self, state, iters, res, converged, loop_ns, writeback_ns):
         self.status.num_iterations = int(iters)
         self.status.residuals = res
         self.status.state = (SolverState.OPTIMAL if bool(converged)
                              else SolverState.MAX_ITERATIONS_REACHED)
-        self.status.timing.init_usec = int(t_init * 1e6)
-        self.status.timing.solve_usec = int(t_solve * 1e6)
-        self.status.timing.total_usec = int((t_init + t_solve) * 1e6)
+        self.status.timing = Timing(init_usec=self._setup_ns // 1000,
+                                    update_usec=self._update_ns // 1000,
+                                    solve_usec=loop_ns // 1000,
+                                    writeback_usec=writeback_ns // 1000)
+        self.status.timing.add_up()
+        self._setup_ns = self._update_ns = 0
         if self.params.warm_start:
             self._warm_state = state
         if self.params.verbose:
@@ -321,9 +342,9 @@ class ProxADMMTwoBlockSolver(SolverBase):
     rank restores its own part, so a solve resumes on another number of
     ranks whenever the groups are the same."""
 
+    @_setup_span
     def __init__(self, problem: ProxProblem, params: SolverParams):
         super().__init__(problem, params)
-        t0 = time.time()
         self.adaptive = params.adaptive_rho
         self._init_rho = params.rho
         # in adaptive mode the metric is the identity (the projection does
@@ -416,8 +437,6 @@ class ProxADMMTwoBlockSolver(SolverBase):
             # rank packs and checkpoints the same structure
             threads = any(self._all_gather_object(threads))
         self._kstate0 = tuple(ks) if threads else None
-
-        self._t_init = time.time() - t0
 
     # -- the process group ------------------------------------------------------
     def _all_reduce(self, t, op=None):
@@ -696,13 +715,14 @@ class ProxADMMTwoBlockSolver(SolverBase):
         for i in terms:
             op = self.term_ops[i]
             k_i = ks[i] if ks is not None else None
-            if k_i is not None:
-                # warm-startable kernel: thread its state (TV PDAS dual)
-                xi, ks_out[i] = op.apply_stateful(v, k_i, rho=rho)
-            elif self.adaptive:
-                xi = op.apply_rho(v, rho)
-            else:
-                xi = op.apply(v)
+            with span(PROX_SPANS[self.problem.terms[i].spec.kind]):
+                if k_i is not None:
+                    # warm-startable kernel: thread its state (TV PDAS dual)
+                    xi, ks_out[i] = op.apply_stateful(v, k_i, rho=rho)
+                elif self.adaptive:
+                    xi = op.apply_rho(v, rho)
+                else:
+                    xi = op.apply(v)
             x = x + xi
         return x, (tuple(ks_out) if ks is not None else None)
 
@@ -751,19 +771,21 @@ class ProxADMMTwoBlockSolver(SolverBase):
 
     def _iter_body(self, state):
         z, u, rho, ks = self._unpack_state(state)
-        zu = z - u
-        v = zu if self.adaptive else self._scaled(zu)
-        sums = None
-        if self.mesh is None:
-            x, new_ks = self._apply_terms(range(len(self.term_ops)), v, rho,
-                                          ks, self.all_dims)
-        else:
-            x, new_ks, sums = self._sharded_x_update(z, u, v, rho, ks)
-        alpha = self.params.over_relaxation
-        x_hat = x if alpha == 1.0 else alpha * x + (1.0 - alpha) * z
-        xu = x_hat + u
-        z_new = self._z_update(xu, sums)
-        u_new = u + x_hat - z_new
+        with span("epsilon.x_update"):
+            zu = z - u
+            v = zu if self.adaptive else self._scaled(zu)
+            sums = None
+            if self.mesh is None:
+                x, new_ks = self._apply_terms(range(len(self.term_ops)), v, rho,
+                                              ks, self.all_dims)
+            else:
+                x, new_ks, sums = self._sharded_x_update(z, u, v, rho, ks)
+        with span("epsilon.z_update"):
+            alpha = self.params.over_relaxation
+            x_hat = x if alpha == 1.0 else alpha * x + (1.0 - alpha) * z
+            xu = x_hat + u
+            z_new = self._z_update(xu, sums)
+            u_new = u + x_hat - z_new
         return self._pack_state(z_new, u_new, rho, new_ks), x
 
     def _z_update(self, xu, sums=None):
@@ -911,7 +933,6 @@ class ProxADMMTwoBlockSolver(SolverBase):
         return out
 
     def solve(self) -> BlockVector:
-        t0 = time.time()
         # iteratively certified inner kernels (TV-1D) certify one decade
         # tighter than the outer rel_tol, as in the JAX package
         config.set_prox_inner_tol(config.prox_inner_tol_for(self.params.rel_tol))
@@ -922,9 +943,12 @@ class ProxADMMTwoBlockSolver(SolverBase):
             # layout, the prox parameterization and the sqrt(rho) metric
             # differ
             self._rebuild_full()
-        state, x, iters, r, conv = self._run(self._init_state())
-        self._finish(state, iters, r, conv, self._t_init, time.time() - t0)
-        return self._unstack_x(x)
+        with span("epsilon.admm_loop") as loop:
+            state, x, iters, r, conv = self._run(self._init_state())
+        with span("epsilon.write_back") as wrote:
+            x = self._unstack_x(x)
+        self._finish(state, iters, r, conv, loop.ns, wrote.ns)
+        return x
 
 
 class ProxADMMSolver(SolverBase):
@@ -934,18 +958,17 @@ class ProxADMMSolver(SolverBase):
     sqrt(rho)-scaled constraint system (A, b) <- (sqrt(rho) A, sqrt(rho) b),
     with residuals converted back to unscaled units."""
 
+    @_setup_span
     def __init__(self, problem: ProxProblem, params: SolverParams):
         super().__init__(problem, params)
         if params.adaptive_rho:
             raise ValueError("adaptive_rho is only supported by the "
                              "two-block solver (PROX_ADMM_TWO_BLOCK)")
         self._reject_mesh(params)
-        t0 = time.time()
         self.sqrt_rho = float(np.sqrt(params.rho))
         self._init_rho = params.rho
         self._build_constraints(problem)
         self._build_term_ops(problem)
-        self._t_init = time.time() - t0
 
     @staticmethod
     def _reject_mesh(params: SolverParams):
@@ -1016,7 +1039,8 @@ class ProxADMMSolver(SolverBase):
         new_ys = []
         for i, op in enumerate(self.term_ops):
             u = u + ys[i]
-            x = op.apply(u)
+            with span(PROX_SPANS[self.problem.terms[i].spec.kind]):
+                x = op.apply(u)
             y = self._pad(self.A.apply(x))
             u = u - y
             xs.append(x)
@@ -1081,7 +1105,6 @@ class ProxADMMSolver(SolverBase):
         return (s * u, tuple((1.0 / s) * y for y in ys))
 
     def solve(self) -> BlockVector:
-        t0 = time.time()
         config.set_prox_inner_tol(config.prox_inner_tol_for(self.params.rel_tol))
         # new params on a kept solver: a group is refused as at construction
         self._reject_mesh(self.params)
@@ -1089,12 +1112,14 @@ class ProxADMMSolver(SolverBase):
             # rho is baked into the scaled constraint system and the cached
             # KKT factorizations
             self._rebuild_full()
-        state, xs, iters, r, conv = self._run(self._init_state())
-        self._finish(state, iters, r, conv, self._t_init, time.time() - t0)
-        # solution = sum_i x_i
-        out = BlockVector()
-        for x in xs:
-            out = out + x
+        with span("epsilon.admm_loop") as loop:
+            state, xs, iters, r, conv = self._run(self._init_state())
+        with span("epsilon.write_back") as wrote:
+            # solution = sum_i x_i
+            out = BlockVector()
+            for x in xs:
+                out = out + x
+        self._finish(state, iters, r, conv, loop.ns, wrote.ns)
         return out
 
 

@@ -28,10 +28,22 @@ class Residuals:
 
 @dataclasses.dataclass
 class Timing:
+    """Host time of one solve by part, from the spans of the same names
+    (``utils/timing.py``): ``init_usec`` the solver set-up this solve ran
+    (0 on a cached re-solve that built nothing), ``solve_usec`` the ADMM
+    loop, ``compile_usec``, ``update_usec`` (``update_problem``) and
+    ``writeback_usec``; ``total_usec`` their sum."""
     # solver.proto:24-32 (populated here, unlike the reference)
     init_usec: int = 0
     solve_usec: int = 0
     total_usec: int = 0
+    compile_usec: int = 0
+    update_usec: int = 0
+    writeback_usec: int = 0
+
+    def add_up(self):
+        self.total_usec = (self.compile_usec + self.update_usec + self.init_usec
+                           + self.solve_usec + self.writeback_usec)
 
 
 @dataclasses.dataclass

@@ -39,8 +39,7 @@ from epsilon_tpu_torch.frontend import tree_format as ttree  # noqa: E402
 from epsilon_tpu_torch.ops.block import BlockVector  # noqa: E402
 from epsilon_tpu_torch.solvers import SolverParams as TParams  # noqa: E402
 from epsilon_tpu_torch.solvers import create_solver as tcreate  # noqa: E402
-from epsilon_tpu_torch.utils import (SolverCheckpointer, cpu_time,  # noqa: E402
-                                     profile_trace, wall_time_usec)
+from epsilon_tpu_torch.utils import SolverCheckpointer, profile_trace  # noqa: E402
 from epsilon_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
 from epsilon_tpu_torch.utils import serialization as tser  # noqa: E402
 
@@ -310,7 +309,6 @@ def test_benchmark_graphs(tmp_path):
 
 
 def test_timing_helpers_and_profile_trace(tmp_path):
-    assert wall_time_usec() > 0 and cpu_time() >= 0.0
     _, tprob = cases.pair("lasso")
     with profile_trace(str(tmp_path / "trace")) as prof:
         tcreate(tprob, TParams(max_iterations=10)).solve()
@@ -318,6 +316,8 @@ def test_timing_helpers_and_profile_trace(tmp_path):
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    # the port's own spans are in the trace too
+    assert any(e.get("name") == "epsilon.admm_loop" for e in events)
     assert len(prof.key_averages()) > 0
 
 

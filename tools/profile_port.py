@@ -398,9 +398,11 @@ def profile_library(rows, iters=10):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         st = prob.solver_status
+        t = st.timing
         print(f"[library] {inst.name}: cold solve of {st.num_iterations} iterations: wall "
-              f"{wall_s:.3f} s = solver set-up {st.timing.init_usec / 1e6:.3f} s + solve "
-              f"{st.timing.solve_usec / 1e6:.3f} s + compile and write-back")
+              f"{wall_s:.3f} s; compile {t.compile_usec / 1e6:.3f} s, rebuild "
+              f"{t.update_usec / 1e6:.3f} s, solver set-up {t.init_usec / 1e6:.3f} s, solve "
+              f"{t.solve_usec / 1e6:.3f} s, write-back {t.writeback_usec / 1e6:.3f} s")
         kw = dict(rel_tol=0.0, abs_tol=0.0, warm_start=True, max_iterations=iters)
         profile_steady(f"[library] {inst.name}", lambda: prob.solve(**kw), iters)
         del prob
