@@ -43,26 +43,46 @@
 //     copies, cp.async.bulk on an mbarrier).  The levels run in place,
 //     each over the rows still needed after it (the valid window shrinks
 //     by 2^k on each side at level k): each thread computes its rows into
-//     registers,
-//     a block barrier, then writes them (past HELD_PASSES passes of THREADS
-//     rows it writes each pass two passes later, once no pass still to
-//     come reads the values it replaces: a level reads up to 2^k <= 2
-//     THREADS rows back, so K <= 11).  Level K's system for the tile
-//     goes to device memory: one grid sync replaces K.  When steps <= K,
-//     every block solves the whole row in shared memory;
-//   - levels K..steps-2 run in device memory, a sync each;
-//   - the last level merges with the trial pass: a thread computes the
+//     registers, a block barrier, then writes them (past HELD_PASSES
+//     passes of THREADS rows it writes each pass LAG passes later, once no
+//     pass still to come reads the values it replaces: a tile level reads
+//     up to 2^k <= 2 THREADS rows back, so LAG = 2 and K <= 11).  Level K's
+//     system for the tile goes to device memory: one grid sync replaces K.
+//     When steps <= K, every block solves the whole row in shared memory;
+//   - the residue stage, where the plan takes it: from level K on, level k
+//     at row i reads rows i -+ 2^k only, of i's residue mod P = 2^K, so the
+//     system is P independent interleaved ones, class r holding rows r, r +
+//     P, r + 2P, ... (count_r of them).  Their levels K..steps-1 are PCR on
+//     each class at stride 2^(k-K) in its index j = (i - r) / P, with the
+//     same end tests (i >= 2^k iff j >= 2^(k-K); i + 2^k < m iff j +
+//     2^(k-K) < count_r), so the same operands in the same order.  The
+//     tile stage writes level K's system class by class through its
+//     window (row i at (i mod P) m_r + i / P, m_r = ceil(m / P): a warp
+//     stores runs of a class's rows); a block loads `group` classes into
+//     its window at a time (groups every gridDim.x-th), runs levels
+//     K..steps-2 in place with level_at's tests of the class's ends (LAG 2,
+//     or 4 past a stride of 2 THREADS: a level short of the last has a
+//     stride under m_r / 2, and m_r rows fit), and the last as the solve
+//     d / b straight to zn in row order.  One grid sync and one pass
+//     replace the steps - K - 1 levels in device memory;
+//   - otherwise levels K..steps-2 run in device memory, a sync each, and
+//     the last level merges with the trial pass: a thread computes the
 //     solve at i - 1, i and i + 1 itself;
 //   - the next round's start (g, the active set, the system, the "changed"
 //     flag) merges with the step pass, which already holds the stepped z
-//     at i - 1, i and i + 1; round 0's with the opening pass.
-// steps - K + 2 syncs a round (2 when steps <= K) against the levels
-// build's steps + 3, and 2 more a call.  T and K come from the wrapper
-// (ops/kernels/tv1d_pdas.py tile_plan, from m, the grid and the dtype).
+//     at i - 1, i and i + 1; round 0's with the opening pass.  The active
+//     set alternates between two arrays by round parity: a row stored
+//     where the same pass loaded it stalls the pass (five-fold at n =
+//     10^6, where the arrays outgrow L2).
+// 4 syncs a round with the residue stage, steps - K + 2 without (2 when
+// steps <= K), against the levels build's steps + 3, and 2 more a call.
 // The tile stage is bound by its instruction rate (two IEEE divisions a
-// row and level, the halo's rows again), so K is where a level in shared
-// memory stops costing less than one in device memory: 8 in f32, 7 in
-// f64.  The grid is the levels build's, which the tile build keeps
+// row and level, the halo's rows again), so K is, without the residue
+// stage, where a level in shared memory stops costing less than one in
+// device memory: 8 in f32, 7 in f64; with it, the least K from 7 whose
+// classes fit (tile_plan).  T, K and the groups come from the
+// wrapper (ops/kernels/tv1d_pdas.py tile_plan, from m, the grid and the
+// dtype).  The grid is the levels build's, which the tile build keeps
 // resident (Resident: two blocks an SM in f32, at most 64 registers; one
 // in f64, at most 128; SMEM_BUDGET a block).
 //
@@ -82,9 +102,11 @@
 // E Q E, the gap, dv.dv, ||v||^2) round in another order than torch's.
 //
 // Bound: a round reads and writes each of about 15 arrays of m a few times
-// (L2-resident at n = 100,000: 6 MB in f32), so it is bound by its chain of
-// grid syncs and passes, not by bytes or operations; chip_smoke.py's phase
-// 7a times an empty cooperative kernel with the same syncs at the same grid
+// (L2-resident at n = 100,000: 6 MB in f32; not at 10^6, 60 MB), so it is
+// bound by its chain of grid syncs and passes and, at 10^6, by its stages
+// in shared memory (the tile and the residue stage hold over four fifths of
+// a round there), not by bytes or operations; chip_smoke.py's phase 7a times
+// an empty cooperative kernel with the same syncs at the same grid
 // (launch_floor.cu).  Both builds count the grid syncs they run (in a
 // register) and block 0 adds the count to a counter on the device
 // (Pdas::syncs), so that a call's syncs are measured, not inferred from its
@@ -92,10 +114,11 @@
 // boundaries of a round (MARK; tools/k7_phases.py); the port's build has
 // no marks.
 //
-// Scratch (12 arrays of mp = m rounded up to 32 elements, so that every
-// array starts on 128 bytes and a warp's 32 rows take whole cache lines;
-// the partials, act, the flags) is allocated by the wrapper.  Plain C
-// interface for ctypes; each launch entry returns its CUDA error code.
+// Scratch (12 arrays of mp = m, with the residue stage m rounded up to
+// 2^K, rounded up to 32 elements, so that every array starts on 128 bytes
+// and a warp's 32 rows take whole cache lines; the partials, act, the
+// flags) is allocated by the wrapper.  Plain C interface for ctypes; each
+// launch entry returns its CUDA error code.
 
 #include <cooperative_groups.h>
 
@@ -109,7 +132,7 @@ namespace cg = cooperative_groups;
 // tools/k7_phases.py: thread 0 of block 0 reads clock64() at the phase
 // boundaries of the first MARK_ROUNDS rounds, MARKS a round, into
 // phase_marks (set by tv1d_pdas_set_marks; none while it is null).
-constexpr int MARK_ROUNDS = 64, MARKS = 10;
+constexpr int MARK_ROUNDS = 64, MARKS = 11;
 __device__ long long* phase_marks = nullptr;
 #define MARK(q)                                                                             \
   do {                                                                                      \
@@ -163,7 +186,7 @@ template <typename T> struct Pdas {
   const T* lam_p;   // lam on the device, or nullptr (lam_value)
   T lam_value, tol;
   int n, max_iters, steps;
-  int levels, tile, whole;  // the tile build's plan (tile_plan)
+  int levels, tile, whole, group;  // the tile build's plan (tile_plan)
   T* x;
   T* z_out;
   T* gap_out;
@@ -172,7 +195,8 @@ template <typename T> struct Pdas {
   T* zn;            // the PCR solve
   T* g;             // D D^T z - dv
   Sys<T> sys[2];    // PCR's ping-pong; sys[0] holds a round's level-0 system
-  signed char* act; // the active set
+  signed char* act; // the active set (the tile build's: two arrays of m, by
+                    // round parity)
   T* part;          // per-block partial sums
   int* flags;       // per-block "the active set changed", by round parity
   unsigned long long* syncs;  // the grid syncs run, added to by block 0
@@ -341,11 +365,27 @@ __device__ __forceinline__ void pcr(const Sys<T>& src0, const Sys<T>& s0, const 
 // ---------------------------------------------------------------------------
 // The tile stage (shared memory)
 
+// Rows a class of the residue stage holds at most: ceil(m / 2^levels).
+__host__ __device__ __forceinline__ int class_rows(int m, int levels) {
+  return (m + (1 << levels) - 1) >> levels;
+}
+
 // The tile build's window in rows (tile_plan's window): the tile and its
-// halos, or the whole row and 2^(steps-1) rows past each end.
+// halos, or the residue stage's group of classes (group > 0) where that is
+// more, or the whole row and 2^(steps-1) rows past each end.
 __host__ __device__ __forceinline__ int window_slots(int m, int steps, int levels, int tile,
-                                                     int whole) {
-  return whole ? m + (1 << steps) : tile + 2 * ((1 << levels) - 1);
+                                                     int whole, int group) {
+  if (whole) return m + (1 << steps);
+  const int tiles = tile + 2 * ((1 << levels) - 1);
+  const int classes = group * class_rows(m, levels);
+  return tiles > classes ? tiles : classes;
+}
+
+// The length of each scratch array of the tile build: m rows, or with the
+// residue stage 2^levels classes of class_rows, rounded up to 32.
+inline long long scratch_rows(int m, int levels, int group) {
+  const long long rows = group > 0 ? (long long)class_rows(m, levels) << levels : m;
+  return (rows + 31) / 32 * 32;
 }
 
 // A block's window of the system in shared memory: a, b, c, d of `slots`
@@ -386,15 +426,79 @@ __device__ void load_window(const Sys<T>& src, bool c_is_a, Window<T>& win, int 
   __syncthreads();
 }
 
+// One level over rows [lo, hi) of a window, in place: a thread computes
+// rows lo + tid + r THREADS of pass r into registers (row(i, a, b, c, d),
+// false where i holds no row) and put(i, a, b, c, d) writes them.  Up to
+// HELD_PASSES passes it holds them all, and writes them after a block
+// barrier; beyond, it writes pass r at pass r + LAG, after a barrier, when
+// no pass still to come reads the values they replace (a row reads at most
+// LAG THREADS rows back).
+template <int LAG, typename T, typename Row, typename Put>
+__device__ __forceinline__ void in_place(int lo, int hi, Row row, Put put) {
+  const int passes = (hi - lo + THREADS - 1) / THREADS;
+  if (passes <= HELD_PASSES) {
+    // every pass computed at once (independent, so their latencies
+    // overlap), one barrier, every pass written
+    T a[HELD_PASSES], b[HELD_PASSES], c[HELD_PASSES], d[HELD_PASSES];
+    bool ok[HELD_PASSES];
+#pragma unroll
+    for (int r = 0; r < HELD_PASSES; ++r) {
+      const int i = lo + r * THREADS + threadIdx.x;
+      ok[r] = i < hi && row(i, a[r], b[r], c[r], d[r]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < HELD_PASSES; ++r)
+      if (ok[r]) put(lo + r * THREADS + threadIdx.x, a[r], b[r], c[r], d[r]);
+    __syncthreads();
+    return;
+  }
+  // slot q holds the pass computed q + 1 passes back
+  T a[LAG], b[LAG], c[LAG], d[LAG];
+  bool ok[LAG];
+#pragma unroll
+  for (int q = 0; q < LAG; ++q) {
+    a[q] = b[q] = c[q] = d[q] = T(0);
+    ok[q] = false;
+  }
+  for (int r = 0; r < passes + LAG; ++r) {
+    const int i = lo + r * THREADS + threadIdx.x;
+    T a0 = T(0), b0 = T(0), c0 = T(0), d0 = T(0);
+    const bool ok0 = r < passes && i < hi && row(i, a0, b0, c0, d0);
+    __syncthreads();
+    if (ok[LAG - 1]) put(i - LAG * THREADS, a[LAG - 1], b[LAG - 1], c[LAG - 1], d[LAG - 1]);
+#pragma unroll
+    for (int q = LAG - 1; q > 0; --q) {
+      a[q] = a[q - 1]; b[q] = b[q - 1]; c[q] = c[q - 1]; d[q] = d[q - 1];
+      ok[q] = ok[q - 1];
+    }
+    a[0] = a0; b[0] = b0; c[0] = c0; d[0] = d0;
+    ok[0] = ok0;
+  }
+  __syncthreads();
+}
+
+// A level's row into slot x of a window, or its solve d / b into the
+// window's a.
+template <typename T>
+__device__ __forceinline__ void put_row(const Sys<T>& w, bool solve, int x, T a, T b, T c, T d) {
+  if (solve) {
+    w.a[x] = d / b;
+  } else {
+    w.a[x] = a;
+    w.b[x] = b;
+    w.c[x] = c;
+    w.d[x] = d;
+  }
+}
+
 // Where a tile level's results go: back into the window, the solve d / b
 // into the window's a, or the level's system into device memory.
 enum Out { TO_WINDOW, SOLVE_TO_WINDOW, TO_DEVICE };
 
-// Level k over rows [lo, hi) of the window, in place: a thread computes
-// the rows lo + tid + r THREADS of pass r.  Up to HELD_PASSES passes it
-// holds them all, and writes them after a block barrier; beyond, it writes
-// pass r at pass r + 2, after a barrier, when no pass still to come reads
-// the values they replace (a row reads 2^k <= 2 THREADS rows back).
+// Level k over rows [lo, hi) of the window, in place (in_place with LAG 2:
+// a row reads 2^k <= 2 THREADS rows back), or TO_DEVICE: level k + 1's
+// system to dst, row i at i.
 template <Out OUT, typename T>
 __device__ void tile_level(const Window<T>& win, bool c_is_a, int lo, int hi, int k,
                            const Sys<T>& dst) {
@@ -405,48 +509,43 @@ __device__ void tile_level(const Window<T>& win, bool c_is_a, int lo, int hi, in
       level_in(src, i - win.first, s, dst.a[i], dst.b[i], dst.c[i], dst.d[i]);
     return;
   }
-  const int passes = (hi - lo + THREADS - 1) / THREADS;
-  auto put = [&](int i, T a, T b, T c, T d) {
-    const int x = i - win.first;
-    if (OUT == SOLVE_TO_WINDOW) {
-      win.w.a[x] = d / b;
-    } else {
-      win.w.a[x] = a;
-      win.w.b[x] = b;
-      win.w.c[x] = c;
-      win.w.d[x] = d;
+  in_place<2, T>(
+      lo, hi,
+      [&](int i, T& a, T& b, T& c, T& d) {
+        level_in(src, i - win.first, s, a, b, c, d);
+        return true;
+      },
+      [&](int i, T a, T b, T c, T d) {
+        put_row(win.w, OUT == SOLVE_TO_WINDOW, i - win.first, a, b, c, d);
+      });
+}
+
+// Level `levels`' rows [t0, t1) from the window to dst, class by class of
+// the rows mod P = 2^levels: row i at (i mod P) m_r + i / P.  t = (c P + r)
+// W + u copies row j0 + c W + u of class r, j0 its first in the tile, W = 8
+// (or fewer where a class has fewer rows in the tile), so that a warp
+// stores 32 / W runs of W rows and reads each run's rows, P slots apart,
+// from one bank: W-way conflicts in place of 32 partial sectors a store.
+template <typename T>
+__device__ void classes_out(const Window<T>& win, const Sys<T>& dst, int t0, int t1, int levels,
+                            int m_r) {
+  const int P = 1 << levels;
+  const int most = (t1 - t0 + P - 1) >> levels;  // rows of a class in the tile, at most
+  const int lw = most >= 8 ? 3 : most >= 4 ? 2 : most >= 2 ? 1 : 0, W = 1 << lw;
+  const int total = ((most + W - 1) >> lw) << (lw + levels);
+  for (int t = threadIdx.x; t < total; t += THREADS) {
+    const int u = t & (W - 1), r = (t >> lw) & (P - 1), c = t >> (lw + levels);
+    const int j = ((t0 - r + P - 1) >> levels) + c * W + u;
+    const int i = r + (j << levels);
+    if (i < t1) {
+      const int x = i - win.first;
+      const long long y = (long long)r * m_r + j;
+      dst.a[y] = win.w.a[x];
+      dst.b[y] = win.w.b[x];
+      dst.c[y] = win.w.c[x];
+      dst.d[y] = win.w.d[x];
     }
-  };
-  if (passes <= HELD_PASSES) {
-    // every pass computed at once (independent, so their latencies
-    // overlap), one barrier, every pass written
-    T a[HELD_PASSES], b[HELD_PASSES], c[HELD_PASSES], d[HELD_PASSES];
-#pragma unroll
-    for (int r = 0; r < HELD_PASSES; ++r) {
-      const int i = lo + r * THREADS + threadIdx.x;
-      if (i < hi) level_in(src, i - win.first, s, a[r], b[r], c[r], d[r]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < HELD_PASSES; ++r) {
-      const int i = lo + r * THREADS + threadIdx.x;
-      if (i < hi) put(i, a[r], b[r], c[r], d[r]);
-    }
-    __syncthreads();
-    return;
   }
-  T a1 = T(0), b1 = T(0), c1 = T(0), d1 = T(0), a2 = T(0), b2 = T(0), c2 = T(0), d2 = T(0);
-  for (int r = 0; r < passes + 2; ++r) {
-    const int i = lo + r * THREADS + threadIdx.x;
-    T a0 = T(0), b0 = T(0), c0 = T(0), d0 = T(0);
-    if (r < passes && i < hi) level_in(src, i - win.first, s, a0, b0, c0, d0);
-    __syncthreads();
-    const int i2 = i - 2 * THREADS;
-    if (r >= 2 && i2 < hi) put(i2, a2, b2, c2, d2);
-    a2 = a1; b2 = b1; c2 = c1; d2 = d1;
-    a1 = a0; b1 = b0; c1 = c0; d1 = d0;
-  }
-  __syncthreads();
 }
 
 // PCR levels 0..levels-1 of src (level 0; c = a when c_is_a) in shared
@@ -454,10 +553,11 @@ __device__ void tile_level(const Window<T>& win, bool c_is_a, int lo, int hi, in
 // window reaches 2^(steps-1) rows past each end), the solve left in the
 // window's a.  Otherwise tiles of `tile` rows, this block's every
 // gridDim.x-th, each with a halo of 2^levels - 1 rows; level `levels`'
-// system is written to dst for the tile's rows.
+// system is written to dst for the tile's rows, in row order or, for the
+// residue stage (group > 0), class by class (classes_out).
 template <typename T>
 __device__ void tile_stage(const Sys<T>& src, bool c_is_a, const Sys<T>& dst, Window<T>& win,
-                           int m, int levels, int tile, bool whole) {
+                           int m, int levels, int tile, bool whole, int group) {
   if (whole) {
     const int reach = 1 << (levels - 1);
     load_window(src, c_is_a, win, -reach, m + reach, m);
@@ -476,10 +576,73 @@ __device__ void tile_stage(const Sys<T>& src, bool c_is_a, const Sys<T>& dst, Wi
       // rows still needed after level k: 2^(k+1) - 1 of the halo are spent
       const int keep = halo - ((2 << k) - 1);
       const int lo = max(t0 - keep, 0), hi = min(t1 + keep, m);
-      if (k == levels - 1)
+      if (k == levels - 1 && group == 0)
         tile_level<TO_DEVICE>(win, c_is_a && k == 0, lo, hi, k, dst);
       else
         tile_level<TO_WINDOW>(win, c_is_a && k == 0, lo, hi, k, dst);
+    }
+    if (group > 0) classes_out(win, dst, t0, t1, levels, class_rows(m, levels));
+  }
+}
+
+// The residue stage: PCR levels `levels`..steps-1 of the system of m rows
+// whose level `levels` src holds class by class (row i at (i mod P) m_r +
+// i / P, P = 2^levels, m_r = class_rows), the solve d / b to out in row
+// order.  A block takes groups of `group` classes, every gridDim.x-th, into
+// its window: row j of class r0 + q at slot q m_r + j.  Every level tests
+// the class's ends (level_at), so that it reads no other class's row and no
+// slot past a short class's last.
+template <typename T>
+__device__ void residue_stage(const Sys<T>& src, T* out, const Window<T>& win, int m, int steps,
+                              int levels, int group) {
+  const int P = 1 << levels, m_r = class_rows(m, levels);
+  // x / m_r as __umulhi(x, magic), magic = ceil(2^32 / m_r): exact while
+  // x (magic m_r - 2^32) < 2^32, as x and m_r are under 2^14 (SMEM_BUDGET)
+  const unsigned magic = 0xffffffffu / (unsigned)m_r + 1u;
+  const int groups = (P + group - 1) / group;
+  const Sys<T> w = win.w;
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int r0 = g * group, hi = min(group, P - r0) * m_r;
+    const long long at = (long long)r0 * m_r;
+    // slot x: its class r0 + q, its row j there, and whether the class has
+    // that row
+    auto place = [&](int x, int& q, int& j) {
+      q = (int)__umulhi((unsigned)x, magic);
+      j = x - q * m_r;
+      return j < ((m - 1 - (r0 + q)) >> levels) + 1;
+    };
+    __syncthreads();
+    for (int x = threadIdx.x; x < hi; x += THREADS) {
+      int q, j;
+      if (place(x, q, j)) {
+        const long long y = at + (long long)q * m_r + j;
+        w.a[x] = src.a[y];
+        w.b[x] = src.b[y];
+        w.c[x] = src.c[y];
+        w.d[x] = src.d[y];
+      }
+    }
+    __syncthreads();
+    for (int k = levels; k < steps - 1; ++k) {
+      const int s = 1 << (k - levels);
+      auto row = [&](int x, T& a, T& b, T& c, T& d) {
+        int q, j;
+        if (!place(x, q, j)) return false;
+        level_at(w, x, j, s, ((m - 1 - (r0 + q)) >> levels) + 1, a, b, c, d);
+        return true;
+      };
+      auto put = [&](int x, T a, T b, T c, T d) { put_row(w, false, x, a, b, c, d); };
+      if (s <= 2 * THREADS)
+        in_place<2, T>(0, hi, row, put);
+      else
+        in_place<4, T>(0, hi, row, put);
+    }
+    const int s_last = 1 << (steps - 1 - levels);
+    for (int x = threadIdx.x; x < hi; x += THREADS) {
+      int q, j;
+      if (place(x, q, j))
+        out[r0 + q + (long long)j * P] =
+            solve_at(w, x, j, s_last, ((m - 1 - (r0 + q)) >> levels) + 1);
     }
   }
 }
@@ -499,19 +662,21 @@ template <typename T> __device__ __forceinline__ T dt(T wl, T wk, int k, int m) 
   return (k < m ? -wk : T(0)) + (k > 0 ? wl : T(0));
 }
 
-// A round's start at row i from z at i - 1, i, i + 1: g, the active set
-// and the level-0 system (c = a); returns whether the active set changed
-// (first: the first round, which never settles, reads no earlier set).
+// Round r's start at row i from z at i - 1, i, i + 1: g, the active set
+// (act + (r mod 2) m) and the level-0 system (c = a); returns whether the
+// active set changed from round r - 1's (first: round 0, which never
+// settles, reads no earlier set).
 template <typename T>
 __device__ __forceinline__ int round_start(const Pdas<T>& p, int i, int m, T lam, T zl, T zi,
-                                           T zr, bool first) {
+                                           T zr, int r, bool first) {
   const T dv = p.v[i + 1] - p.v[i];
   const T gi = (dt(zi, zr, i + 1, m) - dt(zl, zi, i, m)) - dv;
   const bool hi = (-gi + (zi - lam)) > T(0);
   const bool lo = (-gi + (zi + lam)) < T(0);
   const signed char a = (signed char)((int)hi - (int)lo);
-  const int changed = first || a != p.act[i];
-  p.act[i] = a;
+  signed char* act = p.act + (long long)(r & 1) * m;
+  const int changed = first || a != act[(long long)(1 - 2 * (r & 1)) * m + i];
+  act[i] = a;
   const bool inactive = a == 0;
   p.sys[0].b[i] = inactive ? T(2) : T(1);
   p.sys[0].a[i] = inactive ? T(-1) : T(0);
@@ -643,7 +808,9 @@ __global__ void __launch_bounds__(THREADS, Resident<T>::blocks) pdas_tiles(Pdas<
   const T lam = p.lam_p == nullptr ? p.lam_value : *p.lam_p;
   const Partials<T> part(p.part);
   const bool whole = p.whole != 0;
-  Window<T> win = make_window<T>(smem, window_slots(m, p.steps, p.levels, p.tile, whole));
+  const bool residue = p.group > 0;
+  Window<T> win =
+      make_window<T>(smem, window_slots(m, p.steps, p.levels, p.tile, whole, p.group));
   int syncs = 0;
 
   // the opening: z, dv.dv, ||v||^2 and round 0's start
@@ -657,7 +824,7 @@ __global__ void __launch_bounds__(THREADS, Resident<T>::blocks) pdas_tiles(Pdas<
         const T dv = v[i + 1] - v[i];
         s[0] += dv * dv;
         round_start(p, i, m, lam, i > 0 ? z0_at(i - 1) : T(0), zi,
-                    i + 1 < m ? z0_at(i + 1) : T(0), true);
+                    i + 1 < m ? z0_at(i + 1) : T(0), 0, true);
       }
       s[1] += v[i] * v[i];
     }
@@ -673,20 +840,26 @@ __global__ void __launch_bounds__(THREADS, Resident<T>::blocks) pdas_tiles(Pdas<
   while (true) {
     MARK(0);
     const T* z = p.z[cur];
-    // the solve: levels 0..K-1 in shared memory, K..steps-2 in device
-    // memory, the last merged with the trials (whole: all in shared memory)
-    tile_stage(p.sys[0], true, p.sys[1], win, m, p.levels, p.tile, whole);
+    // the solve: levels 0..K-1 in shared memory, then K..steps-1 in the
+    // residue stage (zn), or K..steps-2 in device memory and the last
+    // merged with the trials (whole: all in shared memory)
+    tile_stage(p.sys[0], true, p.sys[1], win, m, p.levels, p.tile, whole, p.group);
     MARK(1);
+    if (!whole) counted_sync(grid, syncs);
+    MARK(2);
     Sys<T> held = p.sys[1];
-    if (!whole) {
-      counted_sync(grid, syncs);
-      MARK(2);
+    if (residue)
+      residue_stage(p.sys[1], p.zn, win, m, p.steps, p.levels, p.group);
+    else if (!whole)
       held = device_levels(p.sys[1], p.sys[0], p.levels, p.steps - 1, m, grid, syncs);
-      MARK(3);
-    }
+    MARK(3);
+    if (residue) counted_sync(grid, syncs);
+    MARK(4);
     const int s_last = 1 << (p.steps - 1);
     auto zn_at = [&](int q) {
-      return whole ? win.w.a[q - win.first] : solve_at(held, q, q, s_last, m);
+      return whole     ? win.w.a[q - win.first]
+             : residue ? p.zn[q]
+                       : solve_at(held, q, q, s_last, m);
     };
 
     // the trial steps, with the solve at i - 1, i, i + 1
@@ -695,20 +868,20 @@ __global__ void __launch_bounds__(THREADS, Resident<T>::blocks) pdas_tiles(Pdas<
     for (int q = 0; q < PART; ++q) s[q] = T(0);
     for (int i = first; i < m; i += stride) {
       const T ni = zn_at(i);
-      p.zn[i] = ni;
+      if (!residue) p.zn[i] = ni;
       trials_at(s, i, m, lam, p.g[i], i > 0 ? z[i - 1] : T(0), z[i], i + 1 < m ? z[i + 1] : T(0),
                 i > 0 ? zn_at(i - 1) : T(0), ni, i + 1 < m ? zn_at(i + 1) : T(0));
     }
     block_sum<PART>(s, sh);
-    MARK(4);
+    MARK(5);
     put_partial<PART>(part.t, s);
     counted_sync(grid, syncs);
-    MARK(5);
+    MARK(6);
     grid_sum<PART>(part.t, s, sh);
     T al;
     bool worse, full_ok;
     choose_step(s, tol0, al, worse, full_ok);
-    MARK(6);
+    MARK(7);
 
     // the step (the incumbent where even the best trial rises), the gap of
     // the new z (x_d = v - D^T z, d = D x_d, sum lam |d| - z d) and the
@@ -727,18 +900,18 @@ __global__ void __launch_bounds__(THREADS, Resident<T>::blocks) pdas_tiles(Pdas<
       zo[i] = wi;
       const T d = (v[i + 1] - dt(wi, wr, i + 1, m)) - (v[i] - dt(wl, wi, i, m));
       gs[0] += lam * fabs(d) - wi * d;
-      changed |= round_start(p, i, m, lam, wl, wi, wr, false);
+      changed |= round_start(p, i, m, lam, wl, wi, wr, it + 1, false);
     }
     changed = __syncthreads_or(changed);
     if (threadIdx.x == 0) p.flags[((it + 1) & 1) * gridDim.x + blockIdx.x] = changed;
     block_sum<1>(gs, sh);
-    MARK(7);
+    MARK(8);
     put_partial<1>(part.g, gs);
     counted_sync(grid, syncs);
-    MARK(8);
+    MARK(9);
 
     const bool go = go_on(p, part.g, it, full_ok, gap_tol, sh);
-    MARK(9);
+    MARK(10);
     ++it;
     cur = 1 - cur;
     if (it >= p.max_iters || !go) break;
@@ -905,16 +1078,17 @@ __global__ void __launch_bounds__(THREADS) pdas_levels(Pdas<T> p) {
 }
 
 // The tile build's solve alone: src (c separate), level K's system in s1,
-// levels K..steps-2 in device memory, the last to out.
+// then the residue stage to out, or levels K..steps-2 in device memory and
+// the last to out.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, Resident<T>::blocks)
     pcr_tiles(Sys<T> src, Sys<T> s0, Sys<T> s1, T* out, int m, int steps, int levels, int tile,
-              int whole) {
+              int whole, int group) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   int syncs = 0;   // counted, not reported
-  Window<T> win = make_window<T>(smem, window_slots(m, steps, levels, tile, whole));
-  tile_stage(src, false, s1, win, m, levels, tile, whole != 0);
+  Window<T> win = make_window<T>(smem, window_slots(m, steps, levels, tile, whole, group));
+  tile_stage(src, false, s1, win, m, levels, tile, whole != 0, group);
   const int stride = gridDim.x * THREADS;
   if (whole) {
     for (int i = blockIdx.x * THREADS + threadIdx.x; i < m; i += stride)
@@ -922,6 +1096,10 @@ __global__ void __launch_bounds__(THREADS, Resident<T>::blocks)
     return;
   }
   grid.sync();
+  if (group > 0) {
+    residue_stage(s1, out, win, m, steps, levels, group);
+    return;
+  }
   const Sys<T> held = device_levels(s1, s0, levels, steps - 1, m, grid, syncs);
   for (int i = blockIdx.x * THREADS + threadIdx.x; i < m; i += stride)
     out[i] = solve_at(held, i, i, 1 << (steps - 1), m);
@@ -988,10 +1166,10 @@ template <typename T> int pcr_grid(int m) {
 
 template <typename T>
 int launch_pdas(bool tiles, const void* v, const void* z0, const void* lam_p, T lam_value, T tol,
-                int n, int max_iters, int steps, int levels, int tile, int whole, void* x,
-                void* z_out, void* gap, void* it, void* syncs, void* scratch, void* act,
-                void* flags, int grid, void* stream) {
-  const long long mp = padded(n - 1);
+                int n, int max_iters, int steps, int levels, int tile, int whole, int group,
+                void* x, void* z_out, void* gap, void* it, void* syncs, void* scratch,
+                void* act, void* flags, int grid, void* stream) {
+  const long long mp = tiles ? scratch_rows(n - 1, levels, group) : padded(n - 1);
   T* s = static_cast<T*>(scratch);
   Pdas<T> p;
   p.v = static_cast<const T*>(v);
@@ -1005,6 +1183,7 @@ int launch_pdas(bool tiles, const void* v, const void* z0, const void* lam_p, T 
   p.levels = levels;
   p.tile = tile;
   p.whole = whole;
+  p.group = group;
   p.x = static_cast<T*>(x);
   p.z_out = static_cast<T*>(z_out);
   p.gap_out = static_cast<T*>(gap);
@@ -1022,7 +1201,8 @@ int launch_pdas(bool tiles, const void* v, const void* z0, const void* lam_p, T 
   void* args[] = {&p};
   cudaError_t e;
   if (tiles) {
-    const int smem = 4 * (int)sizeof(T) * window_slots(n - 1, steps, levels, tile, whole);
+    const int smem =
+        4 * (int)sizeof(T) * window_slots(n - 1, steps, levels, tile, whole, group);
     if (smem > SMEM_BUDGET || resident(pdas_tiles<T>, slot_of<T>(0), SMEM_BUDGET) == 0)
       return (int)cudaErrorInvalidValue;
     e = cudaLaunchCooperativeKernel((const void*)pdas_tiles<T>, grid, THREADS, args, smem,
@@ -1036,18 +1216,18 @@ int launch_pdas(bool tiles, const void* v, const void* z0, const void* lam_p, T 
 
 template <typename T>
 int launch_pcr(const void* src, void* out, int m, int steps, int levels, int tile, int whole,
-               void* scratch, int grid, void* stream) {
-  const long long mp = padded(m);
+               int group, void* scratch, int grid, void* stream) {
+  const long long mp = padded(m), sp = scratch_rows(m, levels, group);
   T* a = const_cast<T*>(static_cast<const T*>(src));
   T* s = static_cast<T*>(scratch);
   Sys<T> in{a, a + mp, a + 2 * mp, a + 3 * mp};
-  Sys<T> s0{s, s + mp, s + 2 * mp, s + 3 * mp};
-  Sys<T> s1{s + 4 * mp, s + 5 * mp, s + 6 * mp, s + 7 * mp};
+  Sys<T> s0{s, s + sp, s + 2 * sp, s + 3 * sp};
+  Sys<T> s1{s + 4 * sp, s + 5 * sp, s + 6 * sp, s + 7 * sp};
   T* o = static_cast<T*>(out);
-  const int smem = 4 * (int)sizeof(T) * window_slots(m, steps, levels, tile, whole);
+  const int smem = 4 * (int)sizeof(T) * window_slots(m, steps, levels, tile, whole, group);
   if (smem > SMEM_BUDGET || resident(pcr_tiles<T>, slot_of<T>(2), SMEM_BUDGET) == 0)
     return (int)cudaErrorInvalidValue;
-  void* args[] = {&in, &s0, &s1, &o, &m, &steps, &levels, &tile, &whole};
+  void* args[] = {&in, &s0, &s1, &o, &m, &steps, &levels, &tile, &whole, &group};
   const cudaError_t e = cudaLaunchCooperativeKernel((const void*)pcr_tiles<T>, grid, THREADS,
                                                     args, smem, static_cast<cudaStream_t>(stream));
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
@@ -1057,11 +1237,13 @@ int launch_pcr(const void* src, void* out, int m, int steps, int levels, int til
 
 extern "C" {
 
-// The scratch the PDAS entries take: 12 arrays of mp (m = n - 1 rounded
-// up to 32) and 16 partials a block of T; m bytes of act; 2 ints a block
-// of flags; one unsigned 64-bit counter, to which the launch adds the grid
-// syncs it ran.  The PCR entry: its system as 4 arrays of mp (a, b, c, d)
-// and 8 arrays of mp of scratch.
+// The scratch the PDAS entries take: 12 arrays of mp (scratch_rows for the
+// tile build's plan, m = n - 1 rounded up to 32 for the levels build) and
+// 16 partials a block of T; act, 2 m bytes (the tile build) or m (the
+// levels build); 2 ints a block of flags; one unsigned 64-bit counter, to
+// which the launch adds the grid syncs it ran.
+// The PCR entry: its system as 4 arrays of m rounded up to 32 (a, b, c, d)
+// and 8 arrays of scratch_rows of scratch.
 int tv1d_pdas_threads() { return THREADS; }
 int tv1d_pdas_smem_budget() { return SMEM_BUDGET; }
 int tv1d_pdas_grid_f32(int n) { return tiles_grid<float>(n); }
@@ -1079,23 +1261,25 @@ int tv1d_pdas_set_marks(void* marks) {
 #endif
 
 #define PDAS_ENTRY(SUFFIX, T)                                                                  \
-  int tv1d_pdas_##SUFFIX(const void* v, const void* z0, const void* lam, T lam_value, T tol,    \
-                         int n, int max_iters, int steps, int levels, int tile, int whole,       \
-                         void* x, void* z, void* gap, void* it, void* syncs, void* scratch,      \
-                         void* act, void* flags, int grid, void* stream) {                      \
-    return launch_pdas<T>(true, v, z0, lam, lam_value, tol, n, max_iters, steps, levels, tile,   \
-                          whole, x, z, gap, it, syncs, scratch, act, flags, grid, stream);      \
-  }                                                                                             \
-  int tv1d_pdas_levels_##SUFFIX(const void* v, const void* z0, const void* lam, T lam_value,    \
-                                T tol, int n, int max_iters, int steps, void* x, void* z,       \
-                                void* gap, void* it, void* syncs, void* scratch, void* act,     \
-                                void* flags, int grid, void* stream) {                          \
-    return launch_pdas<T>(false, v, z0, lam, lam_value, tol, n, max_iters, steps, 0, 0, 0, x, z, \
-                          gap, it, syncs, scratch, act, flags, grid, stream);                   \
-  }                                                                                             \
-  int tv1d_pcr_##SUFFIX(const void* src, void* out, int m, int steps, int levels, int tile,     \
-                        int whole, void* scratch, int grid, void* stream) {                     \
-    return launch_pcr<T>(src, out, m, steps, levels, tile, whole, scratch, grid, stream);       \
+  int tv1d_pdas_##SUFFIX(const void* v, const void* z0, const void* lam, T lam_value, T tol,   \
+                         int n, int max_iters, int steps, int levels, int tile, int whole,     \
+                         int group, void* x, void* z, void* gap, void* it, void* syncs,        \
+                         void* scratch, void* act, void* flags, int grid, void* stream) {      \
+    return launch_pdas<T>(true, v, z0, lam, lam_value, tol, n, max_iters, steps, levels, tile, \
+                          whole, group, x, z, gap, it, syncs, scratch, act, flags, grid,       \
+                          stream);                                                             \
+  }                                                                                            \
+  int tv1d_pdas_levels_##SUFFIX(const void* v, const void* z0, const void* lam, T lam_value,   \
+                                T tol, int n, int max_iters, int steps, void* x, void* z,      \
+                                void* gap, void* it, void* syncs, void* scratch, void* act,    \
+                                void* flags, int grid, void* stream) {                         \
+    return launch_pdas<T>(false, v, z0, lam, lam_value, tol, n, max_iters, steps, 0, 0, 0, 0,  \
+                          x, z, gap, it, syncs, scratch, act, flags, grid, stream);            \
+  }                                                                                            \
+  int tv1d_pcr_##SUFFIX(const void* src, void* out, int m, int steps, int levels, int tile,    \
+                        int whole, int group, void* scratch, int grid, void* stream) {         \
+    return launch_pcr<T>(src, out, m, steps, levels, tile, whole, group, scratch, grid,        \
+                         stream);                                                              \
   }
 
 PDAS_ENTRY(f32, float)

@@ -9,11 +9,14 @@ one ``lax.while_loop``) into one device program.  The port's plain version
 each round as eager operations and reads its stop test back to the host.
 
 The kernel (the tile build) runs a round's first PCR levels in shared
-memory, a tile of rows and its halo a block (:func:`tile_plan` picks the
-levels and the tile), and merges passes, so that a round needs
-``steps - K + 2`` grid syncs (:func:`syncs_per_round`).  The build it
-replaced, a grid sync after every level and every pass, stays as
-:func:`pdas_levels` (uncounted): the tile build is held to it bitwise.
+memory, a tile of rows and its halo a block, then, where the classes of
+rows mod 2^K fit a block's shared memory, the remaining levels there too,
+a group of classes a block (the residue stage), and merges passes, so that
+a round needs 4 grid syncs, or ``steps - K + 2`` without the residue stage
+(:func:`syncs_per_round`; :func:`tile_plan` picks the levels, the tile and
+the groups).  The build it replaced, a grid sync after every level and
+every pass, stays as :func:`pdas_levels` (uncounted): the tile build is
+held to it bitwise.
 Both builds count the grid syncs they run on the device
 (:func:`sync_counter`).
 
@@ -31,14 +34,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...utils.timing import count
 from . import _rows
 
-__all__ = ["pdas", "pdas_levels", "pcr", "pcr_steps", "tile_plan", "TilePlan",
+__all__ = ["pdas", "pdas_levels", "pcr", "pcr_steps", "tile_plan", "plan_for", "TilePlan",
            "syncs_per_round", "levels_syncs_per_round", "grid_syncs", "sync_counter", "grid",
            "threads", "build", "launches"]
 
 # Launches of the tile build (pdas's; pdas_levels' and pcr's are not
-# counted).
+# counted).  While a profiler records, each also counts ``tv1d.residue``:
+# 1 where its plan runs the residue stage, else 0.
 launches = 0
 
 # Dynamic shared memory a block of the tile build may take, in bytes
@@ -49,14 +54,23 @@ SMEM_BUDGET = 110_592
 # A tile level writes a row two passes of 512 rows after computing it, so
 # it may read 2^k <= 1024 rows back: at most 11 levels in shared memory.
 MAX_TILE_LEVELS = 11
-# The PCR levels a tile runs in shared memory, by element size: the fastest
-# of K = 6..11 at n = 10,000 and 100,000, cold and warm, on an H100
-# (``python3 -m tools.profile_port --k7-tiles``): K = 8 in f32 (K = 7 ties
-# it at 100,000 and is 1-2 % slower at 10,000), K = 7 in f64.
-TILE_LEVELS = {4: 8, 8: 7}
+# The PCR levels a tile runs in shared memory, by element size: (least,
+# most, without): the rule takes the residue stage at the least K from
+# least to most whose classes fit, else K = without and no residue stage.
+# From the sweep of K = 6..11 with and without the residue stage at n =
+# 10,000, 100,000 and 1,000,000, cold and warm, on an H100 (``python3 -m
+# tools.profile_port --k7-tiles``): with it the least K whose classes fit
+# was the fastest that fits everywhere, K = 7 at 10,000 (K = 6 ties it, but
+# its 64 classes leave two thirds of the grid idle at 100,000, 50 % slower
+# there) and 100,000, in f32 3-4 % under K = 8; at 1,000,000 K = 8 in f32
+# and K = 9 in f64, where the classes of K = 7 (and 8 in f64) do not fit;
+# K = 9 is the deepest measured.  Without it, K = 8 in f32, K = 7 in f64
+# (the sweep at 10,000 and 100,000 that set them before the residue stage).
+TILE_LEVELS = {4: (7, 9, 8), 8: (7, 9, 7)}
 
 _LIB = None
 _GRIDS = {}
+_PLANS = {}
 _SYNCS = {}
 
 
@@ -71,11 +85,11 @@ def entries():
     P, I = ctypes.c_void_p, ctypes.c_int
     out = {"tv1d_pdas_threads": [], "tv1d_pdas_smem_budget": []}
     for t in ("f32", "f64"):
-        out[f"tv1d_pdas_{t}"] = [P, P, P, "scalar", "scalar", I, I, I, I, I, I, P, P, P, P, P,
-                                 P, P, P, I, P]
+        out[f"tv1d_pdas_{t}"] = [P, P, P, "scalar", "scalar", I, I, I, I, I, I, I, P, P, P, P,
+                                 P, P, P, P, I, P]
         out[f"tv1d_pdas_levels_{t}"] = [P, P, P, "scalar", "scalar", I, I, I, P, P, P, P, P, P,
                                         P, P, I, P]
-        out[f"tv1d_pcr_{t}"] = [P, P, I, I, I, I, I, P, I, P]
+        out[f"tv1d_pcr_{t}"] = [P, P, I, I, I, I, I, I, P, I, P]
         for entry in ("pdas", "pcr", "pdas_levels"):
             out[f"tv1d_{entry}_grid_{t}"] = [I]
     return out
@@ -105,24 +119,49 @@ class TilePlan:
     """The tile build's solve of m rows: ``levels`` PCR levels in shared
     memory (K), in tiles of ``tile`` rows (T) with a halo of ``2^K - 1``
     rows on each side, tile t taken by block t mod grid, or, when
-    ``whole``, every level over the whole row in every block; ``window``
-    rows of a, b, c and d in shared memory (rows past the row's ends hold
-    identity rows)."""
+    ``whole``, every level over the whole row in every block.  With
+    ``group`` > 0 (the residue stage) levels K..steps-1 run in shared
+    memory too, on the 2^K classes of rows mod 2^K, ceil(m / 2^K) rows or
+    fewer each, ``group`` classes a block at a time, each level testing
+    the class's ends.  With group 0 levels K..steps-2 run in device
+    memory.  ``window`` rows of a, b, c and d in shared memory (rows past
+    the row's ends hold identity rows)."""
     steps: int
     levels: int
     tile: int
     whole: bool
     window: int
+    group: int = 0
+
+    @property
+    def residue(self) -> bool:
+        """Whether levels K..steps-1 run in the residue stage."""
+        return self.group > 0
 
     def smem(self, itemsize: int) -> int:
         """Bytes of dynamic shared memory a block."""
         return 4 * itemsize * self.window
 
+    def scratch_rows(self, m: int) -> int:
+        """The length of each of the PDAS's 12 scratch arrays (the PCR's
+        8) for m rows: m, or with the residue stage 2^K classes of
+        ceil(m / 2^K) rows, rounded up to 32 (``scratch_rows`` in the
+        source)."""
+        return padded(_classes(m, self.levels) << self.levels if self.residue else m)
 
-def _window(m, levels, tile, whole):
-    # csrc/tv1d_pdas.cu window_slots: the tile and its halos, or the whole
-    # row and 2^(steps-1) rows past each end (levels = steps)
-    return m + (1 << levels) if whole else tile + 2 * ((1 << levels) - 1)
+
+def _classes(m, levels):
+    # csrc/tv1d_pdas.cu class_rows: rows of the longest class mod 2^levels
+    return -(-m >> levels)
+
+
+def _window(m, levels, tile, whole, group=0):
+    # csrc/tv1d_pdas.cu window_slots: the tile and its halos, or the
+    # residue stage's group of classes where that is more, or the whole row
+    # and 2^(steps-1) rows past each end (levels = steps)
+    if whole:
+        return m + (1 << levels)
+    return max(tile + 2 * ((1 << levels) - 1), group * _classes(m, levels))
 
 
 def _largest_tile(levels, itemsize):
@@ -131,18 +170,40 @@ def _largest_tile(levels, itemsize):
     return SMEM_BUDGET // (4 * itemsize) - 2 * ((1 << levels) - 1)
 
 
-def tile_plan(m: int, grid: int, itemsize: int, levels: int | None = None) -> TilePlan:
+def _classes_held(m, levels, itemsize):
+    """The classes of the residue stage after ``levels`` levels that a
+    window holds within SMEM_BUDGET (0: a class does not fit)."""
+    return SMEM_BUDGET // (4 * itemsize) // _classes(m, levels)
+
+
+def tile_plan(m: int, grid: int, itemsize: int, levels: int | None = None,
+              residue: bool | None = None) -> TilePlan:
     """The rule of the tile build for a system of m rows on ``grid`` blocks
-    in elements of ``itemsize`` bytes: K = TILE_LEVELS[itemsize] levels (or
-    ``levels``, for a sweep); when K reaches the solve's steps, every block
-    solves the whole row (K = steps); otherwise tiles of T = ceil(m / grid)
-    rows, one a block, fewer rows (and some blocks two tiles or more) where
-    the window would not fit SMEM_BUDGET.  Raises for a ``levels`` outside
-    1..MAX_TILE_LEVELS or one whose halos do not fit."""
+    in elements of ``itemsize`` bytes: K levels (the least K of
+    TILE_LEVELS[itemsize]'s range at which the residue stage fits, else its
+    depth without; or ``levels``, for a sweep); when K reaches the solve's
+    steps, every block solves the whole row (K = steps); otherwise tiles of
+    T = ceil(m / grid) rows, one a block, fewer rows (and some blocks two
+    tiles or more) where the window would not fit SMEM_BUDGET, and the
+    residue stage wherever a class of ceil(m / 2^K) rows fits SMEM_BUDGET
+    (``residue``, for a sweep: True takes it, False keeps levels K..steps-2
+    in device memory), in groups of as many classes as the budget holds, up
+    to the 2^K classes' share of the grid.  Raises for a ``levels`` outside
+    1..MAX_TILE_LEVELS or one whose halos do not fit, or a residue stage
+    that does not fit."""
     if m < 1 or grid < 1 or itemsize not in TILE_LEVELS:
         raise ValueError(f"tile_plan: m {m}, grid {grid}, itemsize {itemsize}")
     steps = pcr_steps(m)
-    k = TILE_LEVELS[itemsize] if levels is None else levels
+    k = levels
+    if levels is None:
+        least, most, k = TILE_LEVELS[itemsize]
+        if k < steps and residue is not False:
+            for depth in range(least, min(steps, most + 1)):
+                if _largest_tile(depth, itemsize) < 1:
+                    break
+                if _classes_held(m, depth, itemsize) >= 1:
+                    k = depth
+                    break
     if not 1 <= k <= MAX_TILE_LEVELS:
         raise ValueError(f"tile_plan: levels {k} outside 1..{MAX_TILE_LEVELS}")
     if k >= steps:
@@ -152,15 +213,38 @@ def tile_plan(m: int, grid: int, itemsize: int, levels: int | None = None) -> Ti
         raise ValueError(f"tile_plan: {k} levels' halos exceed {SMEM_BUDGET} bytes of shared "
                          f"memory in elements of {itemsize} bytes")
     tile = min(-(-m // grid), most)
-    return TilePlan(steps, k, tile, False, _window(m, k, tile, False))
+    rows = _classes(m, k)
+    held = _classes_held(m, k, itemsize)
+    if residue is None:
+        residue = held >= 1
+    elif residue and held < 1:
+        raise ValueError(f"tile_plan: a class of {rows} rows exceeds {SMEM_BUDGET} bytes of "
+                         f"shared memory in elements of {itemsize} bytes")
+    if not residue:
+        return TilePlan(steps, k, tile, False, _window(m, k, tile, False))
+    group = min(-(-(1 << k) // grid), held)
+    return TilePlan(steps, k, tile, False, _window(m, k, tile, False, group), group)
+
+
+def plan_for(v: torch.Tensor) -> TilePlan:
+    """The plan of :func:`pdas` for the vector v (its length, dtype and
+    device), cached."""
+    key = (v.shape[0], v.dtype, v.device)
+    if key not in _PLANS:
+        n = v.shape[0]
+        _PLANS[key] = tile_plan(n - 1, grid("pdas", n, v), v.element_size())
+    return _PLANS[key]
 
 
 def syncs_per_round(plan: TilePlan) -> int:
     """Grid syncs a PDAS round of the tile build: one after the tile stage,
-    one after each level in device memory (K..steps-2), one after the
-    trials (the last level merged), one after the step (the next start
+    then one after the residue stage, or one after each level in device
+    memory (K..steps-2), then one after the trials (the last level merged
+    without the residue stage) and one after the step (the next start
     merged); 2 when the whole solve runs in shared memory."""
-    return 2 if plan.whole else plan.steps - plan.levels + 2
+    if plan.whole:
+        return 2
+    return 4 if plan.residue else plan.steps - plan.levels + 2
 
 
 def levels_syncs_per_round(steps: int) -> int:
@@ -267,8 +351,8 @@ def _pdas_args(fname, v, lam, z0):
 
 def _launch_pdas(args, tol, max_iters, build_name, plan=None):
     """One launch of the tile build (``"tiles"``; its plan from
-    :func:`tile_plan`, or ``plan`` for a sweep; counted in ``launches``)
-    or of the levels build (``"levels"``)."""
+    :func:`plan_for`, or ``plan`` for a sweep; counted in ``launches`` and
+    ``tv1d.residue``) or of the levels build (``"levels"``)."""
     global launches
     fname, v, lam_ptr, lam_value, _, z0 = args   # args holds lam's tensor through the launch
     n = v.shape[0]
@@ -279,8 +363,13 @@ def _launch_pdas(args, tol, max_iters, build_name, plan=None):
     z = torch.empty(m, dtype=v.dtype, device=v.device)
     gap = torch.empty((), dtype=v.dtype, device=v.device)
     rounds = torch.empty((), dtype=torch.int32, device=v.device)
+    if build_name == "tiles":
+        plan = plan or plan_for(v)
+        mp = plan.scratch_rows(m)
     scratch = torch.empty(12 * mp + 16 * g, dtype=v.dtype, device=v.device)
-    act = torch.empty(m, dtype=torch.int8, device=v.device)
+    # the active set, a byte a row: the tile build's by round parity
+    act = torch.empty((2 if build_name == "tiles" else 1) * m, dtype=torch.int8,
+                      device=v.device)
     flags = torch.empty(2 * g, dtype=torch.int32, device=v.device)
     head = (v.data_ptr(), None if z0 is None else z0.data_ptr(), lam_ptr, lam_value,
             float(tol), n, int(max_iters), pcr_steps(m))
@@ -288,21 +377,21 @@ def _launch_pdas(args, tol, max_iters, build_name, plan=None):
             sync_counter(v.device).data_ptr(), scratch.data_ptr(), act.data_ptr(),
             flags.data_ptr(), g)
     if build_name == "tiles":
-        plan = plan or tile_plan(m, g, v.element_size())
-        head += (plan.levels, plan.tile, int(plan.whole))
+        head += (plan.levels, plan.tile, int(plan.whole), plan.group)
     fn = getattr(_library(), f"tv1d_{entry}_{_rows.suffix(v)}")
     if build_name == "tiles":
         launches += 1
+        count("tv1d.residue", int(plan.residue))
     _rows.launch(fname, fn, head + tail, v)
     return x, z, gap, rounds
 
 
-def pcr(a, b, c, d, levels=None):
+def pcr(a, b, c, d, levels=None, residue=None):
     """``pcr_tridiag_solve(a, b, c, d)`` for vectors on the card (f32 or
     f64) by the tile build's PCR code in one cooperative launch
     (uncounted), on the PDAS's grid for a row of m + 1: its plan from
-    :func:`tile_plan`, or ``levels`` levels in shared memory (a
-    sweep's)."""
+    :func:`tile_plan`, with a sweep's ``levels`` and ``residue`` where
+    given."""
     fname = "tv1d_pcr"
     a = _vector(fname, "a", a)
     m = a.shape[0]
@@ -312,14 +401,15 @@ def pcr(a, b, c, d, levels=None):
     if not all(t.dtype == a.dtype and t.device == a.device for t in (b, c, d)):
         raise ValueError(f"{fname}: a, b, c and d must share a dtype and a device")
     g = grid("pcr", m, a)
-    plan = tile_plan(m, g, a.element_size(), levels)
+    plan = tile_plan(m, g, a.element_size(), levels, residue)
     mp = padded(m)
     src = torch.zeros(4, mp, dtype=a.dtype, device=a.device)
     for row, t in zip(src, (a, b, c, d)):
         row[:m] = t
     out = torch.empty_like(a)
-    scratch = torch.empty(8 * mp, dtype=a.dtype, device=a.device)
+    scratch = torch.empty(8 * plan.scratch_rows(m), dtype=a.dtype, device=a.device)
     fn = getattr(_library(), f"tv1d_pcr_{_rows.suffix(a)}")
     _rows.launch(fname, fn, (src.data_ptr(), out.data_ptr(), m, plan.steps, plan.levels,
-                             plan.tile, int(plan.whole), scratch.data_ptr(), g), a)
+                             plan.tile, int(plan.whole), plan.group, scratch.data_ptr(), g),
+                   a)
     return out

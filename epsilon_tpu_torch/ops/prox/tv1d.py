@@ -276,17 +276,19 @@ def pcr_tridiag_solve(a, b, c, d):
     return d / b
 
 
-def pcr_tiled_solve(a, b, c, d, levels: int, tile: int):
+def pcr_tiled_solve(a, b, c, d, levels: int, tile: int, group: int = 0):
     """:func:`pcr_tridiag_solve` of vectors on the schedule of the TV-1D
     kernel's tile build (``csrc/tv1d_pdas.cu`` ``tile_stage``), in plain
     PyTorch, for the tests: tiles of ``tile`` rows, each in a window of the
     tile and ``2^levels - 1`` rows on each side, run levels ``0..levels-1``,
     each level over the rows still needed after it; the tiles' rows of
     level ``levels`` make the system that the remaining levels solve over
-    the whole row.  With ``levels`` at or past the solve's steps the whole row
-    is one window.  A row a window lacks reads NaN, and a row outside a
-    level's range becomes NaN, so a schedule that reads a row it has not
-    computed shows in the solve."""
+    the whole row, or, with ``group`` > 0, class by class in the residue
+    stage, ``group`` classes a window (``residue_stage``:
+    :func:`_residue_solve`).  With ``levels`` at or past the solve's steps
+    the whole row is one window.  A row a window lacks reads NaN, and a row
+    outside a level's range becomes NaN, so a schedule that reads a row it
+    has not computed shows in the solve."""
     m = a.shape[-1]
     steps = tv1d_pdas.pcr_steps(m)
     nan = float("nan")
@@ -333,9 +335,64 @@ def pcr_tiled_solve(a, b, c, d, levels: int, tile: int):
             sys = level(sys, first, max(t0 - keep, 0), min(t1 + keep, m), k)
         for h, x in zip(held, sys):
             h[t0:t1] = x[t0 - first:t1 - first]
+    if group:
+        return _residue_solve(held, levels, steps, group)
     for k in range(levels, steps):
         held = level(held, 0, 0, m, k)
     return held[3] / held[1]
+
+
+def _residue_solve(held, levels: int, steps: int, group: int):
+    """Levels ``levels..steps-1`` of the system ``held`` (level ``levels``
+    of m rows) and its solve, on the kernel's residue stage: the system laid
+    out class by class (row i at (i mod P) m_r + i // P, P = 2^levels, m_r =
+    ceil(m / P)), windows of ``group`` classes, row j of class r0 + q at
+    slot q m_r + j.  Every level tests the class's own ends (a neighbour
+    past them an identity row).  A slot that holds no row is NaN and never
+    computed, and a read past the window or of another class's row is
+    NaN."""
+    m = held[0].shape[-1]
+    p, nan = 1 << levels, float("nan")
+    rows = -(-m // p)
+    dev = held[0].device
+    # every group at once, one a row of the batch (the last group's missing
+    # classes have no rows)
+    x = torch.arange(group * rows, device=dev)
+    q = x // rows
+    cls = torch.arange(0, p, group, device=dev)[:, None] + q      # the slot's class
+    j = (x - q * rows).expand_as(cls)
+    held_rows = torch.where(cls < p, (m - 1 - cls) // p + 1, 0)   # the class's rows
+    valid = j < held_rows
+    i = (cls + j * p).clamp(0, m - 1)                              # the slot's row
+    sys = tuple(torch.where(valid, h[i], torch.full_like(h[:1], nan)) for h in held)
+    width = x.shape[0]
+    for k in range(levels, steps):
+        s = 1 << (k - levels)
+        left = valid & (j >= s)
+        right = valid & (s < held_rows - j)
+
+        def at(t, off, ok, fill):
+            # a slot past the window, or another class's row, reads NaN
+            y = x + off
+            inside = (y >= 0) & (y < width)
+            y = y.clamp(0, width - 1)
+            own = inside & ~(valid[:, y] & (cls[:, y] != cls))
+            got = torch.where(own, t[:, y], torch.full_like(t[:1, :1], nan))
+            return torch.where(ok, got, torch.full_like(t[:1, :1], fill))
+
+        bm, bp = at(sys[1], -s, left, 1.0), at(sys[1], s, right, 1.0)
+        am, ap = at(sys[0], -s, left, 0.0), at(sys[0], s, right, 0.0)
+        cm, cp = at(sys[2], -s, left, 0.0), at(sys[2], s, right, 0.0)
+        dm, dp = at(sys[3], -s, left, 0.0), at(sys[3], s, right, 0.0)
+        ai, bi, ci, di = sys
+        alpha = -ai / bm
+        gamma = -ci / bp
+        new = (alpha * am, bi + alpha * cm + gamma * ap, gamma * cp,
+               di + alpha * dm + gamma * dp)
+        sys = tuple(torch.where(valid, t, old) for t, old in zip(new, sys))
+    out = torch.full_like(held[0], nan)
+    out[(cls + j * p)[valid]] = (sys[3] / sys[1])[valid]
+    return out
 
 
 def prox_tv1d_pdas(v, lam, tol=None, max_iters: int = 40, z0=None,
@@ -353,10 +410,13 @@ def prox_tv1d_pdas(v, lam, tol=None, max_iters: int = 40, z0=None,
     (reading it is the caller's sync); any other device raises.  While a
     profiler records, each call, of either version, counts ``tv1d.calls``
     and adds its rounds to ``tv1d.rounds``
-    (:func:`epsilon_tpu_torch.utils.timing.count`, no sync)."""
+    (:func:`epsilon_tpu_torch.utils.timing.count`, no sync); K7's launch
+    adds 1 to ``tv1d.residue`` where its plan runs the residue stage, else
+    0, and the plain version 0."""
     if v.device.type == "cpu" or v.shape[-1] <= 1:
         out = prox_tv1d_pdas_reference(v, lam, tol=tol, max_iters=max_iters, z0=z0,
                                        return_dual=return_dual)
+        count("tv1d.residue", 0)     # K7's launch counts its own plan
     else:
         if tol is None:
             tol = pdas_default_tol(v.dtype)

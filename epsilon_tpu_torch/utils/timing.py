@@ -15,7 +15,9 @@ solves, marks the spans of one solve), ``epsilon.compile``, ``epsilon.update_pro
 ``epsilon.z_update``, ``epsilon.residuals``, ``epsilon.prox.<kind>`` and
 ``epsilon.write_back`` (:data:`PROX_SPANS` names the prox spans).
 Counters: ``tv1d.calls`` and ``tv1d.rounds`` (the TV-1D PDAS prox, of
-either version: K7 on the card, its plain version on the CPU).
+either version: K7 on the card, its plain version on the CPU), and
+``tv1d.residue`` (those calls that launched K7 on a plan with the residue
+stage).
 """
 
 from __future__ import annotations

@@ -964,6 +964,24 @@ def test_tv1d_pcr_every_tile_depth_bitwise(cuda, m, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [257, 511, 4097, 99_999, 999_999, 1_499_999])
+def test_tv1d_pcr_residue_stage_bitwise(cuda, m, dtype):
+    """K7's PCR on the rule's plan, with the residue stage everywhere here
+    (at K = 9 in f64 from 999,999 rows), and on the plan without it
+    equals ``pcr_tridiag_solve`` bitwise."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    from epsilon_tpu_torch.ops.prox import tv1d
+    systems = _pcr_systems(m, dtype, cuda)
+    plan = tv1d_pdas.tile_plan(m, tv1d_pdas.grid("pcr", m, systems[0][0]),
+                               systems[0][0].element_size())
+    assert plan.residue
+    for system in systems:
+        want = tv1d.pcr_tridiag_solve(*system)
+        assert _same_bits(tv1d_pdas.pcr(*system), want)
+        assert _same_bits(tv1d_pdas.pcr(*system, residue=False), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [2, 3, 17, 1023, 1025, 4097, 100_000])
 def test_tv1d_pdas_matches_plain_and_oracle(cuda, n, dtype):
     """K7 through its dispatch (one launch, the rounds a 0-d int32 CUDA
@@ -1044,7 +1062,8 @@ def test_tv1d_tiles_equal_the_levels_build_bitwise(cuda, n, dtype):
 @pytest.mark.parametrize("n", [10_000, 100_000, 1_000_000])
 def test_tv1d_tiles_every_depth_bitwise(cuda, n, dtype):
     """The tile build at every depth K = 1..11 that fits (several tiles a
-    block at n = 1,000,000) equals the levels build bitwise, warm at an
+    block at n = 1,000,000), with the residue stage where it fits and with
+    levels in device memory, equals the levels build bitwise, warm at an
     inner tolerance, and runs the syncs its plan counts."""
     from epsilon_tpu_torch.ops.kernels import tv1d_pdas
     lam, tol = float(np.sqrt(n)), K7_INNER_TOLS[dtype][-1]
@@ -1054,13 +1073,34 @@ def test_tv1d_tiles_every_depth_bitwise(cuda, n, dtype):
     ran = 0
     g = tv1d_pdas.grid("pdas", n, v)
     for levels in range(1, tv1d_pdas.MAX_TILE_LEVELS + 1):
-        try:
-            plan = tv1d_pdas.tile_plan(n - 1, g, v.element_size(), levels)
-        except ValueError:
-            continue
-        _levels_check(v2, lam, tol, z, plan)
-        ran += 1
-    assert ran >= 10
+        for residue in (True, False):
+            try:
+                plan = tv1d_pdas.tile_plan(n - 1, g, v.element_size(), levels, residue)
+            except ValueError:
+                continue
+            _levels_check(v2, lam, tol, z, plan)
+            ran += 1
+    assert ran >= 12
+
+
+@pytest.mark.parametrize("n,dtype", [(100_000, torch.float32), (1_000_000, torch.float32),
+                                     (1_500_001, torch.float32), (1_000_000, torch.float64)])
+def test_tv1d_residue_stage_equals_the_levels_build_bitwise(cuda, n, dtype):
+    """The dispatched plan has the residue stage at n = 100,000 (f32, K =
+    7, classes of 782 rows), 1,000,000 (f32, K = 8, 3,907 rows; f64, K = 9,
+    1,954 rows) and 1,500,001 (f32, K = 8, 5,860 rows, a level short of the
+    last at a stride of 2,048), and the build equals the levels build
+    bitwise (x, z, gap, rounds) cold and warm at the default and the inner
+    tolerances, with 4 grid syncs a round and 2 a call."""
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    lam = float(np.sqrt(n))
+    v = torch.as_tensor(_tv_signal(n, 7), dtype=dtype, device=cuda)
+    plan = tv1d_pdas.plan_for(v)
+    assert plan.residue and tv1d_pdas.syncs_per_round(plan) == 4
+    v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(8).randn(n), dtype=dtype, device=cuda)
+    for tol in [None] + K7_INNER_TOLS[dtype]:
+        z = _levels_check(v, lam, tol, None)
+        _levels_check(v2, lam, tol, z)
 
 
 def test_tv1d_tile_build_runs_the_levels_builds_grid(cuda):

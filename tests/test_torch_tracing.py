@@ -206,9 +206,11 @@ def test_tv_prox_counts_its_calls_and_rounds():
     prob, _, _ = _tv_problem()
     _profiled(lambda: prob.solve(rel_tol=1e-3))
     c = timing.counters()
-    # one TV prox a sweep, and at least one PDAS round a call
+    # one TV prox a sweep, and at least one PDAS round a call; the plain
+    # version never runs K7's residue stage
     assert c["tv1d.calls"] == prob.solver_status.num_iterations
     assert c["tv1d.rounds"] >= c["tv1d.calls"]
+    assert c["tv1d.residue"] == 0
 
 
 def test_spectral_prox_runs_under_its_span():
@@ -239,7 +241,8 @@ def cuda():
 @pytest.mark.cuda
 def test_k7_counters_on_the_card(cuda):
     """K7's rounds come back as a device tensor, added up on the card with
-    no sync of their own; the spans' ranges appear on the host."""
+    no sync of their own, and its launches with the residue stage are
+    counted; the spans' ranges appear on the host."""
     prob, _, _ = _tv_problem(n=100_000)
     prob.solve(rel_tol=1e-3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -248,5 +251,9 @@ def test_k7_counters_on_the_card(cuda):
     c = timing.counters()
     assert c["tv1d.calls"] == prob.solver_status.num_iterations
     assert c["tv1d.rounds"] >= c["tv1d.calls"]
+    # every launch's plan, with or without the residue stage, is counted
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas
+    v = torch.empty(100_000, dtype=torch.float32, device="cuda")
+    assert c["tv1d.residue"] == c["tv1d.calls"] * int(tv1d_pdas.plan_for(v).residue)
     host = {e.name for e in prof.events() if e.device_type.name == "CPU"}
     assert {"epsilon.solve", "epsilon.admm_loop", "epsilon.prox.total_variation_1d"} <= host

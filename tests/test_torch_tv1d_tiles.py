@@ -1,11 +1,12 @@
 """The premises of the TV-1D kernel's tile build (``csrc/tv1d_pdas.cu``),
 on the CPU: its schedule of the PCR solve, emulated in plain PyTorch by
 ``tv1d.pcr_tiled_solve`` (tiles of T rows with a halo of 2^K - 1 rows run
-levels 0..K-1 in a window, then the levels left run over the whole row),
-gives ``pcr_tridiag_solve``'s bits; the rule that picks K and T
-(``tv1d_pdas.tile_plan``) keeps K within the solve's steps and the window
-within the shared memory budget; and the grid syncs a round are as the
-design counts them.
+levels 0..K-1 in a window, then the levels left run over the whole row or,
+in the residue stage, class by class of the rows mod 2^K, in windows of a
+group of classes), gives ``pcr_tridiag_solve``'s bits; the rule that picks
+K, T and the residue stage (``tv1d_pdas.tile_plan``) keeps K within the
+solve's steps and the windows within the shared memory budget; and the
+grid syncs a round are as the design counts them.
 
 Tolerances: the emulation against the plain solve bitwise (each row's
 operations are the same, in the same order); against the JAX package's
@@ -119,7 +120,15 @@ def test_tile_plan_rule(n, itemsize):
     assert plan.steps == k7.pcr_steps(m)
     assert 1 <= plan.levels <= plan.steps
     assert plan.whole == (plan.levels == plan.steps)
-    assert plan.levels == min(k7.TILE_LEVELS[itemsize], plan.steps)
+    least, most, without = k7.TILE_LEVELS[itemsize]
+    fits = [k for k in range(least, min(most, plan.steps - 1) + 1)
+            if k7.tile_plan(m, _grid(n), itemsize, levels=k).residue]
+    if without >= plan.steps:
+        assert plan.levels == plan.steps
+    elif fits:
+        assert plan.residue and plan.levels == fits[0]
+    else:
+        assert not plan.residue and plan.levels == without
     assert plan.smem(itemsize) <= k7.SMEM_BUDGET
     assert max(_windows(m, plan)) <= plan.window
     if not plan.whole:
@@ -151,13 +160,16 @@ def test_tile_plan_sweep_bounds(itemsize):
 
 
 @pytest.mark.parametrize("n,steps,tile_syncs,levels_syncs", [
-    (100_000, 17, 11, 20), (10_000, 14, 8, 17), (1_000_000, 20, 14, 23), (257, 8, 2, 11),
-    (2, 1, 2, 4)])
+    (100_000, 17, 4, 20), (10_000, 14, 4, 17), (1_000_000, 20, 4, 23), (2_000_000, 21, 4, 24),
+    (4_000_000, 22, 16, 25),
+    (257, 8, 2, 11), (2, 1, 2, 4)])
 def test_syncs_a_round(n, steps, tile_syncs, levels_syncs):
-    """Grid syncs a round: steps - K + 2 for the tile build (2 when the
-    whole solve runs in shared memory), steps + 3 for the levels build;
-    2 more a call.  At the main path's K = 8: 11 against 20 at n =
-    100,000 and 8 against 17 at n = 10,000."""
+    """Grid syncs a round: 4 for the tile build with the residue stage,
+    steps - K + 2 without it (2 when the whole solve runs in shared
+    memory), steps + 3 for the levels build; 2 more a call.  In f32: 4
+    against 20 at n = 100,000 and 23 at n = 1,000,000 (11 and 14 with K = 8
+    without the residue stage); at n = 4,000,000, whose classes do not fit
+    at K = 7..9, 16 against 25."""
     plan = k7.tile_plan(n - 1, _grid(n), 4)
     assert plan.steps == steps
     assert k7.syncs_per_round(plan) == tile_syncs
@@ -165,5 +177,112 @@ def test_syncs_a_round(n, steps, tile_syncs, levels_syncs):
     assert k7.grid_syncs(7, tile_syncs) == 2 + 7 * tile_syncs
     if plan.whole:
         assert tile_syncs == 2
+    if not plan.whole:
+        without = k7.tile_plan(n - 1, _grid(n), 4, residue=False)
+        assert without.levels == k7.TILE_LEVELS[4][2]
+        assert k7.syncs_per_round(without) == steps - without.levels + 2
     for levels in range(plan.steps, k7.MAX_TILE_LEVELS + 1):
         assert k7.syncs_per_round(k7.tile_plan(n - 1, _grid(n), 4, levels)) == 2
+
+
+def _class_edges(levels):
+    """Rows at the residue stage's class edges for K = levels (P = 2^K
+    classes): P j - 1, P j and P j + 1 (every class the same length, or
+    one class a row longer, or all but one), P + 1 (classes of one row but
+    the first), and lengths whose last classes are short."""
+    p = 1 << levels
+    long = {37 * p - 1, 37 * p + 3} if levels <= 8 else set()   # classes of 37, 38 rows
+    return sorted({p + 1, p + 2, 2 * p - 1, 2 * p, 2 * p + 1, 3 * p - 1, 5 * p, 5 * p + 1,
+                   5 * p + p // 2} | long)
+
+
+@pytest.mark.parametrize("levels,group", [(1, 1), (2, 1), (3, 2), (5, 1), (5, 7), (8, 1),
+                                          (8, 2), (8, 13), (8, 256), (11, 3)])
+@pytest.mark.parametrize("tile", [TILE, 1000])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_residue_stage_is_the_plain_pcr_bitwise(dtype, tile, levels, group):
+    """The residue stage (levels K..steps-1 class by class of the rows mod
+    2^K, groups of classes a window, each level testing the class's ends)
+    gives pcr_tridiag_solve's bits on both systems at every class edge,
+    after tile stages of either tile length (no sum depends on it), a row a
+    window lacks, one read before it was computed or one of another class
+    showing as NaN."""
+    checked = 0
+    for m in _class_edges(levels):
+        assert k7.pcr_steps(m) > levels
+        for name, system in _systems(m, dtype, 3 * m + levels).items():
+            got = ttv.pcr_tiled_solve(*system, levels, tile, group)
+            want = ttv.pcr_tridiag_solve(*system)
+            assert torch.isfinite(got).all(), (m, name)
+            assert torch.equal(_bits(got), _bits(want)), (m, name)
+            checked += 1
+    assert checked == 2 * len(_class_edges(levels))
+
+
+@pytest.mark.parametrize("group", [1, 5])
+def test_residue_classes_are_independent(group):
+    """A NaN in one row of level K's system reaches every row of that row's
+    class mod 2^K and no row of another: the classes solve apart."""
+    m, levels, row = 10_000, 8, 4_321
+    held = [t.clone() for t in _systems(m, torch.float64, 11)["random"]]
+    held[3][row] = float("nan")
+    got = ttv._residue_solve(held, levels, k7.pcr_steps(m), group)
+    same = torch.arange(m) % (1 << levels) == row % (1 << levels)
+    assert torch.isnan(got[same]).all() and torch.isfinite(got[~same]).all()
+
+
+@pytest.mark.parametrize("m,levels,tile,group", [
+    (300, 8, TILE, 256), (99_999, 8, TILE, 2), (10_000, 7, 500, 7), (3000, 5, 37, 3),
+    (3000, 5, 37, 1)])
+def test_residue_stage_matches_jax(m, levels, tile, group):
+    """The residue stage against the JAX package's pcr_tridiag_solve (f64),
+    on both systems, within the plain solve's tolerance."""
+    for name, system in _systems(m, torch.float64, 5 * m + levels).items():
+        got = ttv.pcr_tiled_solve(*system, levels, tile, group).numpy()
+        want = np.asarray(jtv.pcr_tridiag_solve(*(jnp.asarray(t.numpy()) for t in system)))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def _budget_rows(itemsize):
+    return k7.SMEM_BUDGET // (4 * itemsize)
+
+
+@pytest.mark.parametrize("n", [257, 258, 300, 1025, 10_000, 100_000, 1_000_000, 1_500_001,
+                               1_769_473, 1_769_474, 2_000_000, 4_000_000])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_residue_rule(n, itemsize):
+    """The rule takes the residue stage exactly where a class of ceil(m /
+    2^K) rows fits the shared memory budget at the plan's K (in f32 to m =
+    1,769,472 at K = 8 and past that at K = 9; in f64 at 10^6 at K = 9, as
+    the classes of 7,813 rows of K = 7 and 3,907 of K = 8 do not fit); a
+    group is the classes' share of the grid, cut to what a window holds,
+    and the window holds it; the scratch arrays hold the classes."""
+    m = n - 1
+    g = _grid(n) if itemsize == 4 else min(132, -(-n // 512))
+    plan = k7.tile_plan(m, g, itemsize)
+    if plan.whole:
+        assert not plan.residue and m <= 1 << plan.levels
+        return
+    p = 1 << plan.levels
+    rows = -(-m // p)
+    fits = rows <= _budget_rows(itemsize)
+    assert plan.residue == fits
+    if n == 1_000_000:
+        assert (plan.levels, plan.residue) == ((8, True) if itemsize == 4 else (9, True))
+    if itemsize == 4 and 1_769_472 < m <= 2_000_000:
+        assert (plan.levels, plan.residue) == (9, True)
+    if itemsize == 8 and n == 4_000_000:
+        assert (plan.levels, plan.residue) == (7, False)
+    if plan.residue:
+        assert plan.group == min(-(-p // g), _budget_rows(itemsize) // rows)
+        assert plan.group * rows <= plan.window
+        assert plan.smem(itemsize) <= k7.SMEM_BUDGET
+        assert plan.scratch_rows(m) >= p * rows and plan.scratch_rows(m) % 32 == 0
+        assert k7.syncs_per_round(plan) == 4
+        forced = k7.tile_plan(m, g, itemsize, residue=False)
+        assert (forced.levels, forced.group) == (k7.TILE_LEVELS[itemsize][2], 0)
+        assert k7.syncs_per_round(forced) == forced.steps - forced.levels + 2
+    else:
+        assert plan.group == 0 and plan.scratch_rows(m) == k7.padded(m)
+        with pytest.raises(ValueError, match="class"):
+            k7.tile_plan(m, g, itemsize, residue=True)

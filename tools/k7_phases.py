@@ -1,18 +1,22 @@
 """Where a round of K7 (the TV-1D PDAS kernel, ``csrc/tv1d_pdas.cu``) spends
 its time, phase by phase, on the card.
 
-    python3 -m tools.k7_phases          (from the repository root)
+    python3 -m tools.k7_phases [n ...]          (from the repository root)
 
 Builds ``csrc/tv1d_pdas.cu`` with ``-DK7_PHASE_MARKS`` (its own library
 under ``build/kernels/``; the port's build has no marks), in which thread 0
 of block 0 reads ``clock64()`` at the phase boundaries of every round of
 both builds (``MARK`` in the source: the tile build, ``pdas_tiles``, and the
-levels build it replaced, ``pdas_levels``), and runs both builds at n =
-10,000 and 100,000, f32 and f64, cold and warm at the solver's inner
-tolerance, as ``tools/profile_port.py --k7-tiles`` does.  Prints the median
-cycles of each phase over the rounds (block 0's view: a phase that ends in
-a grid sync includes the wait for the slowest block), the device ms of a
-call (of the marked build), the grid syncs it counted, and a JSON line.
+levels build it replaced, ``pdas_levels``), and runs the tile build on its
+plan (``tiles``), on the same K with levels K..steps-2 in device memory
+where its plan has the residue stage (``tiles dev``), and the levels build,
+at each n given (10,000, 100,000 and 1,000,000 when none is), f32 and f64,
+cold and warm at the solver's inner tolerance, as ``tools/profile_port.py
+--k7-tiles`` does.  Prints the median cycles of each phase over the
+rounds (block 0's view: a phase that ends in a grid sync includes the wait
+for the slowest block, and on an SM that keeps two blocks, for the other
+one), the device ms of a call (of the marked build), the grid syncs it
+counted, and a JSON line.
 """
 
 import ctypes
@@ -24,11 +28,13 @@ import numpy as np
 import torch
 
 # csrc/tv1d_pdas.cu MARK_ROUNDS and MARKS
-MARK_ROUNDS, MARKS = 64, 10
+MARK_ROUNDS, MARKS = 64, 11
+TILE_PHASES = ["tile stage", "its grid sync", "residue stage or levels in device memory",
+               "residue sync", "trials (last level merged without the residue stage)",
+               "trial sync", "trial sums", "step, next start merged", "step sync", "stop test"]
 PHASES = {
-    "tiles": ["tile stage", "its grid sync", "levels in device memory",
-              "trials, last level merged", "trial sync", "trial sums",
-              "step, next start merged", "step sync", "stop test"],
+    "tiles": TILE_PHASES,
+    "tiles dev": TILE_PHASES,
     "levels": ["start", "its grid sync", "PCR levels, a sync each", "trials", "trial sync",
                "trial sums", "step", "step sync", "stop test"],
 }
@@ -45,7 +51,11 @@ def marked_library():
     return lib
 
 
-def main():
+SIZES = (10_000, 100_000, 1_000_000)
+
+
+def main(argv):
+    sizes = tuple(int(a) for a in argv) or SIZES
     if not torch.cuda.is_available():
         print("k7_phases: no CUDA device available", file=sys.stderr)
         return 1
@@ -62,17 +72,22 @@ def main():
     try:
         for dtype, floor in ((torch.float32, 3e-4), (torch.float64, 1e-7)):
             tol = max(0.1 * LIBRARY_REL_TOL, floor)
-            for n in (10_000, 100_000):
+            for n in sizes:
                 v = torch.as_tensor(tv_signal(n, 1), dtype=dtype, device=dev)
                 lam = float(np.sqrt(n))
                 z_cold = k7.pdas_levels(v, lam, tol)[1]
                 v2 = v + 0.05 * torch.as_tensor(np.random.RandomState(2).randn(n), dtype=dtype,
                                                 device=dev)
+                rule = k7.plan_for(v)
+                plans = {"tiles": rule, "levels": None}
+                if rule.residue:
+                    plans["tiles dev"] = k7.tile_plan(n - 1, k7.grid("pdas", n, v),
+                                                      v.element_size(), residue=False)
                 for kind, z0 in (("cold", None), ("warm", z_cold)):
                     args = k7._pdas_args("tv1d_pdas", v2, lam, z0)
-                    for build_name in ("tiles", "levels"):
+                    for build_name, plan in plans.items():
                         def call():
-                            return k7._launch_pdas(args, tol, 40, build_name)
+                            return k7._launch_pdas(args, tol, 40, build_name.split()[0], plan)
                         ms = device_ms(call, reps=20)
                         marks = torch.zeros(MARK_ROUNDS * MARKS, dtype=torch.int64, device=dev)
                         if lib.tv1d_pdas_set_marks(marks.data_ptr()) != 0:
@@ -81,8 +96,8 @@ def main():
                         rounds = int(call()[3])
                         syncs = int(counter)
                         lib.tv1d_pdas_set_marks(None)
-                        t = marks.cpu().numpy().reshape(MARK_ROUNDS, MARKS)[:min(rounds,
-                                                                                MARK_ROUNDS)]
+                        t = marks.cpu().numpy().reshape(MARK_ROUNDS, MARKS)[
+                            :min(rounds, MARK_ROUNDS), :len(PHASES[build_name]) + 1]
                         phases = [float(np.median(d)) for d in np.diff(t, axis=1).T]
                         per_round = float(np.median(t[:, -1] - t[:, 0]))
                         key = f"{build_name} n={n} {str(dtype)[6:]} {kind}"
@@ -100,4 +115,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

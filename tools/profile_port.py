@@ -57,11 +57,15 @@ wall ms/iteration of each side (median and min-max).  Both sides compute
 the same bits, so they take the same iterations; the launch counters say
 which kernels ran.
 
-    python3 -m tools.profile_port --k7-tiles
+    python3 -m tools.profile_port --k7-tiles [n ...] [--earlier <tree>]
 
-times K7's tile build at every depth K = 6..11 that fits and its levels
-build, in turns, at n = 10,000 and 100,000, f32 and f64, cold and warm: what
-``tile_plan``'s K was set from.
+times K7's tile build at every depth K = 6..11 that fits, each with its
+residue stage where that fits and with levels K..steps-2 in device memory,
+and its levels build, in turns, at n = 10,000, 100,000 and 1,000,000 (or
+the n given), f32 and f64, cold and warm: what ``tile_plan``'s K and its
+residue rule were set from; with ``--earlier``, the tile build of an
+earlier tree (say a ``git archive`` of the parent commit, whose build has
+no residue stage) beside them.
 
     python3 -m tools.profile_port --plain-ab logreg_l1,tv_1d@n_block,family:tv
 
@@ -528,22 +532,77 @@ K7_SWEEP_LEVELS = tuple(range(6, 12))
 K7_SWEEP_ROUNDS, K7_SWEEP_REPS = 3, 20
 
 
-def k7_tiles(rounds=K7_SWEEP_ROUNDS):
-    """K7's tile depth, in turns in this process: at n =
-    10,000 and 100,000 (``fused_lasso``'s and ``tv_1d``'s lengths), f32 and
-    f64, cold and warm at the solver's inner tolerance for the harness's
-    rel_tol, the tile build at every K of K7_SWEEP_LEVELS that fits the
-    shared memory budget and the levels build; ``rounds`` rounds of every
+# The C entry of an earlier tree's tile build, which has no residue stage:
+# no group in its arguments, and a byte of act a row.
+K7_EARLIER_ARGS = ("P", "P", "P", "scalar", "scalar", "I", "I", "I", "I", "I", "I", "P", "P",
+                   "P", "P", "P", "P", "P", "P", "I", "P")
+
+
+def _k7_earlier(tree):
+    """A launcher of the tile build of an earlier tree (``csrc/tv1d_pdas.cu``
+    under ``tree``, the entries of K7_EARLIER_ARGS) on the plan of this
+    tree's rule with levels in device memory, the same K and tiles: it
+    takes ``(args, tol, plan)`` as ``tv1d_pdas._launch_pdas`` does."""
+    import ctypes
+    from pathlib import Path
+    from epsilon_tpu_torch.ops.kernels import _rows
+    from epsilon_tpu_torch.ops.kernels import tv1d_pdas as k7
+    lib = ctypes.CDLL(str(_rows.build("tv1d_pdas", (), Path(tree) / "epsilon_tpu_torch" /
+                                      "csrc")[0]))
+    for t, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"tv1d_pdas_{t}")
+        fn.argtypes = [scalar if a == "scalar" else ctypes.c_int if a == "I" else
+                       ctypes.c_void_p for a in K7_EARLIER_ARGS]
+        fn.restype = ctypes.c_int
+
+    def launch(args, tol, plan):
+        _, v, lam_ptr, lam_value, _, z0 = args
+        n = v.shape[0]
+        m, mp = n - 1, k7.padded(n - 1)
+        g = k7.grid("pdas", n, v)
+        x, z = torch.empty_like(v), torch.empty(m, dtype=v.dtype, device=v.device)
+        gap = torch.empty((), dtype=v.dtype, device=v.device)
+        rounds = torch.empty((), dtype=torch.int32, device=v.device)
+        scratch = torch.empty(12 * mp + 16 * g, dtype=v.dtype, device=v.device)
+        act = torch.empty(m, dtype=torch.int8, device=v.device)
+        flags = torch.empty(2 * g, dtype=torch.int32, device=v.device)
+        fn = getattr(lib, f"tv1d_pdas_{_rows.suffix(v)}")
+        _rows.launch("tv1d_pdas", fn, (
+            v.data_ptr(), None if z0 is None else z0.data_ptr(), lam_ptr, lam_value, float(tol),
+            n, 40, k7.pcr_steps(m), plan.levels, plan.tile, int(plan.whole), x.data_ptr(),
+            z.data_ptr(), gap.data_ptr(), rounds.data_ptr(),
+            k7.sync_counter(v.device).data_ptr(), scratch.data_ptr(), act.data_ptr(),
+            flags.data_ptr(), g), v)
+        return x, z, gap, rounds
+
+    return launch
+
+
+def k7_tiles(rounds=K7_SWEEP_ROUNDS, sizes=(10_000, 100_000, 1_000_000), earlier=None):
+    """K7's tile depth and its residue stage, in turns in this process: at
+    n = 10,000, 100,000 and 1,000,000 (``fused_lasso``'s and ``tv_1d``'s
+    lengths, and portbench's ``tv1d_1m``), f32 and f64, cold and warm at
+    the solver's inner tolerance for the harness's rel_tol, the tile build
+    at every K of K7_SWEEP_LEVELS that fits the shared memory budget, with
+    the residue stage where it fits (``K=8``) and with levels in device
+    memory (``K=8 dev``), and the levels build; ``rounds`` rounds of every
     side in order and reversed, each reading the median device ms of
-    K7_SWEEP_REPS calls.  Prints a line a case and a JSON line of all."""
+    K7_SWEEP_REPS calls; with ``earlier``, a tree, its tile build on the
+    plan of the rule without the residue stage too (``earlier``; its x, z,
+    gap and rounds checked bitwise against this tree's).  Prints a line a
+    case, with the dispatched plan's time over that of the rule's plan
+    without the residue stage (the plan it replaces) and over the earlier
+    tree's, and a JSON line of all."""
     import json
     from chip_smoke import LIBRARY_REL_TOL, tv_signal
     from epsilon_tpu_torch.ops.kernels import tv1d_pdas as k7
+    from chip_smoke import same_bits
     dev = torch.device("cuda")
     cases = []
+    old = _k7_earlier(earlier) if earlier else None
     for dtype, floor in ((torch.float32, 3e-4), (torch.float64, 1e-7)):
         tol = max(0.1 * LIBRARY_REL_TOL, floor)
-        for n in (10_000, 100_000):
+        for n in sizes:
             v = torch.as_tensor(tv_signal(n, 1), dtype=dtype, device=dev)
             lam = float(np.sqrt(n))
             z_cold = k7.pdas(v, lam, tol)[1]
@@ -555,13 +614,23 @@ def k7_tiles(rounds=K7_SWEEP_ROUNDS):
                 args = k7._pdas_args("tv1d_pdas", v2, lam, z0)
                 sides = {}
                 for levels in K7_SWEEP_LEVELS:
-                    try:
-                        plan = k7.tile_plan(n - 1, g, v.element_size(), levels)
-                    except ValueError:
-                        continue
-                    sides[f"K={levels}"] = (
-                        lambda plan=plan: k7._launch_pdas(args, tol, 40, "tiles", plan))
+                    for residue, name in ((True, f"K={levels}"), (False, f"K={levels} dev")):
+                        try:
+                            plan = k7.tile_plan(n - 1, g, v.element_size(), levels, residue)
+                        except ValueError:
+                            continue
+                        if plan.whole and not residue:
+                            continue
+                        sides[name] = (
+                            lambda plan=plan: k7._launch_pdas(args, tol, 40, "tiles", plan))
                 sides["levels"] = lambda: k7.pdas_levels(v2, lam, tol, z0=z0)
+                if old is not None:
+                    dev_plan = k7.tile_plan(n - 1, g, v.element_size(), residue=False)
+                    sides["earlier"] = lambda plan=dev_plan: old(args, tol, plan)
+                    mine, theirs = k7._launch_pdas(args, tol, 40, "tiles"), sides["earlier"]()
+                    if not all(same_bits(a, b) for a, b in zip(mine, theirs)):
+                        raise RuntimeError(f"k7-tiles: the earlier tree's x, z, gap or rounds "
+                                           f"differ at n = {n}, {dtype}, {kind}")
                 rounds_run = int(sides["levels"]()[3])
                 readings = {side: [] for side in sides}
                 for _ in range(rounds):
@@ -571,14 +640,24 @@ def k7_tiles(rounds=K7_SWEEP_ROUNDS):
                 ms = {side: (statistics.median(r), min(r), max(r))
                       for side, r in readings.items()}
                 best = min((s for s in ms if s.startswith("K=")), key=lambda s: ms[s][0])
+                rule_side = f"K={rule.levels}" + ("" if rule.residue else " dev")
+                dev_side = f"K={k7.tile_plan(n - 1, g, v.element_size(), residue=False).levels} dev"
+                ratio = ms[rule_side][0] / ms[dev_side][0] if dev_side in ms else None
+                over_earlier = ms[rule_side][0] / ms["earlier"][0] if old is not None else None
                 print(f"[k7-tiles] n={n} {str(dtype)[6:]} {kind} (tol {tol:g}, {rounds_run} "
-                      f"rounds, grid {g}, rule K = {rule.levels}, tiles of {rule.tile} rows): "
+                      f"rounds, grid {g}, rule K = {rule.levels}, tiles of {rule.tile} rows, "
+                      f"residue groups of {rule.group}): "
                       + "; ".join(f"{side} {med:.4f} ({lo:.4f}-{hi:.4f})"
                                   for side, (med, lo, hi) in ms.items())
-                      + f"; fastest {best}", flush=True)
+                      + f"; fastest {best}; dispatched ({rule_side}) / {dev_side} "
+                      + ("-" if ratio is None else f"{ratio:.4f}")
+                      + ("" if old is None else f"; dispatched / earlier {over_earlier:.4f}"),
+                      flush=True)
                 cases.append({"n": n, "dtype": str(dtype)[6:], "kind": kind, "tol": tol,
                               "rounds": rounds_run, "grid": g, "rule_levels": rule.levels,
-                              "ms": ms, "fastest": best})
+                              "rule_group": rule.group, "ms": ms, "fastest": best,
+                              "dispatched_over_device_levels": ratio,
+                              "dispatched_over_earlier": over_earlier})
     print(json.dumps({"k7_tiles": cases}))
 
 
@@ -1112,8 +1191,11 @@ def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--exit-ab":
         exit_ab(sys.argv[2].split(","))
         return 0
-    if sys.argv[1:] == ["--k7-tiles"]:
-        k7_tiles()
+    if sys.argv[1:2] == ["--k7-tiles"]:
+        args = sys.argv[2:]
+        earlier = args[args.index("--earlier") + 1] if "--earlier" in args else None
+        sizes = tuple(int(a) for a in args if a.isdigit())
+        k7_tiles(sizes=sizes or (10_000, 100_000, 1_000_000), earlier=earlier)
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--plain-ab":
         plain_ab(sys.argv[2].split(","))
