@@ -23,6 +23,7 @@ from ..frontend.expression import Expression, ExprType
 from ..ir import AffineOperator
 from ..ops import linop
 from ..ops.block import BlockMatrix, BlockVector
+from ..utils.timing import count
 
 
 @dataclasses.dataclass
@@ -215,15 +216,26 @@ def _const_as_linop(e: Expression, m: int) -> linop.LinOp:
             return linop.scalar(e.attr["scalar"], m)
         v = e.attr["value"]
         if sp.issparse(v):
-            return linop.sparse(v)
-        return linop.dense(v)   # device constants stay device-resident
+            return _folded(linop.sparse(v))
+        return _folded(linop.dense(v))   # device constants stay device-resident
     if e.expr_type == ExprType.TRANSPOSE:
         return _const_as_linop(e.args[0], m).T
     # general constant: evaluate
     val = constant_value(e)
     if val.size == 1:
         return linop.scalar(float(val.ravel()[0]), m)
-    return linop.dense(val)
+    return _folded(linop.dense(val))
+
+
+def _folded(op: linop.LinOp) -> linop.LinOp:
+    """Count the host bytes of a constant folded into an operator
+    (``compile.folded_bytes``)."""
+    A = op.A
+    if sp.issparse(A):
+        count("compile.folded_bytes", A.data.nbytes + A.indices.nbytes + A.indptr.nbytes)
+    else:
+        count("compile.folded_bytes", A.nbytes)
+    return op
 
 
 def _kron_left_map(A: np.ndarray, mb: int, nb: int) -> linop.LinOp:

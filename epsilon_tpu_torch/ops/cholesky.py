@@ -37,11 +37,19 @@ class BlockCholesky:
 
     # -- symbolic + numeric factorization (host, eager) --------------------
     def factor(self) -> "BlockCholesky":
+        """Eliminate every block on the host, under the ``epsilon.factor``
+        span (its argument: the largest pivot's dimension)."""
+        from ..utils.timing import span  # here: utils imports ir, which imports ops
         blocks: Dict[Tuple[str, str], LinOp] = dict(self.A.blocks)
         keys = sorted({r for r, _ in blocks} | {c for _, c in blocks})
         for k in keys:
             self._dims[k] = _dim_of(blocks, k)
+        with span("epsilon.factor", (max(self._dims.values(), default=0),)):
+            self._eliminate(blocks, keys)
+        self._factorized = True
+        return self
 
+    def _eliminate(self, blocks, keys):
         remaining = set(keys)
         order = self._native_order(blocks, keys)
         while remaining:
@@ -62,6 +70,10 @@ class BlockCholesky:
                     f"BlockCholesky: zero diagonal block at {pivot!r}; "
                     "system is not factorizable in this ordering")
             D_inv = D.inverse()
+            if config.use_explicit_inverse() and hasattr(D_inv, "_host_inv"):
+                # a cached factor's device apply is its explicit inverse:
+                # form it here, with the factor, and not at its first apply
+                D_inv._host_inv()
 
             # Off-diagonal column under the pivot: rows i != pivot with A[i,p]
             col = {r: op for (r, c), op in blocks.items()
@@ -86,9 +98,6 @@ class BlockCholesky:
                 del blocks[key]
             remaining.discard(pivot)
             self._steps.append((pivot, D_inv, L))
-
-        self._factorized = True
-        return self
 
     def _native_order(self, blocks, keys) -> Optional[List[str]]:
         """The whole elimination order for systems of three or more keys;

@@ -49,7 +49,7 @@ from ..ir import (AffineOperator, Cone, ProxFunctionSpec, ProxKind,
 from ..ops import linop
 from ..ops.block import BlockMatrix, BlockVector
 from ..ops.prox.operator import create_prox_operator, create_rho_prox_operator
-from ..utils.timing import PROX_SPANS, span
+from ..utils.timing import PROX_SPANS, count, span
 from . import scenario
 from .objective import problem_objective, term_objective
 from .params import SolverKind, SolverParams
@@ -92,6 +92,13 @@ def _setup_span(init):
 
 
 # -- has the data of an operator changed? (update_problem) -------------------
+# Each array comparison counts one side's bytes (``update.compared_bytes``).
+
+def _same_array(a, b) -> bool:
+    a = np.asarray(a)
+    count("update.compared_bytes", a.nbytes)
+    return np.array_equal(a, b)
+
 
 def _same_linop(a, b) -> bool:
     if type(a) is not type(b) or tuple(a.shape) != tuple(b.shape):
@@ -99,10 +106,12 @@ def _same_linop(a, b) -> bool:
     if isinstance(a, linop.ScalarOp):
         return a.alpha == b.alpha
     if isinstance(a, linop.DiagonalOp):
-        return np.array_equal(a.d, b.d)
+        return _same_array(a.d, b.d)
     if isinstance(a, linop.DenseOp):
-        return np.array_equal(a.A, b.A)
+        return _same_array(a.A, b.A)
     if isinstance(a, linop.SparseOp):
+        count("update.compared_bytes",
+              a.A.data.nbytes + a.A.indices.nbytes + a.A.indptr.nbytes)
         return (a.A != b.A).nnz == 0
     if isinstance(a, linop.KronOp):
         return _same_linop(a.A, b.A) and _same_linop(a.B, b.B)
@@ -113,8 +122,7 @@ def _same_affine(a: AffineOperator, b: AffineOperator) -> bool:
     if a.A.blocks.keys() != b.A.blocks.keys() or a.b.keys() != b.b.keys():
         return False
     return (all(_same_linop(op, b.A.blocks[k]) for k, op in a.A.blocks.items())
-            and all(np.array_equal(np.asarray(v), np.asarray(b.b[k]))
-                    for k, v in a.b.items()))
+            and all(_same_array(v, np.asarray(b.b[k])) for k, v in a.b.items()))
 
 
 def _same_spec(a: ProxFunctionSpec, b: ProxFunctionSpec) -> bool:
@@ -122,7 +130,7 @@ def _same_spec(a: ProxFunctionSpec, b: ProxFunctionSpec) -> bool:
     return ((a.kind, a.epigraph, a.alpha, a.k, a.axis, list(a.arg_sizes))
             == (b.kind, b.epigraph, b.alpha, b.k, b.axis, list(b.arg_sizes))
             and pa.keys() == pb.keys()
-            and all(np.array_equal(v, pb[k]) for k, v in pa.items()))
+            and all(_same_array(v, pb[k]) for k, v in pa.items()))
 
 
 def _same_constraints(p: ProxProblem, q: ProxProblem) -> bool:
@@ -652,6 +660,7 @@ class ProxADMMTwoBlockSolver(SolverBase):
             self.last_rebuilt += mine
         if not _same_constraints(problem, old):
             self._build_constr_prox(problem)
+        count("update.rebuilt_terms", len(self.last_rebuilt))
 
     def objective_value(self, x: BlockVector):
         """The objective at ``x``.  With a group each rank evaluates the
@@ -1017,11 +1026,13 @@ class ProxADMMSolver(SolverBase):
         if not _same_constraints(problem, old):
             self._build_constraints(problem)
             self._build_term_ops(problem)
+            count("update.rebuilt_terms", len(problem.terms))
             return
         for i, (t, t_old) in enumerate(zip(problem.terms, old.terms)):
             if not (_same_spec(t.spec, t_old.spec) and _same_affine(t.H, t_old.H)):
                 self.term_ops[i] = create_prox_operator(
                     t.spec, t.H, AffineOperator(self.Ai[i], BlockVector()))
+                count("update.rebuilt_terms")
 
     # -- iteration ------------------------------------------------------------
     def _pad(self, y: BlockVector) -> BlockVector:

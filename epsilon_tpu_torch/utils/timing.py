@@ -11,13 +11,21 @@ the totals.  :func:`profile_trace` records a Chrome trace of a block.
 
 Spans: ``epsilon.solve`` (the root; its argument, the process's count of
 solves, marks the spans of one solve), ``epsilon.compile``, ``epsilon.update_problem``,
-``epsilon.solver_setup``, ``epsilon.admm_loop``, ``epsilon.x_update``,
+``epsilon.solver_setup``, ``epsilon.factor`` (a ``BlockCholesky.factor``:
+the host elimination, with each cached factor's LU or Cholesky and, where
+the device applies it, its explicit inverse; its argument, the largest
+pivot's dimension), ``epsilon.admm_loop``, ``epsilon.x_update``,
 ``epsilon.z_update``, ``epsilon.residuals``, ``epsilon.prox.<kind>`` and
 ``epsilon.write_back`` (:data:`PROX_SPANS` names the prox spans).
 Counters: ``tv1d.calls`` and ``tv1d.rounds`` (the TV-1D PDAS prox, of
 either version: K7 on the card, its plain version on the CPU), and
 ``tv1d.residue`` (those calls that launched K7 on a plan with the residue
-stage).
+stage); ``compile.folded_bytes`` (the host bytes of the constants that
+the compiler folds into dense or sparse operators), and on a cached
+solver's ``update_problem`` ``update.compared_bytes`` (the bytes of the
+new problem's arrays compared with the old one's) and
+``update.rebuilt_terms`` (the term operators built anew).  None of them
+runs once an ADMM iteration.
 """
 
 from __future__ import annotations
