@@ -246,6 +246,10 @@ class BlockMatrix:
             out[r] = out[r] + y if r in out else y
         return BlockVector(out)
 
+    def capturable(self) -> bool:
+        """Every block's apply may be captured (:meth:`LinOp.capturable`)."""
+        return all(op.capturable() for op in self.blocks.values())
+
     def as_dense(self):
         """Materialize as a single dense matrix with rows/cols ordered by
         sorted key (for tests and small KKT systems)."""

@@ -124,6 +124,13 @@ class LinOp(abc.ABC):
         """Apply to a concrete numpy vector on the host (compile-time use)."""
         return self.as_dense() @ np.asarray(x)
 
+    def capturable(self) -> bool:
+        """Whether ``matvec``/``matmat``, once the operator's data is on the
+        device (after a first apply), launch device work alone on the
+        current stream: no upload, no host sync, no hand kernel, so that a
+        CUDA graph may capture them."""
+        return False
+
     # -- host-side representations ----------------------------------------
     @abc.abstractmethod
     def as_dense(self) -> np.ndarray:
@@ -229,6 +236,9 @@ class ScalarOp(LinOp):
     def matmat(self, X):
         return self.matvec(X)
 
+    def capturable(self):
+        return True
+
     def host_matvec(self, x):
         return self.alpha * np.asarray(x)
 
@@ -276,6 +286,9 @@ class DiagonalOp(LinOp):
 
     def matmat(self, X):
         return self._device_d()[:, None] * X
+
+    def capturable(self):
+        return True
 
     def host_matvec(self, x):
         return self.d * np.asarray(x)
@@ -333,6 +346,9 @@ class DenseOp(LinOp):
 
     def matmat(self, X):
         return self._device_A() @ X
+
+    def capturable(self):
+        return True
 
     def host_matvec(self, x):
         return self.A @ np.asarray(x, dtype=self.A.dtype)
@@ -396,6 +412,10 @@ class SparseOp(LinOp):
 
     def matmat(self, X):
         return self._device_A() @ X
+
+    def capturable(self):
+        # a densified operator is a dense product; cuSPARSE's is not counted
+        return self.densified()
 
     def host_matvec(self, x):
         return self.A @ np.asarray(x)
@@ -476,6 +496,9 @@ class KronOp(LinOp):
         Y = self.A.matmat(T).reshape(self.A.m, k, self.B.m)
         # Y[:, j, :] = (B X_j A^T)^T; its row-major flatten is vec(B X_j A^T)
         return Y.permute(1, 0, 2).reshape(k, self.m).T
+
+    def capturable(self):
+        return self.A.capturable() and self.B.capturable()
 
     def host_matvec(self, x):
         X = mat(np.asarray(x), (self.B.n, self.A.n))
@@ -576,6 +599,11 @@ class CholFactorOp(LinOp):
             return self._device_inv() @ X
         return torch.cholesky_solve(X, self._device_L())
 
+    def capturable(self):
+        # the explicit inverse's dense product; not K2 nor the solve
+        return (config.use_explicit_inverse()
+                and not config.use_sym_packed(self.shape[0]))
+
     def host_matvec(self, x):
         return scipy.linalg.cho_solve((self.L, True), np.asarray(x))
 
@@ -644,6 +672,10 @@ class LuFactorOp(LinOp):
     def _lu_solve(self, X):
         lu, piv = self._device_lu()
         return torch.linalg.lu_solve(lu, piv, X, adjoint=self.transposed)
+
+    def capturable(self):
+        return config.use_explicit_inverse() and not (
+            self._sym and config.use_sym_packed(self.shape[0]))
 
     def host_matvec(self, x):
         return scipy.linalg.lu_solve((self.lu, self.piv), np.asarray(x),

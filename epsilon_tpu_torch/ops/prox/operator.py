@@ -71,6 +71,13 @@ class ProxOperator:
     def apply(self, v: BlockVector) -> BlockVector:
         raise NotImplementedError
 
+    def capturable(self) -> bool:
+        """Whether :meth:`apply` (and ``apply_rho``), after a first call that
+        uploads the operator's data, launches device work alone: no host
+        sync, no host read of device data, no host control flow on it and no
+        upload, so that a CUDA graph of the ADMM epoch may capture it."""
+        return False
+
     def stack_signature(self, var: str):
         return None
 
@@ -384,6 +391,14 @@ class VectorProxOperator(ProxOperator):
     def apply(self, v: BlockVector, rho=None) -> BlockVector:
         u = self.B.apply(v) + self.g.to_device()
         return self._finish(v, self._apply_kernel(self._kernel_args(u), rho=rho))
+
+    def capturable(self) -> bool:
+        """A plain elementwise prox (the kernel entry's flag; no warm
+        state, no epigraph loop) between capturable affine maps."""
+        return (self.entry.capturable and self.entry.stateful_prox is None
+                and not self.spec.epigraph and self.B.capturable()
+                and self.C.capturable()
+                and (self.D is None or self.D.capturable()))
 
     # -- scenario stacking ---------------------------------------------------
     def _stack_parts(self, var: str):
@@ -725,10 +740,24 @@ class _KKTProxOperator(ProxOperator):
     """Shared apply of the KKT operators: the factored (or collapsed)
     system solved at ``rhs0 + v``, restricted to the variable blocks."""
 
+    # the classes whose apply a CUDA graph may capture (:meth:`capturable`)
+    _captures = False
+
     def _finish_init(self, A: BlockMatrix):
         self._collapsed = _maybe_collapse(
             self.chol, self.rhs0, A, self.var_keys,
             lambda k: self.chol._dims[k])
+
+    def capturable(self) -> bool:
+        """The collapsed solve (one dense product), or a substitution chain
+        whose every block applies as a capturable product (the explicit
+        inverse and dense GEMVs on the card)."""
+        if not self._captures:
+            return False
+        if self._collapsed is not None:
+            return True
+        return all(D_inv.capturable() and all(op.capturable() for op in L.values())
+                   for _, D_inv, L in self.chol._steps)
 
     def apply(self, v: BlockVector) -> BlockVector:
         if self._collapsed is not None:
@@ -842,6 +871,8 @@ class ZeroProxOperator(_KKTProxOperator):
         [ A   0  -I ][z]   [ v]
     """
 
+    _captures = True
+
     def __init__(self, spec: ProxFunctionSpec, affine_arg: AffineOperator,
                  affine_constraint: AffineOperator):
         H, g = affine_arg.A, affine_arg.b
@@ -888,6 +919,8 @@ class SumSquareProxOperator(_KKTProxOperator):
         [ aH   -I   0 ][y] = [-ag ]
         [ A    0   -I ][z]   [  v ]
     with a = sqrt(2*alpha)."""
+
+    _captures = True
 
     def __init__(self, spec: ProxFunctionSpec, affine_arg: AffineOperator,
                  affine_constraint: AffineOperator):
@@ -980,6 +1013,9 @@ class RhoProjectionOperator(ProxOperator):
 
     def apply_rho(self, v: BlockVector, rho) -> BlockVector:
         return self.inner.apply(v)
+
+    def capturable(self) -> bool:
+        return self.inner.capturable()
 
     def stack_signature(self, var: str):
         sig = self.inner.stack_signature(var)
@@ -1090,6 +1126,9 @@ class RhoSumSquareProxOperator(ProxOperator):
 
     def apply(self, v: BlockVector) -> BlockVector:
         return self.apply_rho(v, 1.0)
+
+    def capturable(self) -> bool:
+        return True   # two dense products with the cached eigenvectors
 
     def stack_signature(self, var: str):
         if self.col_keys != [var]:

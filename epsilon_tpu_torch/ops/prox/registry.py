@@ -10,7 +10,10 @@ Counterpart of ``epsilon_tpu/ops/prox/registry.py``: maps each
 ``elementwise=True`` kernels accept a per-coordinate ``lam``; the others
 take a number (or one per problem of a batch).  ``stateful_prox`` and
 ``state_init`` are the warm-startable form of iteratively solved kernels
-(TV-1D: the PDAS dual).
+(TV-1D: the PDAS dual).  ``capturable`` marks a prox whose call launches
+plain elementwise device work alone (no host sync, no host read of device
+data, no loop on the host), which a CUDA graph of the ADMM epoch may
+capture.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ class KernelEntry:
     # with state_init(dim, dtype) the cold start
     stateful_prox: Optional[Callable] = None
     state_init: Optional[Callable] = None
+    capturable: bool = False
 
 
-def _scaled_zone_entry(defaults):
+def _scaled_zone_entry(defaults, capturable=False):
     def prox(v, lam, **p):
         q = {**defaults, **p}
         return ew.prox_scaled_zone(v, lam, q["alpha"], q["beta"], q["C"], q["M"])
@@ -59,7 +63,8 @@ def _scaled_zone_entry(defaults):
         q = {**defaults, **p}
         return ew.eval_scaled_zone(x, q["alpha"], q["beta"], q["C"], q["M"])
 
-    return KernelEntry(prox=prox, epi=epi, feval=feval, elementwise=True)
+    return KernelEntry(prox=prox, epi=epi, feval=feval, elementwise=True,
+                       capturable=capturable)
 
 
 def _epi_sum_square(v, s):
@@ -110,7 +115,8 @@ KERNELS: Dict[ProxKind, KernelEntry] = {
         prox=lambda v, lam, **p: ew.prox_non_negative(v, lam),
         feval=lambda x, **p: _zero(x),
         elementwise=True),
-    ProxKind.NORM_1: _scaled_zone_entry(dict(alpha=1.0, beta=1.0, C=0.0, M=0.0)),
+    ProxKind.NORM_1: _scaled_zone_entry(dict(alpha=1.0, beta=1.0, C=0.0, M=0.0),
+                                        capturable=True),
     ProxKind.SUM_DEADZONE: _scaled_zone_entry(dict(alpha=1.0, beta=1.0, C=0.0, M=0.0)),
     ProxKind.SUM_HINGE: _scaled_zone_entry(dict(alpha=1.0, beta=0.0, C=0.0, M=0.0)),
     ProxKind.SUM_QUANTILE: _scaled_zone_entry(dict(alpha=1.0, beta=1.0, C=0.0, M=0.0)),

@@ -17,7 +17,10 @@ two-block solver, ``SolverParams.mesh``) over the ranks of a
 The JAX package's device ``while_loop`` and its host epoch loop are one
 Python loop over epochs here, with one host sync per epoch (the residual
 check) and the same per-epoch residual series; ``SolverParams.drive`` says
-where the two values still differ.  Both solvers take stop callbacks and a
+where the two values still differ.  On a card, where every operator it
+applies is capturable, the two-block solver on one device replays each
+epoch as a CUDA graph (:mod:`.epoch_graph`) instead of issuing its
+launches from Python.  Both solvers take stop callbacks and a
 checkpointer, rebuild themselves in place when a cached solver is asked for
 another rho or mode (keeping the warm state where that is well defined),
 and take new problem data of the same structure (:meth:`update_problem`).
@@ -35,6 +38,7 @@ alone.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 from typing import Dict, List, Optional
@@ -51,6 +55,7 @@ from ..ops.block import BlockMatrix, BlockVector
 from ..ops.prox.operator import create_prox_operator, create_rho_prox_operator
 from ..utils.timing import PROX_SPANS, count, span
 from . import scenario
+from .epoch_graph import EpochGraph
 from .objective import problem_objective, term_objective
 from .params import SolverKind, SolverParams
 from .status import Residuals, SolverState, SolverStatus, Timing
@@ -189,6 +194,12 @@ class SolverBase:
     def _agree_stop(self, stop: bool) -> bool:
         return stop
 
+    def _graph_key(self):
+        """The key of the CUDA graph that replays the epoch
+        (:class:`.epoch_graph.EpochGraph`), or None where the epoch runs
+        eagerly (the N-block solver)."""
+        return None
+
     def _rebuild_full(self):
         """Reconstruct the solver in place for a changed mode (adaptive_rho
         flip) or fixed rho, keeping the hooks the caller attached, which
@@ -243,22 +254,31 @@ class SolverBase:
                  else max(1, p.max_iterations // epoch_iters) * epoch_iters)
         state, iters = self._resume_state(state)
         series: List[Residuals] = []
-        while True:
-            state, out, res = self._epoch(state)
-            iters += epoch_iters
-            with span("epsilon.residuals"):
-                r = Residuals(*res.tolist())   # the epoch's one host sync
-            series.append(r)
-            conv = r.r_norm <= r.epsilon_primal and r.s_norm <= r.epsilon_dual
-            if host and self._checkpointer is not None:
-                self._save_checkpoint(iters, state, periodic=True)
-            if p.verbose and (iters % p.log_iterations < epoch_iters):
-                self.status.num_iterations = iters
-                self.status.residuals = r
-                logger.info(self.status.log_line())
-            if conv or iters >= limit or (
-                    host and self._agree_stop(self._has_external_stop())):
-                break
+        key = self._graph_key()
+        epochs = (contextlib.nullcontext(self._epoch) if key is None else
+                  self._graph.epochs(self._epoch, self._prime, key, config.device()))
+        with epochs as epoch:
+            while True:
+                count("admm.epochs")
+                state, out, res = epoch(state)
+                iters += epoch_iters
+                with span("epsilon.residuals"):
+                    r = Residuals(*res.tolist())   # the epoch's one host sync
+                series.append(r)
+                conv = r.r_norm <= r.epsilon_primal and r.s_norm <= r.epsilon_dual
+                if host and self._checkpointer is not None:
+                    self._save_checkpoint(iters, state, periodic=True)
+                if p.verbose and (iters % p.log_iterations < epoch_iters):
+                    self.status.num_iterations = iters
+                    self.status.residuals = r
+                    logger.info(self.status.log_line())
+                if conv or iters >= limit or (
+                        host and self._agree_stop(self._has_external_stop())):
+                    break
+        if key is not None:
+            # the graph's output: a later replay must not change what this
+            # solve returns
+            out = BlockVector({k: v.clone() for k, v in out.items()})
         if not host and self._checkpointer is not None:
             self._save_checkpoint(iters, state, periodic=False)
         self.status.series = series
@@ -445,6 +465,7 @@ class ProxADMMTwoBlockSolver(SolverBase):
             # rank packs and checkpoints the same structure
             threads = any(self._all_gather_object(threads))
         self._kstate0 = tuple(ks) if threads else None
+        self._graph = EpochGraph()
 
     # -- the process group ------------------------------------------------------
     def _all_reduce(self, t, op=None):
@@ -457,6 +478,40 @@ class ProxADMMTwoBlockSolver(SolverBase):
         out = [None] * self.n_dev
         dist.all_gather_object(out, obj, group=self.mesh)
         return out
+
+    def graph_capturable(self) -> bool:
+        """Whether a card may replay the epoch as a CUDA graph: one device
+        (no group) and every operator the epoch applies capturable (the
+        warm-started TV-1D prox, the spectral proxes and the other kinds
+        are not)."""
+        return (self.mesh is None
+                and all(op.capturable() for op in self.term_ops)
+                and (self.constr_prox is None or self.constr_prox.capturable()))
+
+    def _graph_key(self):
+        """On a card, where :meth:`graph_capturable`: the operators the epoch
+        applies and the parameters it reads."""
+        if not (config.on_cuda() and self.graph_capturable()):
+            return None
+        p = self.params
+        return (tuple(self.term_ops) + (self.constr_prox,),
+                (config.device(), config.default_dtype(), p.epoch_iterations,
+                 p.abs_tol, p.rel_tol, p.rho, p.over_relaxation, self.adaptive,
+                 p.rho_mu, p.rho_tau))
+
+    def _prime(self, ops):
+        """Apply each of ``ops`` once at zeros, as the epoch applies it, so
+        that it uploads its data (before a capture of the epoch)."""
+        if not ops:
+            return
+        v = _zeros(self.all_dims)
+        rho = (torch.tensor(self.params.rho, dtype=config.default_dtype(),
+                            device=config.device()) if self.adaptive else None)
+        for op in ops:
+            if self.adaptive and op is not self.constr_prox:
+                op.apply_rho(v, rho)
+            else:
+                op.apply(v)
 
     def _agree_stop(self, stop: bool) -> bool:
         """An external stop is rank-local: with a group, every rank stops

@@ -24,8 +24,10 @@ stage); ``compile.folded_bytes`` (the host bytes of the constants that
 the compiler folds into dense or sparse operators), and on a cached
 solver's ``update_problem`` ``update.compared_bytes`` (the bytes of the
 new problem's arrays compared with the old one's) and
-``update.rebuilt_terms`` (the term operators built anew).  None of them
-runs once an ADMM iteration.
+``update.rebuilt_terms`` (the term operators built anew); ``admm.epochs``
+(the loop's epochs), ``admm.graph_epochs`` (those a CUDA graph replayed)
+and ``admm.graph_captures`` (the epochs captured), counted on the host
+once an epoch.  None of them runs once an ADMM iteration.
 """
 
 from __future__ import annotations
