@@ -2934,10 +2934,11 @@ def phase_kron_wide(sp):
     ``LIBRARY_REL_TOL``), its 8192-dimensional Kronecker factor applied by
     K2 to the ``K2_WIDE_R`` columns of the classes every iteration, then the
     same problem from a cold state on the cached solver with the packed
-    path off (``EPSILON_TPU_SYM_PACKED=0``: the dense explicit inverse on the
-    card, no second set-up): both optimal, finite, the objectives within
-    ``KRON_WIDE_RTOL``.  Returns K2's launches at ``K2_WIDE_R`` in the first
+    path off (``config.SYM_PACKED_MIN_DIM`` raised above every dimension:
+    the dense explicit inverse on the card, no second set-up): both
+    optimal, finite, the objectives within ``KRON_WIDE_RTOL``.  Returns K2's launches at ``K2_WIDE_R`` in the first
     solve and its launches by width."""
+    from epsilon_tpu_torch import config
     from epsilon_tpu_torch.problems import mnist
     t0 = time.time()
     prob = mnist.create(**KRON_WIDE)
@@ -2960,18 +2961,15 @@ def phase_kron_wide(sp):
                              f"objective {obj}, K2 launches by width {widths}")
     solver = cached_solver(prob)
     solver._warm_state = None
-    saved = os.environ.get("EPSILON_TPU_SYM_PACKED")
-    os.environ["EPSILON_TPU_SYM_PACKED"] = "0"
+    saved = config.SYM_PACKED_MIN_DIM
+    config.SYM_PACKED_MIN_DIM = sys.maxsize
     try:
         t1 = time.time()
         obj_dense = prob.solve(**params)
         torch.cuda.synchronize()
         wall_dense = time.time() - t1
     finally:
-        if saved is None:
-            del os.environ["EPSILON_TPU_SYM_PACKED"]
-        else:
-            os.environ["EPSILON_TPU_SYM_PACKED"] = saved
+        config.SYM_PACKED_MIN_DIM = saved
     iters_dense = prob.solver_status.num_iterations
     gap = abs(obj - obj_dense) / abs(obj_dense)
     if cached_solver(prob) is not solver or k2_widths() != widths:

@@ -15,8 +15,6 @@ passes make ADMM diverge (``epsilon_tpu/config.py:23-30``), so TF32 is off.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
@@ -24,20 +22,22 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # Same thresholds as the JAX package, so the port takes the same branches.
-SPARSE_DENSIFY_DENSITY = float(os.environ.get("EPSILON_TPU_DENSIFY_DENSITY", "0.01"))
-SPARSE_DENSIFY_MAX_ELEMS = int(os.environ.get("EPSILON_TPU_DENSIFY_MAX_ELEMS", str(64 * 1024 * 1024)))
+SPARSE_DENSIFY_DENSITY = 0.01
+SPARSE_DENSIFY_MAX_ELEMS = 64 * 1024 * 1024
 
 # How cached factorizations apply their solves on the device:
-#   "triangular" - cho/lu triangular solves
+#   "triangular" - LU triangular solves
 #   "inverse"    - explicit inverse computed host-side in f64, applied as a
 #                  dense matmul (or the packed symmetric kernel, see below)
 #   "auto"       - "inverse" on CUDA, "triangular" on the CPU
-FACTOR_SOLVE_MODE = os.environ.get("EPSILON_TPU_FACTOR_SOLVE", "auto")
+# Read only by use_explicit_inverse(); ops.linop.LuFactorOp.apply_mode turns
+# it into the apply of each factor.
+FACTOR_SOLVE_MODE = "auto"
 
-# Above this dimension, explicit-inverse symmetric factor applies stream the
-# packed lower triangle through the sym_packed CUDA kernel (half the device
+# From this dimension on, explicit-inverse symmetric factor applies stream the
+# packed lower triangle through the sym_packed kernel (half the device
 # memory traffic of a dense matvec; the apply is bandwidth-bound).
-SYM_PACKED_MIN_DIM = int(os.environ.get("EPSILON_TPU_SYM_PACKED_MIN", "8192"))
+SYM_PACKED_MIN_DIM = 8192
 
 _DEVICE = "cuda"
 
@@ -101,15 +101,3 @@ def use_explicit_inverse() -> bool:
     if FACTOR_SOLVE_MODE == "triangular":
         return False
     return on_cuda()
-
-
-def use_sym_packed(n: int) -> bool:
-    """Route a symmetric explicit-inverse apply of dimension n through the
-    packed-triangle kernel (CUDA only; ``EPSILON_TPU_SYM_PACKED=1`` forces
-    it on, where the CPU runs the kernel's plain PyTorch version)."""
-    force = os.environ.get("EPSILON_TPU_SYM_PACKED", "")
-    if force == "0":
-        return False
-    if force == "1":
-        return n >= SYM_PACKED_MIN_DIM
-    return use_explicit_inverse() and n >= SYM_PACKED_MIN_DIM and on_cuda()

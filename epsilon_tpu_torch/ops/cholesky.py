@@ -20,7 +20,7 @@ import torch
 
 from .. import config, native
 from .block import BlockMatrix, BlockVector
-from .linop import LinOp
+from .linop import LinOp, LuFactorOp
 
 __all__ = ["BlockCholesky"]
 
@@ -70,7 +70,7 @@ class BlockCholesky:
                     f"BlockCholesky: zero diagonal block at {pivot!r}; "
                     "system is not factorizable in this ordering")
             D_inv = D.inverse()
-            if config.use_explicit_inverse() and hasattr(D_inv, "_host_inv"):
+            if isinstance(D_inv, LuFactorOp) and D_inv.apply_mode() != "solve":
                 # a cached factor's device apply is its explicit inverse:
                 # form it here, with the factor, and not at its first apply
                 D_inv._host_inv()

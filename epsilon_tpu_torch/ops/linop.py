@@ -8,8 +8,8 @@ touch the device, as PyTorch tensors cached on the operator.
 Left out against the JAX package (TPU-only): constant lifting into ``jit``
 arguments, the tracer-aware device cache, the device-operand LRU for the
 host tunnel, and device-resident dense inverses (``_device_inverse``).  A
-symmetric pivot therefore always becomes a symmetric factor operator, which
-applies through the ``sym_packed`` kernel above ``config.SYM_PACKED_MIN_DIM``.
+symmetric pivot therefore always becomes a symmetric factor operator, whose
+device apply :meth:`LuFactorOp.apply_mode` picks.
 
 Vectorization convention is column-major (Fortran) ``vec``, so the
 Kronecker identity is ``(A (x) B) vec(X) = vec(B X A^T)``.
@@ -31,7 +31,7 @@ from .kernels.sym_packed import (SYM_TILE, pack_sym_tiles, sym_packed_matmul,
 
 __all__ = [
     "LinOp", "ScalarOp", "DiagonalOp", "DenseOp", "SparseOp", "KronOp",
-    "CholFactorOp", "LuFactorOp",
+    "LuFactorOp",
     "vec", "mat",
     "as_linop", "identity", "scalar", "diagonal", "dense", "sparse",
     "kronecker", "zero",
@@ -565,63 +565,6 @@ def _sym_packed_apply(op, X):
     return sym_packed_matmul(tiles, ii, jj, Xp, plan)[:n]
 
 
-class CholFactorOp(LinOp):
-    """Operator representing ``M^{-1}`` for SPD ``M``, via a cached
-    Cholesky factor."""
-
-    def __init__(self, M: np.ndarray):
-        M = np.asarray(M, dtype=np.float64)
-        self.L = scipy.linalg.cholesky(M, lower=True)
-        self.shape = M.shape
-
-    def _device_L(self):
-        return _cached(self, "_tL", lambda: to_tensor(self.L))
-
-    def _device_inv(self):
-        return _cached(self, "_tinv", lambda: to_tensor(self._host_inv()))
-
-    def _host_inv(self):
-        if getattr(self, "_hinv", None) is None or self._hinv.dtype != _dtype():
-            self._hinv = self.as_dense().astype(_dtype())
-        return self._hinv
-
-    def matvec(self, x):
-        if config.use_sym_packed(self.shape[0]):
-            return _sym_packed_apply(self, x[:, None])[:, 0]
-        if config.use_explicit_inverse():
-            return self._device_inv() @ x
-        return torch.cholesky_solve(x[:, None], self._device_L())[:, 0]
-
-    def matmat(self, X):
-        if config.use_sym_packed(self.shape[0]):
-            return _sym_packed_apply(self, X)
-        if config.use_explicit_inverse():
-            return self._device_inv() @ X
-        return torch.cholesky_solve(X, self._device_L())
-
-    def capturable(self):
-        # the explicit inverse's dense product; not K2 nor the solve
-        return (config.use_explicit_inverse()
-                and not config.use_sym_packed(self.shape[0]))
-
-    def host_matvec(self, x):
-        return scipy.linalg.cho_solve((self.L, True), np.asarray(x))
-
-    def as_dense(self):
-        n = self.shape[0]
-        return scipy.linalg.cho_solve((self.L, True), np.eye(n))
-
-    @property
-    def T(self):
-        return self  # symmetric
-
-    def scale(self, alpha):
-        return DenseOp(self.as_dense() * alpha)
-
-    def __repr__(self):
-        return f"CholFactor{self.shape}"
-
-
 class LuFactorOp(LinOp):
     """Operator representing ``M^{-1}`` for square (possibly indefinite)
     ``M`` via a cached LU factorization (quasi-definite KKT pivots)."""
@@ -647,6 +590,22 @@ class LuFactorOp(LinOp):
             torch.as_tensor(self.piv + 1, dtype=torch.int32,
                             device=config.device())))
 
+    def apply_mode(self) -> str:
+        """How this factor applies on the configured device: ``"packed"``
+        (the explicit inverse of a symmetric factor of dimension at least
+        ``config.SYM_PACKED_MIN_DIM``, through the sym_packed kernel),
+        ``"inverse"`` (the explicit inverse, a dense product) or ``"solve"``
+        (triangular solves with the LU factor).  Read at every eager apply
+        and by :meth:`capturable`, which the two-block solver asks before
+        each solve: only ``"inverse"`` is captured in a CUDA graph, so a
+        change of the config constants between solves changes the applies
+        that follow, replayed or not."""
+        if not config.use_explicit_inverse():
+            return "solve"
+        if self._sym and self.shape[0] >= config.SYM_PACKED_MIN_DIM:
+            return "packed"
+        return "inverse"
+
     def _host_inv(self):
         if getattr(self, "_hinv", None) is None or self._hinv.dtype != _dtype():
             self._hinv = self.as_dense().astype(_dtype())
@@ -656,26 +615,25 @@ class LuFactorOp(LinOp):
         return _cached(self, "_tinv", lambda: to_tensor(self._host_inv()))
 
     def matvec(self, x):
-        if self._sym and config.use_sym_packed(self.shape[0]):
-            return _sym_packed_apply(self, x[:, None])[:, 0]
-        if config.use_explicit_inverse():
-            return self._device_inv() @ x
-        return self._lu_solve(x[:, None])[:, 0]
+        mode = self.apply_mode()
+        if mode == "inverse":
+            return self._device_inv() @ x   # a GEMV, not a one-column GEMM
+        return self._apply(mode, x[:, None])[:, 0]
 
     def matmat(self, X):
-        if self._sym and config.use_sym_packed(self.shape[0]):
-            return _sym_packed_apply(self, X)
-        if config.use_explicit_inverse():
-            return self._device_inv() @ X
-        return self._lu_solve(X)
+        return self._apply(self.apply_mode(), X)
 
-    def _lu_solve(self, X):
+    def _apply(self, mode, X):
+        if mode == "packed":
+            return _sym_packed_apply(self, X)
+        if mode == "inverse":
+            return self._device_inv() @ X
         lu, piv = self._device_lu()
         return torch.linalg.lu_solve(lu, piv, X, adjoint=self.transposed)
 
     def capturable(self):
-        return config.use_explicit_inverse() and not (
-            self._sym and config.use_sym_packed(self.shape[0]))
+        # the explicit inverse's dense product; not K2 nor the solve
+        return self.apply_mode() == "inverse"
 
     def host_matvec(self, x):
         return scipy.linalg.lu_solve((self.lu, self.piv), np.asarray(x),

@@ -31,7 +31,6 @@ runs on tensors.
 
 from __future__ import annotations
 
-import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -156,9 +155,8 @@ def _stack_block(op) -> Optional[_Part]:
     port densifies it, else as a gather-scatter product with the pattern
     stacked beside the values: the JAX package lifts a BCOO's indices as
     data too, so patterns of equal nnz stack in both), a Kronecker product
-    (its two factors' parts), or a cached factor applied by the configured
-    solve mode (``config.FACTOR_SOLVE_MODE``); None for any other
-    structure."""
+    (its two factors' parts), or a cached factor applied as its
+    ``apply_mode()`` says; None for any other structure."""
     sv = op.scalar_value()
     if sv is not None:
         f = (lambda data, V: V) if sv == 1.0 else (lambda data, V: sv * V)
@@ -186,26 +184,22 @@ def _stack_block(op) -> Optional[_Part]:
         return _Part(("kron", a.sig, b.sig), a.arrays + b.arrays,
                      _kron_apply(a, b, nA, shapes, False),
                      _kron_apply(a, b, nA, shapes, True))
-    if isinstance(op, (linop.CholFactorOp, linop.LuFactorOp)):
+    if isinstance(op, linop.LuFactorOp):
         return _stack_factor(op)
     return None
 
 
 def _stack_factor(op) -> _Part:
-    """A cached factor ``M^{-1}`` over a stack: the explicit inverse where
-    the solve mode says so (the sym_packed storage of one factor has no
-    batched form; the product is the same), else batched triangular
-    solves."""
+    """A cached factor ``M^{-1}`` over a stack, by ``op.apply_mode()``:
+    batched triangular solves for ``"solve"``, else the explicit inverse
+    (the sym_packed storage of one factor has no batched form; the product
+    is the same)."""
     n = op.shape[0]
-    if config.use_explicit_inverse():
+    if op.apply_mode() != "solve":
         inv = op._host_inv()
         return _Part(("inverse",) + _np_sig(inv), [inv],
                      lambda data, V: V @ data[0].transpose(1, 2),
                      lambda data, V: V @ data[0])
-    if isinstance(op, linop.CholFactorOp):
-        def chol(data, V):
-            return torch.cholesky_solve(V.transpose(1, 2), data[0]).transpose(1, 2)
-        return _Part(("cholesky", n), [op.L], chol, chol)
 
     def lu(adjoint):
         def fn(data, V):
@@ -621,8 +615,7 @@ class VectorProxOperator(ProxOperator):
 # ---------------------------------------------------------------------------
 
 # Same threshold as the JAX package, so both take the same branch.
-_COLLAPSE_MAX_ENTRIES = float(os.environ.get(
-    "EPSILON_TPU_COLLAPSE_MAX_ENTRIES", "1.6e7"))
+_COLLAPSE_MAX_ENTRIES = 1.6e7
 
 
 class _CollapsedKKT:

@@ -10,6 +10,7 @@ without a CUDA device; this file imports neither JAX nor the JAX package:
 """
 
 import collections
+import gc
 import importlib
 
 import numpy as np
@@ -126,17 +127,25 @@ def test_a_solve_keeps_what_it_returned(cuda):
 
 
 def test_old_graphs_are_released_over_a_path(cuda):
-    A, b = _data(150, 500)
-    lams = _path(A, b, 10)
-    prob, _, p = _problem(A, b, lams[0])
-    prob.solve(**SOLVE)
-    allocated = []
-    for step in range(100):
-        # each step a new lam: the norm's operator is rebuilt, the epoch
-        # captured anew
-        p.value = np.array([[lams[1 + step % 9] * (1.0 + 1e-3 * step)]])
+    # what earlier tests left in reference cycles goes first; then no
+    # collection runs, so the readings also count what the path's own steps
+    # leave in cycles
+    gc.collect()
+    gc.disable()
+    try:
+        A, b = _data(150, 500)
+        lams = _path(A, b, 10)
+        prob, _, p = _problem(A, b, lams[0])
         prob.solve(**SOLVE)
-        if step in (9, 99):
-            torch.cuda.synchronize()
-            allocated.append(torch.cuda.memory_allocated())
+        allocated = []
+        for step in range(100):
+            # each step a new lam: the norm's operator is rebuilt, the epoch
+            # captured anew
+            p.value = np.array([[lams[1 + step % 9] * (1.0 + 1e-3 * step)]])
+            prob.solve(**SOLVE)
+            if step in (9, 99):
+                torch.cuda.synchronize()
+                allocated.append(torch.cuda.memory_allocated())
+    finally:
+        gc.enable()
     assert abs(allocated[1] - allocated[0]) <= 2 ** 20

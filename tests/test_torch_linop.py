@@ -10,7 +10,10 @@ from epsilon_tpu import config as jconfig
 from epsilon_tpu.ops import linop as jl
 from epsilon_tpu_torch import config as tconfig
 from epsilon_tpu_torch.ops import linop as tl
+from epsilon_tpu_torch.ops.block import BlockMatrix
+from epsilon_tpu_torch.ops.cholesky import BlockCholesky
 from epsilon_tpu_torch.ops.kernels import sym_packed as sp
+from epsilon_tpu_torch.ops.prox.operator import _stack_factor
 
 
 @pytest.fixture(autouse=True)
@@ -24,35 +27,33 @@ def _t(a):
 
 def _solve_mode(monkeypatch, mode):
     """Select a factor-apply mode in both packages; "sym_packed" is the
-    explicit inverse with the packed kernel forced on at n >= 64."""
+    explicit inverse with the packed path from n = 64 on.  The JAX package
+    reads its packed switch from the environment, the port from its
+    config constants alone."""
     factor = "triangular" if mode == "triangular" else "inverse"
     monkeypatch.setattr(jconfig, "FACTOR_SOLVE_MODE", factor)
     monkeypatch.setattr(tconfig, "FACTOR_SOLVE_MODE", factor)
     monkeypatch.setenv("EPSILON_TPU_SYM_PACKED", "1" if mode == "sym_packed" else "0")
-    monkeypatch.setattr(jconfig, "SYM_PACKED_MIN_DIM", 64)
-    monkeypatch.setattr(tconfig, "SYM_PACKED_MIN_DIM", 64)
+    if mode == "sym_packed":
+        monkeypatch.setattr(jconfig, "SYM_PACKED_MIN_DIM", 64)
+        monkeypatch.setattr(tconfig, "SYM_PACKED_MIN_DIM", 64)
 
 
 @pytest.mark.parametrize("mode", ["triangular", "inverse", "sym_packed"])
-@pytest.mark.parametrize("kind", ["lu_symmetric", "cholesky"])
-def test_factor_op_applies_match_jax(rng, monkeypatch, mode, kind):
-    _check_factor_op(rng, monkeypatch, mode, kind, n=150)
+def test_factor_op_applies_match_jax(rng, monkeypatch, mode):
+    _check_factor_op(rng, monkeypatch, mode, n=150)
 
 
-@pytest.mark.parametrize("kind", ["lu_symmetric", "cholesky"])
-def test_sym_packed_apply_without_padding_matches_jax(rng, monkeypatch, kind):
+def test_sym_packed_apply_without_padding_matches_jax(rng, monkeypatch):
     # n a multiple of the tile: the apply passes x to the kernel unpadded
-    _check_factor_op(rng, monkeypatch, "sym_packed", kind, n=2 * sp.SYM_TILE)
+    _check_factor_op(rng, monkeypatch, "sym_packed", n=2 * sp.SYM_TILE)
 
 
-def _check_factor_op(rng, monkeypatch, mode, kind, n):
+def _check_factor_op(rng, monkeypatch, mode, n):
     _solve_mode(monkeypatch, mode)
     A = rng.randn(n, n)
     M = A @ A.T + n * np.eye(n)
-    if kind == "lu_symmetric":
-        jop, top = jl.LuFactorOp.symmetric(M), tl.LuFactorOp.symmetric(M)
-    else:
-        jop, top = jl.CholFactorOp(M), tl.CholFactorOp(M)
+    jop, top = jl.LuFactorOp.symmetric(M), tl.LuFactorOp.symmetric(M)
     x, X = rng.randn(n), rng.randn(n, 4)
     calls = []
     real = sp.sym_packed_matmul_reference
@@ -68,6 +69,37 @@ def _check_factor_op(rng, monkeypatch, mode, kind, n):
     np.testing.assert_allclose(top.matvec(_t(x)).numpy(), np.linalg.solve(M, x),
                                rtol=1e-9, atol=1e-12)
     assert bool(calls) == (mode == "sym_packed")
+
+
+@pytest.mark.parametrize("solve_mode", ["auto", "triangular", "inverse"])
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("n", [63, 64])
+def test_factor_apply_mode(rng, monkeypatch, solve_mode, sym, n):
+    """The factor's one apply decision on the CPU, with the packed path
+    from n = 64 on, and every site that asks it: the capture gate, the
+    host inverse formed with the factor, the stacked part's kind, and the
+    apply itself (K2's plain version for "packed")."""
+    monkeypatch.setattr(tconfig, "FACTOR_SOLVE_MODE", solve_mode)
+    monkeypatch.setattr(tconfig, "SYM_PACKED_MIN_DIM", 64)
+    A = rng.randn(n, n)
+    M = A @ A.T + n * np.eye(n) if sym else A + n * np.eye(n)
+    chol = BlockCholesky(BlockMatrix({("x", "x"): tl.dense(M)})).factor()
+    op = chol._steps[0][1]
+    assert isinstance(op, tl.LuFactorOp) and op._sym == sym
+    want = ("solve" if solve_mode != "inverse"
+            else "packed" if sym and n >= 64 else "inverse")
+    assert op.apply_mode() == want
+    assert op.capturable() == (want == "inverse")
+    assert (getattr(op, "_hinv", None) is not None) == (want != "solve")
+    assert _stack_factor(op).sig[0] == ("lu" if want == "solve" else "inverse")
+    calls = []
+    real = sp.sym_packed_matmul_reference
+    monkeypatch.setattr(sp, "sym_packed_matmul_reference",
+                        lambda *a: calls.append(1) or real(*a))
+    x = rng.randn(n)
+    np.testing.assert_allclose(op.matvec(_t(x)).numpy(), np.linalg.solve(M, x),
+                               rtol=1e-9, atol=1e-12)
+    assert bool(calls) == (want == "packed")
 
 
 def test_lu_factor_op_transposed_solve(rng, monkeypatch):

@@ -81,6 +81,18 @@ def test_the_lasso_by_triangular_solves_is_not(monkeypatch):
     assert not solver.graph_capturable()
 
 
+def test_a_packed_factor_is_not_and_is_asked_anew(monkeypatch):
+    """A factor that K2 applies (``apply_mode`` "packed") is not capturable,
+    and the predicate asks the factors at each call: constants changed
+    between two solves decide whether the second replays."""
+    solver = _solver(_lasso())
+    assert solver.graph_capturable()
+    monkeypatch.setattr(config, "SYM_PACKED_MIN_DIM", 1)
+    assert not solver.graph_capturable()
+    monkeypatch.setattr(config, "SYM_PACKED_MIN_DIM", 8192)
+    assert solver.graph_capturable()
+
+
 @pytest.mark.parametrize("build,kind", [(_tv, "total_variation_1d"), (_covsel, "neg_log_det")])
 def test_tv_and_the_graphical_lasso_are_not_capturable(build, kind):
     solver = _solver(build())

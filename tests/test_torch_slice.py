@@ -63,16 +63,18 @@ def assert_series_close(got, want):
 @pytest.fixture(params=["collapsed", "sym_packed", "sym_packed_factored"])
 def path(request, monkeypatch):
     """collapsed: the default CPU path (the SUM_SQUARE KKT folds into one
-    dense solve).  sym_packed: explicit-inverse mode with the packed kernel
-    forced on at n >= 64 in both packages, so the 80-dimensional pivot
-    applies through K2 (at set-up, when the KKT collapses).
+    dense solve).  sym_packed: explicit-inverse mode with the packed path
+    from n = 64 on in both packages (the JAX package's forced on by its
+    environment switch, the port's by its config constants alone), so the
+    80-dimensional pivot applies through K2 (at set-up, when the KKT
+    collapses).
     sym_packed_factored: the same with the collapse off, so K2 runs every
     iteration, as at n = 8192 on the card."""
     if request.param != "collapsed":
         for cfg in (jconfig, tconfig):
             monkeypatch.setattr(cfg, "FACTOR_SOLVE_MODE", "inverse")
             monkeypatch.setattr(cfg, "SYM_PACKED_MIN_DIM", 64)
-        monkeypatch.setenv("EPSILON_TPU_SYM_PACKED", "1")
+        monkeypatch.setenv("EPSILON_TPU_SYM_PACKED", "1")   # the JAX package's
     if request.param == "sym_packed_factored":
         monkeypatch.setattr(jop, "_COLLAPSE_MAX_ENTRIES", 0.0)
         monkeypatch.setattr(top, "_COLLAPSE_MAX_ENTRIES", 0.0)

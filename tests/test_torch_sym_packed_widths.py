@@ -1,8 +1,9 @@
 """Which operators send several columns of x (R >= 2) to K2
 (``sym_packed``), and on which problems.  On the CPU with the packed path
-forced in both packages (``EPSILON_TPU_SYM_PACKED=1``, the explicit-inverse
-solve mode and ``SYM_PACKED_MIN_DIM`` lowered, as
-``tests/test_pallas_kernels.py`` forces the JAX kernel), the widths that
+taken in both packages (the explicit-inverse solve mode and
+``SYM_PACKED_MIN_DIM`` lowered in both; the JAX package also needs
+``EPSILON_TPU_SYM_PACKED=1``, as ``tests/test_pallas_kernels.py`` forces
+its kernel), the widths that
 reach each package's ``_sym_packed_apply`` are recorded and the port's
 solve (K2's plain version) is held to the JAX package's (the Pallas kernel
 in interpret mode):
@@ -50,13 +51,13 @@ def _cpu():
 
 @pytest.fixture
 def widths(monkeypatch):
-    """Force the packed path in both packages; returns the lists of x's
+    """Take the packed path in both packages; returns the lists of x's
     widths that reach the port's and the JAX package's packed apply (the
     JAX package's once a trace)."""
     for cfg in (jconfig, tconfig):
         monkeypatch.setattr(cfg, "FACTOR_SOLVE_MODE", "inverse")
         monkeypatch.setattr(cfg, "SYM_PACKED_MIN_DIM", MIN_DIM)
-    monkeypatch.setenv("EPSILON_TPU_SYM_PACKED", "1")
+    monkeypatch.setenv("EPSILON_TPU_SYM_PACKED", "1")   # the JAX package's
     seen = {"port": [], "jax": []}
     for key, mod in (("port", tlinop), ("jax", jlinop)):
         real = mod._sym_packed_apply
